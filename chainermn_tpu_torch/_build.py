@@ -100,8 +100,12 @@ def _build(out):
 def _bind(lib):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.flash_attention_fwd
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
-                   ll, ll, ll, i, ctypes.c_float, p]
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, *[ll] * 9, i,
+                   ctypes.c_float, p]
+    fn.restype = i
+    fn = lib.flash_attention_bwd
+    fn.argtypes = [*[p] * 9, i, i, i, i, i, i, *[ll] * 12, i,
+                   ctypes.c_float, p]
     fn.restype = i
     return lib
 

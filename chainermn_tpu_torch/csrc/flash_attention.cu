@@ -1,5 +1,9 @@
 // Flash attention forward for Hopper (sm_90a): the CUDA counterpart of
-// chainermn_tpu/ops/flash_attention.py::_flash_kernel.
+// chainermn_tpu/ops/flash_attention.py::_flash_kernel and, with a non-null
+// lse pointer, of _flash_kernel_lse (the training forward), which also
+// writes the row statistic lse = m_safe + log(max(l, 1e-30)) in fp32: m_safe
+// is 0 for a row with no live key, so such a row's lse is finite (-69.08).
+// One kernel body serves both; the lse store is a template flag.
 //
 // What it computes: out = softmax(scale * q k^T [causal mask]) v for
 // q [B, H, Tq, D] and k/v [B, H, Tk, D], with the JAX kernel's numerics:
@@ -14,7 +18,10 @@
 // B = 1, H = 12, T = 1024, D = 64 causal (one serving prefill layer), the
 // causal QK^T + PV work is 4 * B*H * D * T(T+1)/2 = 1.61 GFLOP (1.6 us)
 // and q/k/v/o are 4 * B*H*T*D * 2 B = 6.3 MB (1.9 us), so a launch cannot
-// take less than about 2 us and is bytes-bound at this size.
+// take less than about 2 us and is bytes-bound at this size.  At the
+// training shape (B = 8, same H/T/D) the lse forward does 12.9 GFLOP
+// (13.0 us) and moves q/k/v/o plus the fp32 lse, 50.7 MB (15.1 us): bytes
+// again.
 //
 // How the design answers it: one block of 4 warps per (b*h, 64-row q
 // tile), each warp owning 16 q rows.  K/V tiles of 64 rows are staged in
@@ -37,7 +44,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using flash::mma_bf16;
+using flash::pack_bf16;
+using flash::Pad;
 
 constexpr int kBlockQ = 64;   // q rows per block
 constexpr int kBlockK = 64;   // key rows per shared-memory tile
@@ -49,6 +62,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B*H, Tq], or null for the plain forward
   int H, Tq, Tk;
   long long sqb, sqh, sqt;
   long long skb, skh, skt;
@@ -56,56 +70,6 @@ struct Params {
   int causal;
   float scale;
 };
-
-template <typename T>
-struct Pad {  // 16 bytes of padding per shared-memory row
-  static constexpr int value = 16 / sizeof(T);
-};
-
-// Copy `rows` rows of D elements (row r at src + r * stride) into a padded
-// shared tile; rows at or past `valid` are zero-filled, so masked keys
-// contribute p = 0 against finite values (0 * garbage could be NaN).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long stride, int valid) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
-  constexpr int kLd = D + Pad<T>::value;
-  for (int i = threadIdx.x; i < kBlockK * kChunks; i += kThreads) {
-    int r = i / kChunks;
-    int c = (i % kChunks) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) {
-      val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a * b for one m16n8k16 tile: A row-major 16x16 bf16, B 16x8 bf16
-// ("col"), C/D 16x8 fp32.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Fragment layout shared by both element types (the mma C layout): lane =
 // 4 * g + t holds, for n-tile j, columns 8j + 2t and 8j + 2t + 1 of rows
@@ -167,10 +131,6 @@ struct Tile<__nv_bfloat16, D> {
     }
   }
 
-  __device__ static void store(T* out, int row, int col, float a, float b) {
-    *reinterpret_cast<uint32_t*>(out + (long long)row * D + col) =
-        pack_bf16(a, b);
-  }
 };
 
 template <int D>
@@ -230,10 +190,6 @@ struct Tile<float, D> {
     __syncwarp();
   }
 
-  __device__ static void store(T* out, int row, int col, float a, float b) {
-    *reinterpret_cast<float2*>(out + (long long)row * D + col) =
-        make_float2(a, b);
-  }
 };
 
 template <typename T>
@@ -247,7 +203,7 @@ constexpr size_t smem_bytes() {
          scratch_floats<T>() * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const Params prm) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -271,7 +227,8 @@ __global__ void __launch_bounds__(kThreads)
   const T* vg = static_cast<const T*>(prm.v) + b * prm.svb + h * prm.svh;
   T* og = static_cast<T*>(prm.o) + ((long long)bh * prm.Tq + q_start) * D;
 
-  load_tile<T, D>(qs, qg, prm.sqt, prm.Tq - q_start);
+  flash::load_tile<T, D, kBlockQ, kThreads>(qs, qg, prm.sqt,
+                                            prm.Tq - q_start);
   __syncthreads();
   Tile<T, D> tile;
   tile.load_q(qs + warp * 16 * kLd, g, t);
@@ -291,8 +248,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < last; ++kt) {
     const int k_start = kt * kBlockK;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(ks, kg + k_start * prm.skt, prm.skt, prm.Tk - k_start);
-    load_tile<T, D>(vs, vg + k_start * prm.svt, prm.svt, prm.Tk - k_start);
+    flash::load_tile<T, D, kBlockK, kThreads>(ks, kg + k_start * prm.skt,
+                                              prm.skt, prm.Tk - k_start);
+    flash::load_tile<T, D, kBlockK, kThreads>(vs, vg + k_start * prm.svt,
+                                              prm.svt, prm.Tk - k_start);
     __syncthreads();
 
     tile.qk(s, ks, g, t);
@@ -351,41 +310,57 @@ __global__ void __launch_bounds__(kThreads)
   for (int nd = 0; nd < D / 8; ++nd) {
     const int col = 8 * nd + 2 * t;
     if (row0 < prm.Tq)
-      Tile<T, D>::store(og, lr0, col, o[nd][0] * inv[0], o[nd][1] * inv[0]);
+      flash::store2(og, (long long)lr0 * D + col, o[nd][0] * inv[0],
+                    o[nd][1] * inv[0]);
     if (row1 < prm.Tq)
-      Tile<T, D>::store(og, lr0 + 8, col, o[nd][2] * inv[1],
-                        o[nd][3] * inv[1]);
+      flash::store2(og, (long long)(lr0 + 8) * D + col, o[nd][2] * inv[1],
+                    o[nd][3] * inv[1]);
+  }
+  if (kLse && t == 0) {  // one lane of each quad holds the row's m and l
+    float* lse = prm.lse + (long long)bh * prm.Tq;
+    if (row0 < prm.Tq)
+      lse[row0] = (isfinite(m[0]) ? m[0] : 0.f) + logf(fmaxf(l[0], 1e-30f));
+    if (row1 < prm.Tq)
+      lse[row1] = (isfinite(m[1]) ? m[1] : 0.f) + logf(fmaxf(l[1], 1e-30f));
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Params& prm, int B, cudaStream_t stream) {
+template <typename T, int D, bool kLse>
+cudaError_t launch_as(const Params& prm, int B, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_fwd_kernel<T, D, kLse>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   dim3 grid((prm.Tq + kBlockQ - 1) / kBlockQ, B * prm.H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(prm);
+  flash_fwd_kernel<T, D, kLse><<<grid, kThreads, smem, stream>>>(prm);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const Params& prm, int B, cudaStream_t stream) {
+  return prm.lse ? launch_as<T, D, true>(prm, B, stream)
+                 : launch_as<T, D, false>(prm, B, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32.  Returns a cudaError_t (0 = success);
+// dtype: 0 = bfloat16, 1 = float32.  lse: fp32 [B*H, Tq] output, or null
+// for the forward without it.  Returns a cudaError_t (0 = success);
 // cudaErrorInvalidValue for a dtype or head dim the kernel has no
 // instantiation for.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype, int B,
     int H, int Tq, int Tk, int D, long long sqb, long long sqh,
     long long sqt, long long skb, long long skh, long long skt,
     long long svb, long long svh, long long svt, int causal, float scale,
     void* stream) {
-  Params prm{q, k, v, o, H, Tq, Tk, sqb, sqh, sqt, skb, skh, skt,
+  Params prm{q, k, v, o, lse, H, Tq, Tk, sqb, sqh, sqt, skb, skh, skt,
              svb, svh, svt, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64>(prm, B, s);

@@ -1,0 +1,441 @@
+// Fused flash attention backward for Hopper (sm_90a): the CUDA counterpart
+// of chainermn_tpu/ops/flash_attention.py::_flash_bwd_fused_kernel (with the
+// XLA sum of its dq partial planes folded in).
+//
+// What it computes, for q/g [B, H, Tq, D], k/v [B, H, Tk, D], the forward's
+// row statistic lse [B*H, Tq] (fp32) and delta = rowsum(g * out) - g_lse
+// [B*H, Tq] (fp32, computed by the caller as in the JAX wrapper): for every
+// (q tile, key tile) pair, once,
+//     p  = exp(scale * q k^T - lse)      (0 where masked: causal, ragged)
+//     ds = p * (g v^T - delta)
+//     dv += p^T g,   dk += ds^T q,   dq += ds k
+// with dk and dq multiplied by `scale` at the end.  The JAX kernel's points
+// of rounding are kept: q/k/v/g enter the dots in their storage dtype with
+// fp32 accumulation, p is cast to g's dtype before the dv dot and ds to
+// q's/k's dtype before the dk and dq dots.
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM): at the
+// training shape B = 8, H = 12, T = 1024, D = 64, causal (524,800 live
+// (q, k) pairs per head), the five dots are 10 * B*H * D * pairs = 32.2
+// GFLOP (32.6 us); q, k, v, g in, dq, dk, dv out (bf16) plus lse and delta
+// (fp32) are at least 88.9 MB (26.5 us).  Bound: ~33 us, set by operations.
+//
+// How the design answers it: one block of 4 warps per (b*h, 64-row key
+// tile); each warp owns 16 keys.  The key tile's k and v stay in shared
+// memory for the whole block, and dk, dv accumulate in fp32 registers
+// across the q tiles (under `causal` the q loop starts at the first tile
+// that reaches the key tile).  Each step stages a 64-row q tile and its g
+// rows, lse and delta in shared memory and computes the score tile
+// key-major, s^T = k q^T, so that p^T and ds^T are already the A operand of
+// dv += p^T g and dk += ds^T q (mma.sync m16n8k16 bf16, fp32 accumulate,
+// the accumulator fragments reused in place as in the forward).  dq needs
+// ds q-major: ds^T is staged through shared memory and read back
+// transposed with ldmatrix.trans (the FlashAttention-2 layout); the B
+// operands of the three transposed products come the same way.  Blocks
+// cannot reduce across the grid on Hopper, so each block adds its dq
+// contribution into one zeroed fp32 [B*H, Tq, D] buffer with atomicAdd;
+// the caller scales and casts it (atomics make dq's low bits depend on
+// the order of the adds).  fp32 inputs take the same tiling with the dots
+// on CUDA cores, staging p^T and ds^T through shared memory: a parity
+// path, not a fast one.  Single-buffered loads, no TMA, no wgmma.
+//
+// Plain C interface (bound with ctypes), like the forward: the launcher
+// returns cudaGetLastError(), launches on the caller's stream and
+// allocates nothing.  Strides are in elements; the last dimension must be
+// dense and every row 16-byte aligned (the Python wrapper checks).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
+
+namespace {
+
+using flash::mma_bf16;
+using flash::pack_bf16;
+using flash::Pad;
+
+constexpr int kBlockK = 64;  // key rows per block
+constexpr int kBlockQ = 64;  // q rows per inner step
+constexpr int kWarps = 4;    // 16 keys per warp
+constexpr int kThreads = kWarps * 32;
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* g;
+  const float* lse;    // [B*H, Tq]
+  const float* delta;  // [B*H, Tq]
+  float* dq;           // [B*H, Tq, D] fp32, zeroed by the caller, unscaled
+  void* dk;            // [B*H, Tk, D]
+  void* dv;            // [B*H, Tk, D]
+  int H, Tq, Tk;
+  long long sqb, sqh, sqt;
+  long long skb, skh, skt;
+  long long svb, svh, svt;
+  long long sgb, sgh, sgt;
+  int causal;
+  float scale;
+};
+
+// The tile products, per element type.  Fragments follow the mma C layout
+// (flash_common.cuh): a warp's [16, 64] key-by-q tile is float x[8][4],
+// its [16, D] accumulators float x[D / 8][4].
+template <typename T, int D>
+struct Ops;
+
+template <int D>
+struct Ops<__nv_bfloat16, D> {
+  using T = __nv_bfloat16;
+  static constexpr int kLd = D + Pad<T>::value;        // k/v/q/g rows
+  static constexpr int kLdS = kBlockQ + Pad<T>::value;  // staged ds^T rows
+
+  // acc[j] = A . B^T over D: A = the warp's 16 rows at a, B = the 64 rows
+  // of the q tile at b (acc rows: keys, columns: q).
+  __device__ static void nt(float (*acc)[4], const T* a, const T* b, int g,
+                            int t) {
+    uint32_t af[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const T* r0 = a + g * kLd + kk * 16 + 2 * t;
+      const T* r1 = r0 + 8 * kLd;
+      af[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
+      af[kk][1] = *reinterpret_cast<const uint32_t*>(r1);
+      af[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+      af[kk][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
+    }
+#pragma unroll
+    for (int j = 0; j < kBlockQ / 8; ++j) {
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      const T* br = b + (8 * j + g) * kLd + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t b0 = *reinterpret_cast<const uint32_t*>(br + kk * 16);
+        uint32_t b1 = *reinterpret_cast<const uint32_t*>(br + kk * 16 + 8);
+        mma_bf16(acc[j], af[kk], b0, b1);
+      }
+    }
+  }
+
+  // out += bf16(x) . B over the 64 q rows: x is the warp's [16, 64] tile
+  // (reused in place as the A operand), B = the q tile's [64, D] rows at b,
+  // read transposed by ldmatrix.
+  __device__ static void nn(float (*out)[4], float (*x)[4], const T* b, T*,
+                            int lane) {
+#pragma unroll
+    for (int kk = 0; kk < kBlockQ / 16; ++kk) {
+      uint32_t xa[4];
+      xa[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+      xa[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+      xa[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+      xa[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+      const T* row =
+          b + (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLd +
+          (lane >> 4) * 8;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; nd += 2) {
+        uint32_t bf[4];
+        flash::ldsm_x4_trans(bf, row + 8 * nd);
+        mma_bf16(out[nd], xa, bf[0], bf[1]);
+        mma_bf16(out[nd + 1], xa, bf[2], bf[3]);
+      }
+    }
+  }
+
+  // Write the warp's [16, 64] tile x, cast to bf16, to its rows at s.
+  __device__ static void stage(T* s, float (*x)[4], int g, int t) {
+#pragma unroll
+    for (int j = 0; j < kBlockQ / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(s + g * kLdS + 8 * j + 2 * t) =
+          pack_bf16(x[j][0], x[j][1]);
+      *reinterpret_cast<uint32_t*>(s + (g + 8) * kLdS + 8 * j + 2 * t) =
+          pack_bf16(x[j][2], x[j][3]);
+    }
+  }
+
+  // out = ds . k for q rows qw..qw+15 of the tile: ds^T is staged at s
+  // ([64 keys, kLdS]) and read transposed; k is the block's [64, D] tile.
+  __device__ static void dq(float (*out)[4], const T* s, const T* kb, int qw,
+                            int lane) {
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      out[nd][0] = out[nd][1] = out[nd][2] = out[nd][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      uint32_t a[4];
+      flash::ldsm_x4_trans(
+          a, s + (16 * kk + (lane >> 4) * 8 + (lane & 7)) * kLdS + qw +
+                 ((lane >> 3) & 1) * 8);
+      const T* row =
+          kb + (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLd +
+          (lane >> 4) * 8;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; nd += 2) {
+        uint32_t bf[4];
+        flash::ldsm_x4_trans(bf, row + 8 * nd);
+        mma_bf16(out[nd], a, bf[0], bf[1]);
+        mma_bf16(out[nd + 1], a, bf[2], bf[3]);
+      }
+    }
+  }
+};
+
+template <int D>
+struct Ops<float, D> {
+  using T = float;
+  static constexpr int kLd = D + Pad<T>::value;
+  static constexpr int kLdS = kBlockQ + Pad<T>::value;
+
+  __device__ static void nt(float (*acc)[4], const T* a, const T* b, int g,
+                            int t) {
+    const T* a0 = a + g * kLd;
+    const T* a1 = a0 + 8 * kLd;
+#pragma unroll
+    for (int j = 0; j < kBlockQ / 8; ++j) {
+      const T* b0 = b + (8 * j + 2 * t) * kLd;
+      const T* b1 = b0 + kLd;
+      float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
+      for (int d = 0; d < D; ++d) {
+        c0 = fmaf(a0[d], b0[d], c0);
+        c1 = fmaf(a0[d], b1[d], c1);
+        c2 = fmaf(a1[d], b0[d], c2);
+        c3 = fmaf(a1[d], b1[d], c3);
+      }
+      acc[j][0] = c0; acc[j][1] = c1; acc[j][2] = c2; acc[j][3] = c3;
+    }
+  }
+
+  // x goes through the warp's own rows of the staging buffer: every output
+  // element needs a whole row of x, which is spread over four lanes.
+  __device__ static void nn(float (*out)[4], float (*x)[4], const T* b,
+                            T* s, int lane) {
+    const int g = lane / 4, t = lane % 4;
+    stage(s, x, g, t);
+    __syncwarp();
+    const float* x0 = s + g * kLdS;
+    const float* x1 = x0 + 8 * kLdS;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const T* bc = b + 8 * nd + 2 * t;
+      float c0 = out[nd][0], c1 = out[nd][1], c2 = out[nd][2],
+            c3 = out[nd][3];
+      for (int q = 0; q < kBlockQ; ++q) {
+        float b0 = bc[q * kLd], b1 = bc[q * kLd + 1];
+        c0 = fmaf(x0[q], b0, c0);
+        c1 = fmaf(x0[q], b1, c1);
+        c2 = fmaf(x1[q], b0, c2);
+        c3 = fmaf(x1[q], b1, c3);
+      }
+      out[nd][0] = c0; out[nd][1] = c1; out[nd][2] = c2; out[nd][3] = c3;
+    }
+    __syncwarp();
+  }
+
+  __device__ static void stage(T* s, float (*x)[4], int g, int t) {
+#pragma unroll
+    for (int j = 0; j < kBlockQ / 8; ++j) {
+      s[g * kLdS + 8 * j + 2 * t] = x[j][0];
+      s[g * kLdS + 8 * j + 2 * t + 1] = x[j][1];
+      s[(g + 8) * kLdS + 8 * j + 2 * t] = x[j][2];
+      s[(g + 8) * kLdS + 8 * j + 2 * t + 1] = x[j][3];
+    }
+  }
+
+  __device__ static void dq(float (*out)[4], const T* s, const T* kb, int qw,
+                            int lane) {
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const T* kc = kb + 8 * nd + 2 * t;
+      float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
+      for (int key = 0; key < kBlockK; ++key) {
+        const float d0 = s[key * kLdS + qw + g];
+        const float d1 = s[key * kLdS + qw + g + 8];
+        const float k0 = kc[key * kLd], k1 = kc[key * kLd + 1];
+        c0 = fmaf(d0, k0, c0);
+        c1 = fmaf(d0, k1, c1);
+        c2 = fmaf(d1, k0, c2);
+        c3 = fmaf(d1, k1, c3);
+      }
+      out[nd][0] = c0; out[nd][1] = c1; out[nd][2] = c2; out[nd][3] = c3;
+    }
+  }
+};
+
+template <typename T, int D>
+constexpr size_t smem_bytes() {
+  return (2 * kBlockK + 2 * kBlockQ) * Ops<T, D>::kLd * sizeof(T) +
+         kBlockK * Ops<T, D>::kLdS * sizeof(T) + 2 * kBlockQ * sizeof(float);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_kernel(const Params prm) {
+  using O = Ops<T, D>;
+  constexpr int kLd = O::kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + kBlockK * kLd;
+  T* qs = vs + kBlockK * kLd;
+  T* gs = qs + kBlockQ * kLd;
+  T* dss = gs + kBlockQ * kLd;  // ds^T (and, for fp32, p^T) staging
+  float* lse_s = reinterpret_cast<float*>(dss + kBlockK * O::kLdS);
+  float* delta_s = lse_s + kBlockQ;
+
+  const int kt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / prm.H, h = bh % prm.H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k_start = kt * kBlockK;
+
+  flash::load_tile<T, D, kBlockK, kThreads>(
+      ks, static_cast<const T*>(prm.k) + b * prm.skb + h * prm.skh +
+              k_start * prm.skt,
+      prm.skt, prm.Tk - k_start);
+  flash::load_tile<T, D, kBlockK, kThreads>(
+      vs, static_cast<const T*>(prm.v) + b * prm.svb + h * prm.svh +
+              k_start * prm.svt,
+      prm.svt, prm.Tk - k_start);
+  const T* qg = static_cast<const T*>(prm.q) + b * prm.sqb + h * prm.sqh;
+  const T* gg = static_cast<const T*>(prm.g) + b * prm.sgb + h * prm.sgh;
+  const float* lse_g = prm.lse + (long long)bh * prm.Tq;
+  const float* delta_g = prm.delta + (long long)bh * prm.Tq;
+  float* dq_g = prm.dq + (long long)bh * prm.Tq * D;
+
+  const T* kw = ks + warp * 16 * kLd;  // this warp's 16 keys
+  const T* vw = vs + warp * 16 * kLd;
+  T* dsw = dss + warp * 16 * O::kLdS;
+  const int key0 = k_start + warp * 16 + g;  // this lane's two keys:
+  const int key1 = key0 + 8;                  // key0 and key0 + 8
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    dk[nd][0] = dk[nd][1] = dk[nd][2] = dk[nd][3] = 0.f;
+    dv[nd][0] = dv[nd][1] = dv[nd][2] = dv[nd][3] = 0.f;
+  }
+
+  const int n_qt = (prm.Tq + kBlockQ - 1) / kBlockQ;
+  // under causal only q tiles at or after the key tile reach it
+  // (kBlockQ == kBlockK, so that is tile kt)
+  const int first = prm.causal ? kt : 0;
+  float s[kBlockQ / 8][4], dp[kBlockQ / 8][4];
+  for (int qt = first; qt < n_qt; ++qt) {
+    const int q_start = qt * kBlockQ;
+    __syncthreads();  // the previous step's readers are done
+    flash::load_tile<T, D, kBlockQ, kThreads>(qs, qg + q_start * prm.sqt,
+                                              prm.sqt, prm.Tq - q_start);
+    flash::load_tile<T, D, kBlockQ, kThreads>(gs, gg + q_start * prm.sgt,
+                                              prm.sgt, prm.Tq - q_start);
+    for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
+      const bool live = q_start + i < prm.Tq;
+      lse_s[i] = live ? lse_g[q_start + i] : 0.f;
+      delta_s[i] = live ? delta_g[q_start + i] : 0.f;
+    }
+    __syncthreads();
+
+    O::nt(s, kw, qs, g, t);  // s^T = k q^T (unscaled)
+#pragma unroll
+    for (int j = 0; j < kBlockQ / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * j + 2 * t + (e & 1);
+        const int qpos = q_start + qi;
+        const int kpos = e < 2 ? key0 : key1;
+        const bool ok = qpos < prm.Tq && kpos < prm.Tk &&
+                        (!prm.causal || kpos <= qpos);
+        s[j][e] = ok ? expf(s[j][e] * prm.scale - lse_s[qi]) : 0.f;  // p^T
+      }
+    }
+    O::nt(dp, vw, gs, g, t);  // (g v^T)^T
+    O::nn(dv, s, gs, dsw, lane);  // dv += p^T g
+#pragma unroll
+    for (int j = 0; j < kBlockQ / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dp[j][e] = s[j][e] * (dp[j][e] - delta_s[8 * j + 2 * t + (e & 1)]);
+      }
+    }
+    O::nn(dk, dp, qs, dsw, lane);  // dk += ds^T q
+    O::stage(dsw, dp, g, t);
+    __syncthreads();  // every warp's ds^T rows are staged
+
+    float dqa[D / 8][4];
+    O::dq(dqa, dss, ks, warp * 16, lane);
+    const int r0 = q_start + warp * 16 + g, r1 = r0 + 8;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const int col = 8 * nd + 2 * t;
+      if (r0 < prm.Tq) {
+        atomicAdd(dq_g + (long long)r0 * D + col, dqa[nd][0]);
+        atomicAdd(dq_g + (long long)r0 * D + col + 1, dqa[nd][1]);
+      }
+      if (r1 < prm.Tq) {
+        atomicAdd(dq_g + (long long)r1 * D + col, dqa[nd][2]);
+        atomicAdd(dq_g + (long long)r1 * D + col + 1, dqa[nd][3]);
+      }
+    }
+  }
+
+  T* dkg = static_cast<T*>(prm.dk) + (long long)bh * prm.Tk * D;
+  T* dvg = static_cast<T*>(prm.dv) + (long long)bh * prm.Tk * D;
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int col = 8 * nd + 2 * t;
+    if (key0 < prm.Tk) {
+      const long long i = (long long)key0 * D + col;
+      flash::store2(dkg, i, dk[nd][0] * prm.scale, dk[nd][1] * prm.scale);
+      flash::store2(dvg, i, dv[nd][0], dv[nd][1]);
+    }
+    if (key1 < prm.Tk) {
+      const long long i = (long long)key1 * D + col;
+      flash::store2(dkg, i, dk[nd][2] * prm.scale, dk[nd][3] * prm.scale);
+      flash::store2(dvg, i, dv[nd][2], dv[nd][3]);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const Params& prm, int B, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, D>();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  dim3 grid((prm.Tk + kBlockK - 1) / kBlockK, B * prm.H);
+  flash_bwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(prm);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = bfloat16, 1 = float32.  dq: fp32 [B*H, Tq, D], zeroed; it
+// receives the unscaled sum of ds . k.  dk/dv: [B*H, Tk, D] in the input
+// dtype.  Returns a cudaError_t (0 = success); cudaErrorInvalidValue for a
+// dtype or head dim the kernel has no instantiation for.
+extern "C" int flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* g,
+    const float* lse, const float* delta, float* dq, void* dk, void* dv,
+    int dtype, int B, int H, int Tq, int Tk, int D, long long sqb,
+    long long sqh, long long sqt, long long skb, long long skh,
+    long long skt, long long svb, long long svh, long long svt,
+    long long sgb, long long sgh, long long sgt, int causal, float scale,
+    void* stream) {
+  Params prm{q,   k,   v,   g,   lse, delta, dq,  dk,  dv,  H,   Tq,
+             Tk,  sqb, sqh, sqt, skb, skh,   skt, svb, svh, svt, sgb,
+             sgh, sgt, causal, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64>(prm, B, s);
+  if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(prm, B, s);
+  if (dtype == 1 && D == 64) return launch<float, 64>(prm, B, s);
+  if (dtype == 1 && D == 128) return launch<float, 128>(prm, B, s);
+  return cudaErrorInvalidValue;
+}

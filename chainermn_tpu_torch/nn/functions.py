@@ -1,12 +1,13 @@
 """Functions on tensors (the subset of the Chainer ``F`` surface the
-serving slice runs), with the JAX package's numerics."""
+serving and training slices run), with the JAX package's numerics."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as TF
 
-__all__ = ["linear", "embed_id", "layer_normalization", "gelu"]
+__all__ = ["linear", "embed_id", "layer_normalization", "gelu", "softmax",
+           "log_softmax", "softmax_cross_entropy", "accuracy"]
 
 
 def linear(x, W, b=None):
@@ -31,3 +32,46 @@ def layer_normalization(x, gamma, beta, eps=1e-5):
     var = x32.var(dim=-1, unbiased=False, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
     return y.to(x.dtype)
+
+
+def softmax(x, axis=1):
+    return torch.softmax(x, dim=axis)
+
+
+def log_softmax(x, axis=1):
+    return torch.log_softmax(x, dim=axis)
+
+
+def softmax_cross_entropy(x, t, ignore_label=-1, reduce="mean",
+                          normalize=True, class_weight=None):
+    """Softmax + NLL with ignore-label masking (``F.softmax_cross_entropy``).
+
+    ``t`` holds int class ids; entries equal to ``ignore_label`` add zero
+    loss and leave the normalizer; ``class_weight`` (``[n_classes]``)
+    scales each example's loss by its target's weight.  The log-softmax
+    runs in fp32, also for bf16 logits."""
+    logp = torch.log_softmax(x.float(), dim=1)
+    t = t.long()
+    mask = t != ignore_label
+    t_safe = torch.where(mask, t, torch.zeros_like(t))
+    nll = -torch.gather(logp, 1, t_safe.unsqueeze(1)).squeeze(1)
+    if class_weight is not None:
+        nll = nll * torch.as_tensor(class_weight, dtype=nll.dtype,
+                                    device=nll.device)[t_safe]
+    nll = torch.where(mask, nll, torch.zeros_like(nll))
+    if reduce == "no":
+        return nll
+    if normalize:
+        count = mask.sum().clamp_min(1)
+    else:
+        count = x.shape[0]
+    return nll.sum() / count
+
+
+def accuracy(y, t, ignore_label=None):
+    pred = torch.argmax(y, dim=1)
+    if ignore_label is not None:
+        mask = t != ignore_label
+        correct = (pred == t) & mask
+        return correct.sum() / mask.sum().clamp_min(1)
+    return (pred == t).float().mean()

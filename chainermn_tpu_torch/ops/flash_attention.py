@@ -1,51 +1,121 @@
-"""Fused flash attention: the Hopper kernel and its plain version.
+"""Fused flash attention: the Hopper kernels, their plain versions and the
+differentiable dispatch.
 
-``attention(q, k, v)`` dispatches on where the tensors lie: a CPU tensor
-takes :func:`xla_attention`, the plain PyTorch version; a CUDA tensor
-launches :func:`flash_attention`, the hand-written kernel in
-``csrc/flash_attention.cu`` (the counterpart of
-``chainermn_tpu/ops/flash_attention.py::_flash_kernel``), or raises.  A
-CUDA tensor never falls back to the plain version.
+Three CUDA kernels, each the counterpart of a Pallas kernel of
+``chainermn_tpu/ops/flash_attention.py``:
 
-Layout ``[B, H, T, D]`` as in the JAX package.  The kernel reads q/k/v
+* :func:`flash_attention` -- ``_flash_kernel``, the forward without a
+  gradient (eval, serving prefill), ``csrc/flash_attention.cu``;
+* :func:`flash_attention_fwd` -- ``_flash_kernel_lse``, the training
+  forward that also writes the row statistic ``lse``, the same source with
+  its lse store switched on;
+* :func:`flash_attention_bwd` -- ``_flash_bwd_fused_kernel``, the fused
+  backward, ``csrc/flash_attention_bwd.cu``.
+
+``attention(q, k, v)`` dispatches on where the tensors lie, as the JAX
+``attention`` does on its backends: CUDA tensors that need a gradient go
+through :class:`_FlashDiff` (the ``_flash_diff`` custom VJP: the lse
+forward, then the fused backward); CUDA tensors without one launch the
+plain forward kernel; CPU tensors take :func:`xla_attention` with torch
+autograd.  :func:`attention_with_lse` is the ``(out, lse)`` primitive, and
+on the CPU it takes :func:`_blockwise_attention_lse_torch`.  A CUDA tensor
+never falls back to a plain version: it launches a kernel or raises.
+
+Layout ``[B, H, T, D]`` as in the JAX package.  The kernels read q/k/v/g
 through their strides (the last dimension must be dense and rows 16-byte
-aligned, else the wrapper makes a contiguous copy) and writes a
-contiguous output.  It takes bf16 or fp32 at head dim 64 or 128.
-
-No backward kernel exists yet: a CUDA call that needs a gradient raises
-``NotImplementedError`` (the training slice, ROADMAP A2, brings the
-``_flash_kernel_lse`` forward and the fused backward).
+aligned, else the wrapper makes a contiguous copy) and write contiguous
+outputs.  They take bf16 or fp32 at head dim 64 or 128.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-__all__ = ["attention", "flash_attention", "xla_attention",
-           "attention_flops", "attention_bytes"]
+__all__ = ["attention", "attention_with_lse", "blockwise_attention",
+           "flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "xla_attention", "attention_flops", "attention_bytes",
+           "attention_bwd_flops", "attention_bwd_bytes"]
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (64, 128)
 
+#: CHAINERMN_TPU_FLASH_BWD: the backward lowering, as in the JAX package
+#: (read once at import, monkeypatchable in tests).  "fused" is the one
+#: kernel ported; "split" (the two-kernel escape hatch) raises until
+#: ROADMAP B4 ports it.
+_FLASH_BWD = os.environ.get("CHAINERMN_TPU_FLASH_BWD", "fused")
+
+
+def _scale(scale, D):
+    return float(scale if scale is not None else 1.0 / (D ** 0.5))
+
+
+def _causal_mask(Tq, Tk, device):
+    """``True`` where key position > query position (masked)."""
+    qpos = torch.arange(Tq, device=device)[:, None]
+    kpos = torch.arange(Tk, device=device)[None, :]
+    return qpos < kpos
+
+
+def _scores(q, k, causal, scale):
+    """fp32 ``scale * q k^T`` of the storage-dtype values (exactly upcast,
+    so an fp32 dot is the JAX ``preferred_element_type=float32`` result),
+    causal entries set to ``-inf``."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        s = s.masked_fill(_causal_mask(s.shape[-2], s.shape[-1], s.device),
+                          float("-inf"))
+    return s
+
 
 def xla_attention(q, k, v, causal=False, scale=None):
-    """Plain PyTorch attention, the reference the kernel is held to.
+    """Plain PyTorch attention, the reference the kernels are held to.
 
     Dtype discipline of the JAX ``xla_attention``: the dots take the
     storage-dtype values with fp32 accumulation (done here as fp32 dots of
     the exactly upcast inputs), the softmax runs in fp32, and the
     probabilities are cast to v's dtype before the second dot."""
-    D = q.shape[-1]
-    scale = scale if scale is not None else 1.0 / (D ** 0.5)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        Tq, Tk = s.shape[-2], s.shape[-1]
-        qpos = torch.arange(Tq, device=s.device)[:, None]
-        kpos = torch.arange(Tk, device=s.device)[None, :]
-        s = s.masked_fill(qpos < kpos, float("-inf"))
+    s = _scores(q, k, causal, _scale(scale, q.shape[-1]))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def _flash_fwd_lse_plain(q, k, v, causal=False, scale=None):
+    """Plain version of the lse forward (``_flash_kernel_lse``):
+    ``(out, lse)`` with the kernel's rules -- ``m_safe`` is 0 for a row
+    with no live key, so that row's out is 0 and its lse the finite
+    ``log(1e-30)``; p is cast to v's dtype before the PV dot."""
+    s = _scores(q, k, causal, _scale(scale, q.shape[-1]))
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(torch.isfinite(s), torch.exp(s - m_safe),
+                    torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    out = (acc / l).to(q.dtype)
+    return out, (m_safe + torch.log(l))[..., 0]
+
+
+def _flash_bwd_plain(q, k, v, g, lse, delta, causal=False, scale=None):
+    """Plain version of the fused backward on the kernel's inputs (lse and
+    ``delta = rowsum(g * out) - g_lse``, both fp32 ``[B, H, Tq]``): fp32
+    math with the kernel's casts -- p to g's dtype before the dv dot, ds to
+    q's/k's dtype before the dk and dq dots."""
+    scale = _scale(scale, q.shape[-1])
+    s = _scores(q, k, causal, scale)
+    p = torch.where(torch.isfinite(s), torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(g.dtype).float(), g.float())
+    gv = torch.einsum("bhqd,bhkd->bhqk", g.float(), v.float())
+    ds = p * (gv - delta[..., None])
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
+                      k.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _kernel_view(x):
@@ -57,54 +127,86 @@ def _kernel_view(x):
     return x if ok else x.contiguous()
 
 
-def flash_attention(q, k, v, causal=False, scale=None):
-    """Launch the CUDA flash kernel.  q: ``[B, H, Tq, D]``, k/v:
-    ``[B, H, Tk, D]`` on one CUDA device, bf16 or fp32, D in (64, 128).
-    Raises for anything the kernel does not take; counts each launch in
-    ``flash_attention.launches``."""
+def _check(name, q, k, v):
+    """Validate q ``[B, H, Tq, D]``, k/v ``[B, H, Tk, D]`` on one CUDA
+    device for a kernel: ``(B, H, Tq, Tk, D)``."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes bfloat16 or float32 q/k/v "
-                        f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise TypeError(f"{name} takes bfloat16 or float32 q/k/v of one "
+                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention takes [B, H, T, D] tensors")
+        raise ValueError(f"{name} takes [B, H, T, D] tensors")
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention has no kernel for head dim {D} "
+        raise ValueError(f"{name} has no kernel for head dim {D} "
                          f"(supported: {_HEAD_DIMS})")
     if k.shape != (B, H, Tk, D) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if Tq < 1 or Tk < 1:
-        raise ValueError("flash_attention needs Tq >= 1 and Tk >= 1")
+        raise ValueError(f"{name} needs Tq >= 1 and Tk >= 1")
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError(
-            "flash_attention launches a CUDA kernel: q/k/v must lie on one "
-            "CUDA device (CPU tensors take xla_attention via attention())")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash attention has no backward kernel yet; the training "
-            "slice (ROADMAP A2: _flash_kernel_lse and the fused backward) "
-            "brings it")
+            f"{name} launches a CUDA kernel: q/k/v must lie on one CUDA "
+            "device (CPU tensors take xla_attention via attention())")
+    return B, H, Tq, Tk, D
+
+
+def _on_cpu(*xs):
+    """True when every tensor lies on the CPU (the plain versions' only
+    device); a mix of devices raises."""
+    kinds = {x.device.type for x in xs}
+    if kinds == {"cpu"}:
+        return True
+    if kinds != {"cuda"} or len({x.device for x in xs}) != 1:
+        raise ValueError(f"tensors lie on {sorted(map(str, kinds))}: the "
+                         "kernels take one CUDA device, the plain versions "
+                         "the CPU")
+    return False
+
+
+def _needs_grad(*xs):
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _launch_fwd(name, q, k, v, causal, scale, with_lse):
+    """Launch the forward kernel: ``(out, lse or None)``."""
+    B, H, Tq, Tk, D = _check(name, q, k, v)
     from .._build import load_library
     lib = load_library()
-    scale = float(scale if scale is not None else 1.0 / (D ** 0.5))
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
     out = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None,
             _DTYPES[q.dtype], B, H, Tq, Tk, D,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            int(bool(causal)), scale, stream)
+            int(bool(causal)), _scale(scale, D), stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out, lse
+
+
+def flash_attention(q, k, v, causal=False, scale=None):
+    """Launch the CUDA flash kernel (no gradient).  q: ``[B, H, Tq, D]``,
+    k/v: ``[B, H, Tk, D]`` on one CUDA device, bf16 or fp32, D in (64,
+    128).  Raises for anything the kernel does not take, including inputs
+    that need a gradient (:func:`attention` routes those to the lse
+    forward and the backward kernel); counts each launch in
+    ``flash_attention.launches``."""
+    if _needs_grad(q, k, v):
+        raise NotImplementedError(
+            "flash_attention is the no-grad forward and has no backward: "
+            "take attention() (the lse forward + fused backward) for "
+            "inputs that need a gradient")
+    out, _ = _launch_fwd("flash_attention", q, k, v, causal, scale, False)
     flash_attention.launches += 1
     return out
 
@@ -112,26 +214,242 @@ def flash_attention(q, k, v, causal=False, scale=None):
 flash_attention.launches = 0
 
 
+def flash_attention_fwd(q, k, v, causal=False, scale=None):
+    """The lse forward: ``(out, lse)``, lse fp32 ``[B, H, Tq]``.  CUDA
+    tensors launch the kernel (counted in ``flash_attention_fwd.launches``);
+    CPU tensors take :func:`_flash_fwd_lse_plain`."""
+    if _on_cpu(q, k, v):
+        return _flash_fwd_lse_plain(q, k, v, causal=causal, scale=scale)
+    out, lse = _launch_fwd("flash_attention_fwd", q, k, v, causal, scale,
+                           True)
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def _flash_bwd_mode():
+    mode = _FLASH_BWD
+    if mode == "split":
+        raise NotImplementedError(
+            "CHAINERMN_TPU_FLASH_BWD=split: the two-kernel backward "
+            "(_flash_bwd_dq_kernel + _flash_bwd_dkv_kernel) is not ported "
+            "yet (ROADMAP B4); unset it or use 'fused'")
+    if mode != "fused":
+        raise ValueError(
+            f"CHAINERMN_TPU_FLASH_BWD={mode!r} invalid (fused|split)")
+    return mode
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, causal=False, scale=None,
+                        g_lse=None):
+    """Backward of :func:`flash_attention_fwd`: ``(dq, dk, dv)``.
+
+    ``g_lse``: optional cotangent of lse; since d lse_i / d s_ij = p_ij it
+    enters as ``delta - g_lse``, as in the JAX wrapper.  CUDA tensors
+    launch the fused kernel (counted in ``flash_attention_bwd.launches``);
+    CPU tensors take :func:`_flash_bwd_plain`."""
+    _flash_bwd_mode()
+    scale = _scale(scale, q.shape[-1])
+    # delta_i = rowsum(g_i * out_i) (- g_lse_i): one fused reduce, as XLA
+    # does it outside the Pallas kernel
+    delta = (g.float() * out.float()).sum(dim=-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    if _on_cpu(q, k, v, g):
+        return _flash_bwd_plain(q, k, v, g, lse, delta, causal=causal,
+                                scale=scale)
+    B, H, Tq, Tk, D = _check("flash_attention_bwd", q, k, v)
+    if g.dtype != q.dtype or g.shape != q.shape:
+        raise ValueError(f"g must match q: got {g.dtype} "
+                         f"{tuple(g.shape)}, q {q.dtype} {tuple(q.shape)}")
+    if lse.shape != (B, H, Tq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 {(B, H, Tq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    from .._build import load_library
+    lib = load_library()
+    q, k, v, g = (_kernel_view(x) for x in (q, k, v, g))
+    lse = lse.contiguous()
+    delta = delta.contiguous()
+    dq = torch.zeros((B, H, Tq, D), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, H, Tk, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, H, Tk, D), dtype=v.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _DTYPES[q.dtype], B, H, Tq, Tk, D,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            g.stride(0), g.stride(1), g.stride(2),
+            int(bool(causal)), scale, stream)
+    if err:
+        raise RuntimeError(f"flash attention backward kernel launch "
+                           f"failed: CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    # the cross-key-tile dq sum is done by the kernel's atomics; the scale
+    # and the cast stay outside, as the JAX wrapper does them in XLA
+    return (dq * scale).to(q.dtype), dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashDiff(torch.autograd.Function):
+    """Differentiable flash attention (the JAX ``_flash_diff`` custom
+    VJP): the lse forward, saving q, k, v, out and lse, then the fused
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+class _FlashLseDiff(torch.autograd.Function):
+    """Differentiable ``(out, lse)`` (the JAX ``_flash_lse_diff``): the
+    backward passes lse's cotangent as ``g_lse``.  A ``None`` cotangent is
+    zero: with only lse used, g is zeros."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.set_materialize_grads(False)
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g is None and g_lse is None:
+            return None, None, None, None, None
+        if g is None:
+            g = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g,
+                                         causal=ctx.causal, scale=ctx.scale,
+                                         g_lse=g_lse)
+        return dq, dk, dv, None, None
+
+
 def attention(q, k, v, causal=False, scale=None):
-    """Dispatch on the tensors' device: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    """Dispatch on the tensors' device: on CUDA the lse forward and fused
+    backward kernels when a gradient is needed, else the no-grad forward
+    kernel; on the CPU the plain version under torch autograd."""
     if q.device.type == "cuda":
+        if _needs_grad(q, k, v):
+            return _FlashDiff.apply(q, k, v, causal, scale)
         return flash_attention(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cpu":
         raise ValueError(f"attention runs on cuda or cpu, not {q.device}")
     return xla_attention(q, k, v, causal=causal, scale=scale)
 
 
+def _blockwise_attention_lse_torch(q, k, v, causal, scale, block_k=512):
+    """Blockwise ``(out, lse)`` in plain torch, the port of the JAX
+    ``_blockwise_attention_lse_jnp``: scans KV blocks with the online
+    softmax, never holding a ``[Tq, Tk]`` score matrix; differentiable by
+    torch autograd.  A ragged Tk is padded to a block multiple and the
+    padded keys masked.  Its masked-row rule is the JAX function's: a row
+    with no live key has out 0 and lse ``-inf`` (the kernel's is finite)."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    block_k = min(block_k, Tk)
+    nb = -(-Tk // block_k)
+    pad = nb * block_k - Tk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    q_pos = torch.arange(Tq, device=q.device)[:, None]
+    m = torch.full((B, H, Tq, 1), float("-inf"), device=q.device)
+    l = torch.zeros((B, H, Tq, 1), device=q.device)
+    acc = torch.zeros((B, H, Tq, D), device=q.device)
+    for bi in range(nb):
+        k_blk = k[:, :, bi * block_k:(bi + 1) * block_k]
+        v_blk = v[:, :, bi * block_k:(bi + 1) * block_k]
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k_blk.float()) * scale
+        k_pos = bi * block_k + torch.arange(block_k, device=q.device)[None]
+        valid = k_pos < Tk
+        if causal:
+            valid = valid & (q_pos >= k_pos)
+        if causal or pad:
+            s = s.masked_fill(~valid, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros_like(m_new))
+        p = torch.where(torch.isfinite(s), torch.exp(s - m_safe),
+                        torch.zeros_like(s))
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                           torch.zeros_like(m))
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd",
+                                        p.to(v.dtype).float(), v_blk.float())
+        m = m_new
+    l_safe = l.clamp_min(1e-30)
+    out = (acc / l_safe).to(q.dtype)
+    m_fin = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    lse = (m_fin + torch.log(l_safe))[..., 0]
+    lse = torch.where(torch.isfinite(m[..., 0]), lse,
+                      torch.full_like(lse, float("-inf")))
+    return out, lse
+
+
+def attention_with_lse(q, k, v, causal=False, scale=None):
+    """Differentiable attention returning ``(out, lse)`` (lse fp32
+    ``[B, H, Tq]``), the primitive that lets attention blocks be merged
+    exactly (ring attention).  CUDA: the lse forward and fused backward
+    kernels (any shape the kernels take); CPU: the blockwise plain
+    version.  Neither holds a ``[Tq, Tk]`` score matrix in device
+    memory."""
+    scale = _scale(scale, q.shape[-1])
+    if q.device.type == "cuda":
+        return _FlashLseDiff.apply(q, k, v, causal, scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"attention runs on cuda or cpu, not {q.device}")
+    return _blockwise_attention_lse_torch(q, k, v, causal, scale)
+
+
+def blockwise_attention(q, k, v, causal=False, scale=None):
+    """Memory-bounded attention: :func:`attention_with_lse`'s output."""
+    return attention_with_lse(q, k, v, causal=causal, scale=scale)[0]
+
+
+def _live_pairs(Tq, Tk, causal):
+    if causal:
+        return sum(min(q + 1, Tk) for q in range(Tq))
+    return Tq * Tk
+
+
 def attention_flops(B, H, Tq, Tk, D, causal):
     """Multiply-adds x2 of QK^T and PV that the inputs need: with
     ``causal`` only the (q, k) pairs with k <= q count."""
-    if causal:
-        pairs = sum(min(q + 1, Tk) for q in range(Tq))
-    else:
-        pairs = Tq * Tk
-    return 4 * B * H * D * pairs
+    return 4 * B * H * D * _live_pairs(Tq, Tk, causal)
 
 
 def attention_bytes(B, H, Tq, Tk, D, itemsize):
     """Bytes read and written once each: q, k, v in, out back."""
     return (2 * B * H * Tq * D + 2 * B * H * Tk * D) * itemsize
+
+
+def attention_bwd_flops(B, H, Tq, Tk, D, causal):
+    """Multiply-adds x2 of the fused backward's five dots per live (q, k)
+    pair: q k^T, g v^T, p^T g, ds^T q and ds k."""
+    return 10 * B * H * D * _live_pairs(Tq, Tk, causal)
+
+
+def attention_bwd_bytes(B, H, Tq, Tk, D, itemsize):
+    """Bytes the backward must move once each: q, k, v, g and the fp32
+    lse and delta in; dq, dk, dv out."""
+    return ((3 * Tq * D + 4 * Tk * D) * itemsize + 2 * Tq * 4) * B * H

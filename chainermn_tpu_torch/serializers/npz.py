@@ -8,6 +8,10 @@ raises, so a partially loaded model can never run.
 * :func:`load_npz` reads the file the JAX package's ``save_npz`` writes:
   keys are the serializer paths without the leading ``/``
   (``blocks/0/attn/qkv/W``).
+* :func:`load_optimizer_state` reads a JAX optimizer's serialized state
+  (``opt_state_len`` and the flat optax leaves ``opt_state_<i>``) into a
+  port optimizer, so that with :func:`load_params` a run started in the
+  JAX package resumes in the port.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["load_params", "load_npz"]
+__all__ = ["load_params", "load_npz", "load_optimizer_state"]
 
 
 def load_params(model, params):
@@ -43,3 +47,23 @@ def load_npz(file, model):
     with np.load(file, allow_pickle=False) as npz:
         params = {"/" + key: npz[key] for key in npz.files}
     return load_params(model, params)
+
+
+def load_optimizer_state(optimizer, serialized, path=""):
+    """Set ``optimizer``'s state (and its ``t`` and ``epoch``) from what a
+    JAX optimizer's ``serialize`` wrote: ``serialized`` maps keys to
+    arrays (a ``save_npz`` file opened with ``np.load``, or a
+    ``DictionarySerializer``'s ``target``), ``path`` is the optimizer's
+    prefix in it (``"updater/optimizer:main/"`` in a trainer snapshot).
+    ``optimizer`` must be set up on the model; a tree of another length
+    or leaf shape (another rule or model) raises."""
+    key = path + "opt_state_len"
+    if key not in serialized:
+        raise KeyError(f"{key!r} not found: no optimizer state to load")
+    n = int(np.asarray(serialized[key]))
+    optimizer.load_state_leaves(
+        [serialized[f"{path}opt_state_{i}"] for i in range(n)])
+    for name in ("t", "epoch"):
+        if path + name in serialized:
+            setattr(optimizer, name, int(np.asarray(serialized[path + name])))
+    return optimizer

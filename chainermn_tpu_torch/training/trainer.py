@@ -1,0 +1,138 @@
+"""Trainer loop (consumed-Chainer surface: ``chainer.training.Trainer``).
+
+The port of ``chainermn_tpu.training.trainer``: runs the updater until
+``stop_trigger`` fires, each iteration inside a fresh ``Reporter``
+observation scope in which the optimizer targets are registered as
+``main`` (so the model's ``report({"loss": ...}, self)`` lands as
+``main/loss``), then calls the registered extensions by priority.
+The extensions themselves (``LogReport`` and the rest), failure recovery
+and trace export are not ported yet (ROADMAP A4, A12).
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import sys
+import time
+
+from ..core import reporter as reporter_module
+from .triggers import get_trigger
+
+__all__ = ["Trainer", "PRIORITY_WRITER", "PRIORITY_EDITOR",
+           "PRIORITY_READER"]
+
+PRIORITY_WRITER = 300
+PRIORITY_EDITOR = 200
+PRIORITY_READER = 100
+
+
+class _ExtensionEntry:
+    def __init__(self, extension, name, trigger, priority,
+                 call_before_training):
+        self.extension = extension
+        self.name = name
+        self.trigger = get_trigger(trigger)
+        self.priority = priority
+        self.call_before_training = call_before_training
+
+
+class Trainer:
+    def __init__(self, updater, stop_trigger=None, out="result"):
+        self.updater = updater
+        # None: train until interrupted (reference semantics)
+        self.stop_trigger = (get_trigger(stop_trigger)
+                             or (lambda trainer: False))
+        self.out = out
+        self.observation = {}
+        self.reporter = reporter_module.Reporter()
+        for name, optimizer in updater.get_all_optimizers().items():
+            self.reporter.add_observer(name, optimizer.target)
+            self.reporter.add_observers(
+                name, optimizer.target.namedlinks(skipself=True))
+        self._extensions = collections.OrderedDict()
+        self._start_at = None
+        self._done = False
+        updater.connect_trainer(self)
+
+    @property
+    def elapsed_time(self):
+        return 0.0 if self._start_at is None else time.time() - self._start_at
+
+    def extend(self, extension, name=None, trigger=None, priority=None,
+               call_before_training=False):
+        """Register ``extension(trainer)``, called after each update its
+        trigger fires on (every iteration by default)."""
+        if name is None:
+            name = (getattr(extension, "name", None)
+                    or getattr(extension, "default_name", None)
+                    or getattr(extension, "__name__", None)
+                    or type(extension).__name__)
+        if trigger is None:
+            trigger = getattr(extension, "trigger", (1, "iteration"))
+        if priority is None:
+            priority = getattr(extension, "priority", PRIORITY_READER)
+        original, ordinal = name, 0
+        while name in self._extensions:
+            ordinal += 1
+            name = f"{original}_{ordinal}"
+        self._extensions[name] = _ExtensionEntry(
+            extension, name, trigger, priority, call_before_training)
+
+    def get_extension(self, name):
+        return self._extensions[name].extension
+
+    def run(self):
+        """Run the training loop until ``stop_trigger`` fires.  A failure
+        is passed to every extension's ``on_error``, then raised."""
+        if self._done:
+            raise RuntimeError("cannot run training loop multiple times")
+        os.makedirs(self.out, exist_ok=True)
+        extensions = sorted(self._extensions.values(),
+                            key=lambda e: -e.priority)
+        self._start_at = time.time()
+        for entry in extensions:
+            initializer = getattr(entry.extension, "initialize", None)
+            if initializer:
+                initializer(self)
+        for entry in extensions:
+            if entry.call_before_training:
+                entry.extension(self)
+        try:
+            while not self.stop_trigger(self):
+                self.observation = {}
+                with self.reporter.scope(self.observation):
+                    self.updater.update()
+                    for entry in extensions:
+                        if entry.trigger is None or entry.trigger(self):
+                            entry.extension(self)
+        except Exception as e:
+            for entry in extensions:
+                on_error = getattr(entry.extension, "on_error", None)
+                if on_error:
+                    try:
+                        on_error(self, e, e.__traceback__)
+                    except Exception as handler_exc:
+                        print(f"Exception in on_error of extension "
+                              f"{entry.name}: {handler_exc}",
+                              file=sys.stderr)
+            raise
+        finally:
+            for entry in extensions:
+                finalize = getattr(entry.extension, "finalize", None)
+                if finalize:
+                    finalize()
+            self.updater.finalize()
+            self._done = True
+
+    def serialize(self, serializer):
+        self.updater.serialize(serializer["updater"])
+        if hasattr(self.stop_trigger, "serialize"):
+            self.stop_trigger.serialize(serializer["stop_trigger"])
+        s = serializer["extensions"]
+        t = serializer["extension_triggers"]
+        for name, entry in self._extensions.items():
+            if hasattr(entry.extension, "serialize"):
+                entry.extension.serialize(s[name])
+            if hasattr(entry.trigger, "serialize"):
+                entry.trigger.serialize(t[name])

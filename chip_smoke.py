@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the
-   kernels built from ``chainermn_tpu_torch/csrc`` (build seconds);
+   kernels built from ``chainermn_tpu_torch/csrc`` (build seconds, and
+   registers and spill bytes per kernel instantiation from ptxas);
 2. kernel check: the flash kernel against its plain PyTorch version on
    the card (bf16 causal at H 12, D 64, T in {16, 128, 200, 1024}, one
    non-causal and one fp32 case), and times of the kernel, the plain
@@ -20,15 +21,34 @@ Phases, each printing one JSON line:
    ahead of a random tail, 80-900 prompt tokens, 32 new tokens each);
    the kernel's launch count is read around this run alone;
 4. decode parity: prefill plus 8 decode steps through the engine's
-   programs against the one-shot forward, within the bf16 band.
+   programs against the one-shot forward, within the bf16 band;
+5. kernel check, training: the lse forward and the fused backward
+   against their plain versions (and the backward against torch autograd
+   through ``xla_attention``) at bf16 causal B 2, H 12, D 64, T in {1, 16,
+   200, 1024}, non-causal Tq 128 / Tk 200, D 128, fp32, a non-zero lse
+   cotangent, and at the training shape (B 8, T 1024) on q/k/v sliced out
+   of one projection with a transposed cotangent, as the model hands them
+   over; then times of both kernels there, of their plain versions and of
+   SDPA's forward and backward (yardsticks only);
+6. train: the same model (bf16, Adam alpha 3e-4) trained through
+   ``Trainer`` -> ``StandardUpdater`` -> ``Adam.update`` on a
+   ``SerialIterator`` of 16 random token rows (batch 8 x T 1024): step
+   time, tokens/s, MFU, losses, peak memory and the kernels' launch
+   counts, read around this run alone; one no-grad eval forward; then 3
+   steps under the profiler (``train_profile``);
+7. train parity: one step of a small fp32 model (2 layers, d 256, 4 heads
+   of 64, T 256) through the kernels against the same step with attention
+   forced through ``xla_attention``: the loss and every gradient.
 
 Then the kernels line (launches, error, times and bound) and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before the last line.  Needs one CUDA card; fails without one.
 """
 
+import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -46,11 +66,28 @@ HBM_BYTES_PER_S = 3.35e12
 # different points (a few bf16 ulps of |out| <= 4); fp32 only reorders sums
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 BF16_BAND = 0.25   # logits, paged decode vs one-shot (decode-parity suite)
+# backward against its plain version.  bf16: each of dq, dk, dv relative
+# to its own largest |ref| (bwd_errs); both sides round p and ds to bf16
+# before the dots, but dq's atomics add in another order and a last-bit
+# difference of an fp32 value can flip a rounding.  fp32: absolute (sum
+# order, expf).
+BWD_TOL = {torch.bfloat16: 5e-3, torch.float32: 2e-4}
+# backward against torch autograd through xla_attention, same measure:
+# autograd keeps ds in fp32 where the kernel (as the JAX kernel) casts it
+# to bf16 before the dk and dq dots, a difference that sums over the keys
+LSE_TOL = 1e-4     # lse is fp32 on both sides: log of a sum in another order
+AUTOGRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+# training parity, fp32 model: loss absolute, gradients relative to each
+# parameter's largest |grad| (summation order and expf through 2 layers)
+PARITY_TOL = {"loss": 1e-5, "grad": 1e-4}
 
 MODEL = dict(n_vocab=32768, d_model=768, n_heads=12, n_layers=12,
              max_len=1024, seed=0)
 ENGINE = dict(num_pages=512, page_size=16, max_batch=8, max_context=1024)
 N_REQUESTS, N_TENANTS, SYS_PROMPT, MAX_NEW = 16, 4, 64, 32
+# training: bench.py's transformer configuration (batch 8 x T 1024, Adam
+# alpha 3e-4); 2 warm-up steps, then the timed ones
+TRAIN_BATCH, TRAIN_ROWS, TRAIN_STEPS, TRAIN_WARMUP = 8, 16, 10, 2
 
 
 def fail(msg):
@@ -59,6 +96,34 @@ def fail(msg):
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_report(log):
+    """Registers and spill bytes per kernel instantiation, from nvcc's
+    ``-Xptxas -v`` output (empty when the library was built earlier)."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            k = re.search(r"(flash_(?:fwd|bwd)_kernel)I(.+?)EvNS_", name)
+            if k:
+                d = re.search(r"Li(\d+)E", k.group(2))
+                name = (f"{k.group(1)}<"
+                        f"{'bf16' if 'bfloat16' in k.group(2) else 'fp32'},"
+                        f"D{d.group(1) if d else '?'}"
+                        f"{',lse' if 'Lb1E' in k.group(2) else ''}>")
+            report[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                report[name]["spill_stores"] = int(m.group(1))
+                report[name]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[name]["registers"] = int(m.group(1))
+    return report
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -118,12 +183,12 @@ def bound(T, dtype, causal, H=12, D=64):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_device_ms(fn, iters=20):
-    """Mean device time of the flash kernel alone (profiler), without the
+def kernel_device_ms(fn, iters=20, kernel="flash_fwd_kernel"):
+    """Mean device time of one kernel alone (profiler), without the
     host-side cost of each call that the event timing includes."""
     fn()
     _, _, by_name = device_profile(lambda: [fn() for _ in range(iters)])
-    us = sum(t for name, t in by_name.items() if "flash_fwd_kernel" in name)
+    us = sum(t for name, t in by_name.items() if kernel in name)
     return us / iters * 1e-3 if us else None
 
 
@@ -182,7 +247,6 @@ def chat_requests(Request, n_vocab):
 
 
 def phase_serving(model):
-    from chainermn_tpu_torch.ops import flash_attention
     from chainermn_tpu_torch.serving import Request, ServingEngine
     engine = ServingEngine(model, device="cuda", **ENGINE)
     reqs = chat_requests(Request, MODEL["n_vocab"])
@@ -190,12 +254,13 @@ def phase_serving(model):
     for r in reqs:
         engine.submit(r)
     torch.cuda.synchronize()
-    flash_attention.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     steps = engine.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    all_launches = read_launches()
+    launches = all_launches["fwd"]
     done = {r.request_id: r for r in engine.completed}
     # an evicted request's early tokens were folded into its prompt
     generated = {i: int(r.prompt.size) - prompt_len[i] + len(r.tokens)
@@ -223,9 +288,10 @@ def phase_serving(model):
     if not all(0 <= t < MODEL["n_vocab"] for r in done.values()
                for t in r.tokens):
         fail("a generated token lies outside the vocabulary")
-    if launches <= 0 or launches != n_layers * engine.full_prefills:
-        fail(f"flash kernel launches {launches} != {n_layers} x "
-             f"{engine.full_prefills} full prefills")
+    if launches <= 0 or all_launches != {
+            "fwd": n_layers * engine.full_prefills, "fwd_lse": 0, "bwd": 0}:
+        fail(f"flash kernel launches {all_launches}, expected {n_layers} x "
+             f"{engine.full_prefills} full prefills of the no-grad forward")
     if not engine.allocator.check() or engine.allocator.used_pages:
         fail("page pool not returned in full")
     # where the time goes: the same load again (prefix pages now cold, so
@@ -272,6 +338,298 @@ def phase_decode_parity(model):
         fail(f"paged decode logits leave the bf16 band: {diffs}")
 
 
+def flash_module():
+    """``chainermn_tpu_torch.ops.flash_attention``, the module (the
+    package's ``ops.flash_attention`` name is the function)."""
+    return importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+
+
+def train_inputs(B, Tq, Tk, D, dtype, seed, H=12, strided=False):
+    """q, k, v and an output cotangent g.  ``strided``: q/k/v sliced out
+    of one ``[B, T, 3, H, D]`` projection and g a transposed
+    ``[B, T, H, D]`` tensor, the layouts the model hands the kernels."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    if strided:
+        qkv = randn(B, Tq, 3, H, D)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        return q, k, v, randn(B, Tq, H, D).transpose(1, 2)
+    return randn(B, H, Tq, D), randn(B, H, Tk, D), randn(B, H, Tk, D), \
+        randn(B, H, Tq, D)
+
+
+def bwd_errs(got, ref, dtype):
+    """The errors of dq, dk and dv in BWD_TOL's measure.  bf16: each
+    relative to its own largest |ref|, floored at 2 ** -8 of the largest
+    |ref| of the three (at T 1, dq and dk are rounding noise around 0 and
+    have no scale of their own)."""
+    errs = [(a.float() - b.float()).abs().max().item()
+            for a, b in zip(got, ref)]
+    if dtype == torch.float32:
+        return errs
+    scales = [b.float().abs().max().item() for b in ref]
+    floor = 2.0 ** -8 * max(scales)
+    return [e / max(s, floor) for e, s in zip(errs, scales)]
+
+
+def check_train_kernels(q, k, v, g, causal, g_lse=None):
+    """B1 against its plain version (out, lse), B2 against its plain
+    version and against torch autograd through xla_attention."""
+    fa = flash_module()
+    dtype = q.dtype
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    ref_out, ref_lse = fa._flash_fwd_lse_plain(q, k, v, causal=causal)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                   g_lse=g_lse)
+    torch.cuda.synchronize()
+    delta = (g.float() * out.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse
+    ref = fa._flash_bwd_plain(q, k, v, g, lse, delta, causal=causal)
+    row = {"B": q.shape[0], "Tq": q.shape[2], "Tk": k.shape[2],
+           "D": q.shape[3], "causal": causal, "dtype": str(dtype),
+           "strided": not q.is_contiguous(), "g_lse": g_lse is not None,
+           "out_err": (out.float() - ref_out.float()).abs().max().item(),
+           "lse_err": (lse - ref_lse).abs().max().item(),
+           "bwd_err_dq_dk_dv": bwd_errs(grads, ref, dtype),
+           "bwd_abs_err": max((a.float() - b.float()).abs().max().item()
+                              for a, b in zip(grads, ref)),
+           "finite": all(bool(torch.isfinite(x.float()).all())
+                         for x in (out, lse, *grads))}
+    if g_lse is None:
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        torch.autograd.backward(
+            fa.xla_attention(*leaves, causal=causal), g)
+        row["autograd_err_dq_dk_dv"] = bwd_errs(
+            grads, [x.grad for x in leaves], dtype)
+    row["ok"] = (row["finite"] and row["out_err"] < TOL[dtype]
+                 and row["lse_err"] < LSE_TOL
+                 and max(row["bwd_err_dq_dk_dv"]) < BWD_TOL[dtype]
+                 and max(row.get("autograd_err_dq_dk_dv", [0.0]))
+                 < AUTOGRAD_TOL[dtype])
+    return row
+
+
+def phase_kernel_train():
+    fa = flash_module()
+    bf16 = torch.bfloat16
+    checks = [check_train_kernels(*train_inputs(2, T, T, 64, bf16, T), True)
+              for T in (1, 16, 200, 1024)]
+    checks.append(check_train_kernels(
+        *train_inputs(2, 128, 200, 64, bf16, 7), False))
+    checks.append(check_train_kernels(
+        *train_inputs(2, 200, 200, 128, bf16, 8), True))
+    checks.append(check_train_kernels(
+        *train_inputs(2, 200, 200, 64, torch.float32, 9), True))
+    q, k, v, g = train_inputs(2, 200, 200, 64, bf16, 10)
+    g_lse = torch.randn((2, 12, 200), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(11))
+    checks.append(check_train_kernels(q, k, v, g, True, g_lse=g_lse))
+    checks.append(check_train_kernels(
+        *train_inputs(2, 300, 300, 64, bf16, 12, strided=True), True))
+    # the training shape, in the layouts the model hands over
+    B, H, T, D = TRAIN_BATCH, 12, MODEL["max_len"], 64
+    q, k, v, g = train_inputs(B, T, T, D, bf16, 13, strided=True)
+    main = check_train_kernels(q, k, v, g, True)
+    checks.append(main)
+    emit({"phase": "kernel_check_train", "checks": checks})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        fail(f"training kernels disagree with their plain versions: {bad}")
+
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv, is_causal=True)
+    delta = (g.float() * out.float()).sum(-1)
+    fwd_bytes = fa.attention_bytes(B, H, T, T, D, 2) + B * H * T * 4
+    fwd_ops = fa.attention_flops(B, H, T, T, D, True)
+    bwd_bytes = fa.attention_bwd_bytes(B, H, T, T, D, 2)
+    bwd_ops = fa.attention_bwd_flops(B, H, T, T, D, True)
+
+    def bound_of(nbytes, ops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[bf16]
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    fwd = lambda: fa.flash_attention_fwd(q, k, v, causal=True)
+    bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    times = {
+        "B": B, "H": H, "T": T, "D": D, "dtype": "bfloat16",
+        "causal": True, "strided": True,
+        "fwd_lse": {
+            "ms": time_ms(fwd),
+            "device_ms": kernel_device_ms(fwd, kernel="flash_fwd_kernel"),
+            "plain_ms": time_ms(lambda: fa._flash_fwd_lse_plain(
+                q, k, v, causal=True), iters=5, warmup=1),
+            "library_ms": time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True)),
+            "max_abs_err": max(main["out_err"], main["lse_err"]),
+        },
+        "bwd": {
+            "ms": time_ms(bwd),
+            "device_ms": kernel_device_ms(bwd, kernel="flash_bwd_kernel"),
+            "plain_ms": time_ms(lambda: fa._flash_bwd_plain(
+                q, k, v, g, lse, delta, causal=True), iters=5, warmup=1),
+            # SDPA's backward alone, on a retained graph
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (lq, lk, lv), g, retain_graph=True)),
+            "max_abs_err": main["bwd_abs_err"],
+        },
+    }
+    (times["fwd_lse"]["bound_ms"],
+     times["fwd_lse"]["bound_by"]) = bound_of(fwd_bytes, fwd_ops)
+    times["bwd"]["bound_ms"], times["bwd"]["bound_by"] = bound_of(
+        bwd_bytes, bwd_ops)
+    emit({"phase": "kernel_check_train_times", **times})
+    return times
+
+
+def transformer_flops_per_token(d_model, n_layers, n_vocab, seq_len):
+    """bench.py's analytic train-step flops per token for the causal LM:
+    matmul fwd = 2 (12 L d^2 + d V), attention fwd = 4 T d L (causal
+    halving ignored), train = 3x fwd."""
+    matmul = 2.0 * (12.0 * n_layers * d_model ** 2 + d_model * n_vocab)
+    attn = 4.0 * seq_len * d_model * n_layers
+    return 3.0 * (matmul + attn)
+
+
+def reset_launches():
+    fa = flash_module()
+    for fn in (fa.flash_attention, fa.flash_attention_fwd,
+               fa.flash_attention_bwd):
+        fn.launches = 0
+
+
+def read_launches():
+    fa = flash_module()
+    return {"fwd": fa.flash_attention.launches,
+            "fwd_lse": fa.flash_attention_fwd.launches,
+            "bwd": fa.flash_attention_bwd.launches}
+
+
+def phase_train():
+    from chainermn_tpu_torch.core.optimizer import Adam
+    from chainermn_tpu_torch.dataset import SerialIterator
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.training import StandardUpdater, Trainer
+    T, n_layers = MODEL["max_len"], MODEL["n_layers"]
+    model = TransformerLM(compute_dtype=torch.bfloat16, remat=False,
+                          device="cuda", **MODEL)
+    opt = Adam(alpha=3e-4)
+    opt.setup(model)
+    rows = np.random.RandomState(0).randint(
+        0, MODEL["n_vocab"], (TRAIN_ROWS, T)).astype(np.int64)
+    data = [(x, np.roll(x, -1)) for x in rows]
+    updater = StandardUpdater(
+        SerialIterator(data, TRAIN_BATCH, shuffle=False), opt)
+    trainer = Trainer(updater, (TRAIN_STEPS, "iteration"),
+                      out=os.path.join("build", "chip_smoke_train"))
+    losses, marks = [], []
+
+    def record(tr):   # no sync: tensors and events, read after the run
+        losses.append(tr.observation["main/loss"])
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    trainer.extend(record, name="record")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    trainer.run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [start.elapsed_time(marks[0])] + [
+        a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    losses = [float(x) for x in losses]
+    median_ms = float(np.median(step_ms[TRAIN_WARMUP:]))
+    tokens_per_s = TRAIN_BATCH * T / (median_ms * 1e-3)
+    flops_tok = transformer_flops_per_token(
+        MODEL["d_model"], n_layers, MODEL["n_vocab"], T)
+    # one eval forward without a gradient: the plain forward kernel only
+    reset_launches()
+    with torch.no_grad():
+        model.logits(torch.from_numpy(rows[:TRAIN_BATCH]).cuda())
+    torch.cuda.synchronize()
+    eval_launches = read_launches()
+    emit({"phase": "train", "batch": TRAIN_BATCH, "T": T,
+          "steps": TRAIN_STEPS, "step_ms": step_ms,
+          "median_step_ms": median_ms, "tokens_per_s": tokens_per_s,
+          "flops_per_token": flops_tok,
+          "mfu": flops_tok * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
+          "losses": losses, "peak_bytes": peak, "launches": launches,
+          "eval_launches": eval_launches})
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
+        fail(f"training losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall on repeated data: {losses}")
+    want = {"fwd": 0, "fwd_lse": n_layers * TRAIN_STEPS,
+            "bwd": n_layers * TRAIN_STEPS}
+    if launches != want:
+        fail(f"training launches {launches}, expected {want}")
+    if eval_launches != {"fwd": n_layers, "fwd_lse": 0, "bwd": 0}:
+        fail(f"eval launches {eval_launches}, expected {n_layers} of the "
+             "no-grad forward only")
+    # where the time goes: 3 more steps under the profiler
+    wall, busy, by_name = device_profile(
+        lambda: [updater.update() for _ in range(3)])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    emit({"phase": "train_profile", "steps": 3, "wall_s": wall,
+          "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
+          "top_kernels_us": [[name[:80], us] for name, us in top]})
+    return launches, median_ms
+
+
+def phase_train_parity():
+    """One step of a small fp32 model through the kernels against the
+    same step with attention through the plain xla_attention."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.models import transformer as tm
+    from chainermn_tpu_torch.ops import xla_attention
+    kw = dict(n_vocab=1000, d_model=256, n_heads=4, n_layers=2,
+              max_len=256, seed=0, device="cuda")
+    rows = np.random.RandomState(2).randint(0, kw["n_vocab"], (2, 256))
+    x = torch.from_numpy(rows).cuda()
+    t = torch.from_numpy(np.roll(rows, -1, axis=1)).cuda()
+
+    def step():
+        model = TransformerLM(**kw)
+        loss = model(x, t)
+        loss.backward()
+        return loss.item(), {p: v.grad for p, v in model.namedparams()}
+
+    reset_launches()
+    loss, grads = step()
+    launches = read_launches()
+    kernel_attention = tm.fused_attention
+    tm.fused_attention = xla_attention
+    try:
+        ref_loss, ref_grads = step()
+    finally:
+        tm.fused_attention = kernel_attention
+    grad_err = max((grads[p] - g).abs().max().item()
+                   / max(g.abs().max().item(), 1e-30)
+                   for p, g in ref_grads.items())
+    row = {"phase": "train_parity", "loss": loss, "ref_loss": ref_loss,
+           "loss_err": abs(loss - ref_loss), "grad_rel_err": grad_err,
+           "tol": PARITY_TOL, "launches": launches}
+    emit(row)
+    if launches != {"fwd": 0, "fwd_lse": 2, "bwd": 2}:
+        fail(f"parity step launches {launches}, expected 2 + 2")
+    if not (row["loss_err"] < PARITY_TOL["loss"]
+            and grad_err < PARITY_TOL["grad"]):
+        fail(f"training through the kernels leaves the plain step: {row}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -298,13 +656,18 @@ def main():
         f.write(build_log())
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s})
+          "build_s": build_s, "ptxas": ptxas_report(build_log())})
 
     checks, times = phase_kernel()
     model = TransformerLM(compute_dtype=torch.bfloat16, device="cuda",
                           **MODEL)
     launches = phase_serving(model)
     phase_decode_parity(model)
+    del model
+    torch.cuda.empty_cache()
+    train_times = phase_kernel_train()
+    train_launches, _ = phase_train()
+    phase_train_parity()
 
     main_check = next(c for c in checks if c["T"] == 1024 and c["causal"])
     main_time = next(t for t in times if t["T"] == 1024)
@@ -319,7 +682,19 @@ def main():
         "bound_ms": main_time["bound_ms"],
         "bound_by": main_time["bound_by"],
         "library_ms": main_time["library_ms"],
-    }]})
+    }] + [{
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": train_launches[key],
+        **{f: train_times[key][f] for f in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for name, key, source, replaces in [
+        ("flash_attention_fwd_lse", "fwd_lse",
+         "chainermn_tpu_torch/csrc/flash_attention.cu",
+         "chainermn_tpu/ops/flash_attention.py:92"),
+        ("flash_attention_bwd", "bwd",
+         "chainermn_tpu_torch/csrc/flash_attention_bwd.cu",
+         "chainermn_tpu/ops/flash_attention.py:239")]]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+the no-grad forward (``_flash_kernel``), the lse forward
+(``_flash_kernel_lse``) and the fused backward
+(``_flash_bwd_fused_kernel``).
 
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -7,16 +10,42 @@ Imports no JAX, so it runs on a machine that has only PyTorch:
 Without a card every test skips (the kernels have no CPU mode).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from chainermn_tpu_torch.ops import flash_attention, xla_attention
+from chainermn_tpu_torch.ops import attention, flash_attention, xla_attention
+
+fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
 
 # bf16: the kernel and the plain version round p and the output to bf16 at
 # different points; 2e-2 is a few bf16 ulps of |out| <= 4.  fp32: the
 # kernel sums in another order and uses expf on CUDA cores.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# backward against its plain version.  bf16: each of dq, dk, dv relative
+# to its own largest |ref| (_bwd_err); p and ds round to bf16 before the
+# dots on both sides, but an fp32 difference in the last bit can flip a
+# rounding, and the kernel's dq atomics add in another order.  fp32:
+# absolute, sums in another order and expf on CUDA cores.
+BWD_TOL = {torch.bfloat16: 5e-3, torch.float32: 2e-4}
+# backward against torch autograd through xla_attention, same measure:
+# autograd keeps ds in fp32 where the kernel casts it to bf16 before the
+# dk and dq dots
+AUTOGRAD_TOL = 2e-2
+
+# the shapes chip_smoke.py's kernel_check_train covers:
+# (B, H, Tq, Tk, D, causal, dtype)
+TRAIN_CASES = [
+    (2, 12, 1, 1, 64, True, torch.bfloat16),
+    (2, 12, 16, 16, 64, True, torch.bfloat16),
+    (2, 12, 200, 200, 64, True, torch.bfloat16),
+    (2, 12, 1024, 1024, 64, True, torch.bfloat16),
+    (2, 12, 128, 200, 64, False, torch.bfloat16),
+    (2, 12, 200, 200, 128, True, torch.bfloat16),
+    (2, 12, 200, 200, 64, True, torch.float32),
+]
 
 
 @pytest.fixture
@@ -31,6 +60,28 @@ def _qkv(B, H, T, D, seed, dtype, device):
     return [torch.from_numpy(rng.normal(0, 1, (B, H, T, D))
                              .astype(np.float32)).to(device, dtype)
             for _ in range(3)]
+
+
+def _train_inputs(B, H, Tq, Tk, D, dtype, device, seed):
+    """q, k, v and an output cotangent g, from numpy."""
+    rng = np.random.RandomState(seed)
+    shapes = [(B, H, Tq, D), (B, H, Tk, D), (B, H, Tk, D), (B, H, Tq, D)]
+    return [torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
+            .to(device, dtype) for s in shapes]
+
+
+def _bwd_err(got, ref, dtype):
+    """Worst error over (dq, dk, dv), in the measure BWD_TOL states: for
+    bf16 each relative to its own largest |ref|, floored at 2 ** -8 of the
+    largest |ref| of the three (at T 1, dq and dk are rounding noise
+    around 0 and have no scale of their own)."""
+    errs = [(a.float() - b.float()).abs().max().item()
+            for a, b in zip(got, ref)]
+    if dtype == torch.float32:
+        return max(errs)
+    scales = [b.float().abs().max().item() for b in ref]
+    floor = 2.0 ** -8 * max(scales)
+    return max(e / max(s, floor) for e, s in zip(errs, scales))
 
 
 @pytest.mark.gpu
@@ -72,8 +123,110 @@ def test_flash_kernel_reads_strided_qkv(cuda_device):
 
 
 @pytest.mark.gpu
-def test_flash_kernel_refuses_grad(cuda_device):
-    q, k, v = _qkv(1, 2, 64, 64, 0, torch.bfloat16, cuda_device)
-    q.requires_grad_()
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, k, v)
+def test_grad_attention_launches_lse_forward_then_fused_backward(
+        cuda_device):
+    """A CUDA call that needs a gradient runs the lse forward, and the
+    fused backward on ``.backward()``; the no-grad forward not at all."""
+    q, k, v, g = _train_inputs(1, 2, 64, 64, 64, torch.bfloat16,
+                               cuda_device, 0)
+    for x in (q, k, v):
+        x.requires_grad_()
+    fwd, bwd, plain = (fa.flash_attention_fwd.launches,
+                       fa.flash_attention_bwd.launches,
+                       flash_attention.launches)
+    out = attention(q, k, v, causal=True)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches,
+            flash_attention.launches) == (fwd + 1, bwd, plain)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches,
+            flash_attention.launches) == (fwd + 1, bwd + 1, plain)
+    assert all(torch.isfinite(x.grad.float()).all() for x in (q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Tq,Tk,D,causal,dtype", TRAIN_CASES)
+def test_lse_forward_matches_plain(cuda_device, B, H, Tq, Tk, D, causal,
+                                   dtype):
+    q, k, v, _ = _train_inputs(B, H, Tq, Tk, D, dtype, cuda_device, Tq + D)
+    before = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    ref_out, ref_lse = fa._flash_fwd_lse_plain(q, k, v, causal=causal)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Tq)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    assert (out.float() - ref_out.float()).abs().max().item() < TOL[dtype]
+    # lse is fp32 on both sides: log of a sum in another order
+    assert (lse - ref_lse).abs().max().item() < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Tq,Tk,D,causal,dtype", TRAIN_CASES)
+def test_fused_backward_matches_plain(cuda_device, B, H, Tq, Tk, D, causal,
+                                      dtype):
+    q, k, v, g = _train_inputs(B, H, Tq, Tk, D, dtype, cuda_device, Tk + D)
+    out, lse = fa._flash_fwd_lse_plain(q, k, v, causal=causal)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    delta = (g.float() * out.float()).sum(-1)
+    ref = fa._flash_bwd_plain(q, k, v, g, lse, delta, causal=causal)
+    assert all(torch.isfinite(x.float()).all() for x in got)
+    assert _bwd_err(got, ref, dtype) < BWD_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_fused_backward_with_lse_cotangent(cuda_device):
+    B, H, T, D = 2, 12, 200, 64
+    q, k, v, g = _train_inputs(B, H, T, T, D, torch.bfloat16, cuda_device, 1)
+    g_lse = torch.from_numpy(np.random.RandomState(2).normal(
+        0, 1, (B, H, T)).astype(np.float32)).to(cuda_device)
+    out, lse = fa._flash_fwd_lse_plain(q, k, v, causal=True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True,
+                                 g_lse=g_lse)
+    delta = (g.float() * out.float()).sum(-1) - g_lse
+    ref = fa._flash_bwd_plain(q, k, v, g, lse, delta, causal=True)
+    assert _bwd_err(got, ref, torch.bfloat16) < BWD_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+def test_lse_kernels_read_strided_inputs(cuda_device):
+    """Training slices q/k/v out of one ``[B, T, 3, H, D]`` projection
+    and hands the backward a transposed cotangent."""
+    B, T, H, D = 2, 300, 12, 64
+    rng = np.random.RandomState(3)
+    qkv = torch.from_numpy(rng.normal(0, 1, (B, T, 3, H, D)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    q, k, v = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+    g = torch.from_numpy(rng.normal(0, 1, (B, T, H, D)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16).transpose(1, 2)
+    assert not q.is_contiguous() and not g.is_contiguous()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ref_out, ref_lse = fa._flash_fwd_lse_plain(q, k, v, causal=True)
+    assert (out.float() - ref_out.float()).abs().max().item() \
+        < TOL[torch.bfloat16]
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    delta = (g.float() * out.float()).sum(-1)
+    ref = fa._flash_bwd_plain(q, k, v, g, lse, delta, causal=True)
+    assert _bwd_err(got, ref, torch.bfloat16) < BWD_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Tq,Tk,causal", [(200, 200, True),
+                                          (128, 200, False)])
+def test_kernels_match_autograd_through_plain_attention(cuda_device, Tq, Tk,
+                                                        causal):
+    """The whole differentiable path against torch autograd through
+    xla_attention, in bf16 (where the two round ds differently:
+    AUTOGRAD_TOL)."""
+    q, k, v, g = _train_inputs(2, 12, Tq, Tk, 64, torch.bfloat16,
+                               cuda_device, 4)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    attention(*leaves, causal=causal).backward(g)
+    got = [x.grad for x in leaves]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    xla_attention(*leaves, causal=causal).backward(g)
+    ref = [x.grad for x in leaves]
+    assert _bwd_err(got, ref, torch.bfloat16) < AUTOGRAD_TOL
