@@ -2,16 +2,29 @@
 
 A second package beside the JAX one, with its module layout and public
 names.  Plain tensor code is PyTorch; every Pallas kernel of the JAX
-package on a ported path is a CUDA kernel written by hand for Hopper
-(``csrc/``, built by :mod:`._build` at first use).  Entry points take an
-explicit ``device=``; the default is ``cuda``, and without a card they
-raise rather than run on the CPU.
+package is a CUDA kernel written by hand for Hopper (``csrc/``, built by
+:mod:`._build` at first use).  Entry points take an explicit ``device=``;
+the default is ``cuda``, and without a card they raise rather than run on
+the CPU.
 
-This slice holds the serving path: :class:`~.models.TransformerLM` served
-by :class:`~.serving.ServingEngine` over a paged KV cache, with prefill
-attention on the flash kernel (:mod:`.ops.flash_attention`).
+Ported so far: serving a :class:`~.models.TransformerLM` through
+:class:`~.serving.ServingEngine` over a paged KV cache; training it
+through ``Trainer`` -> ``StandardUpdater`` -> an optimizer; and
+ChainerMN's data-parallel step, one process per device over
+``torch.distributed``: :func:`create_communicator`,
+:func:`create_multi_node_optimizer` and :func:`scatter_dataset`.
+Attention runs on the flash kernels (:mod:`.ops.flash_attention`).
 """
 
 from ._device import resolve_device
+from .communicators import create_communicator
+from .datasets import (create_empty_dataset, get_n_iterations_for_one_epoch,
+                       scatter_dataset, scatter_index)
+from .iterators import create_multi_node_iterator, create_synchronized_iterator
+from .optimizers import create_multi_node_optimizer
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "create_communicator",
+           "create_multi_node_optimizer", "scatter_dataset",
+           "create_empty_dataset", "scatter_index",
+           "get_n_iterations_for_one_epoch", "create_multi_node_iterator",
+           "create_synchronized_iterator"]

@@ -103,10 +103,15 @@ def _bind(lib):
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, *[ll] * 9, i,
                    ctypes.c_float, p]
     fn.restype = i
-    fn = lib.flash_attention_bwd
-    fn.argtypes = [*[p] * 9, i, i, i, i, i, i, *[ll] * 12, i,
-                   ctypes.c_float, p]
-    fn.restype = i
+    # the backward launchers: q, k, v, g, lse, delta, then their outputs
+    # (fused: dq, dk, dv; split: dq, or dk and dv)
+    for name, n_out in (("flash_attention_bwd", 3),
+                        ("flash_attention_bwd_dq", 1),
+                        ("flash_attention_bwd_dkv", 2)):
+        fn = getattr(lib, name)
+        fn.argtypes = [*[p] * (6 + n_out), i, i, i, i, i, i, *[ll] * 12, i,
+                       ctypes.c_float, p]
+        fn.restype = i
     return lib
 
 

@@ -53,13 +53,12 @@
 
 namespace {
 
+using flash::BwdOps;
 using flash::mma_bf16;
-using flash::pack_bf16;
-using flash::Pad;
 
-constexpr int kBlockK = 64;  // key rows per block
-constexpr int kBlockQ = 64;  // q rows per inner step
-constexpr int kWarps = 4;    // 16 keys per warp
+constexpr int kBlockK = flash::kBwdTile;  // key rows per block
+constexpr int kBlockQ = flash::kBwdTile;  // q rows per inner step
+constexpr int kWarps = 4;                 // 16 keys per warp
 constexpr int kThreads = kWarps * 32;
 
 struct Params {
@@ -81,83 +80,18 @@ struct Params {
   float scale;
 };
 
-// The tile products, per element type.  Fragments follow the mma C layout
-// (flash_common.cuh): a warp's [16, 64] key-by-q tile is float x[8][4],
-// its [16, D] accumulators float x[D / 8][4].
+// out = ds . k for q rows qw..qw+15 of the tile: ds^T is staged at s
+// ([64 keys, kLdS], every warp's rows) and read transposed; k is the
+// block's [64, D] tile.  The other products are flash::BwdOps.
 template <typename T, int D>
-struct Ops;
+struct StagedDq;
 
 template <int D>
-struct Ops<__nv_bfloat16, D> {
+struct StagedDq<__nv_bfloat16, D> {
   using T = __nv_bfloat16;
-  static constexpr int kLd = D + Pad<T>::value;        // k/v/q/g rows
-  static constexpr int kLdS = kBlockQ + Pad<T>::value;  // staged ds^T rows
+  static constexpr int kLd = BwdOps<T, D>::kLd;
+  static constexpr int kLdS = BwdOps<T, D>::kLdS;
 
-  // acc[j] = A . B^T over D: A = the warp's 16 rows at a, B = the 64 rows
-  // of the q tile at b (acc rows: keys, columns: q).
-  __device__ static void nt(float (*acc)[4], const T* a, const T* b, int g,
-                            int t) {
-    uint32_t af[D / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const T* r0 = a + g * kLd + kk * 16 + 2 * t;
-      const T* r1 = r0 + 8 * kLd;
-      af[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
-      af[kk][1] = *reinterpret_cast<const uint32_t*>(r1);
-      af[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-      af[kk][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
-    }
-#pragma unroll
-    for (int j = 0; j < kBlockQ / 8; ++j) {
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      const T* br = b + (8 * j + g) * kLd + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b0 = *reinterpret_cast<const uint32_t*>(br + kk * 16);
-        uint32_t b1 = *reinterpret_cast<const uint32_t*>(br + kk * 16 + 8);
-        mma_bf16(acc[j], af[kk], b0, b1);
-      }
-    }
-  }
-
-  // out += bf16(x) . B over the 64 q rows: x is the warp's [16, 64] tile
-  // (reused in place as the A operand), B = the q tile's [64, D] rows at b,
-  // read transposed by ldmatrix.
-  __device__ static void nn(float (*out)[4], float (*x)[4], const T* b, T*,
-                            int lane) {
-#pragma unroll
-    for (int kk = 0; kk < kBlockQ / 16; ++kk) {
-      uint32_t xa[4];
-      xa[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-      xa[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-      xa[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-      xa[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-      const T* row =
-          b + (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLd +
-          (lane >> 4) * 8;
-#pragma unroll
-      for (int nd = 0; nd < D / 8; nd += 2) {
-        uint32_t bf[4];
-        flash::ldsm_x4_trans(bf, row + 8 * nd);
-        mma_bf16(out[nd], xa, bf[0], bf[1]);
-        mma_bf16(out[nd + 1], xa, bf[2], bf[3]);
-      }
-    }
-  }
-
-  // Write the warp's [16, 64] tile x, cast to bf16, to its rows at s.
-  __device__ static void stage(T* s, float (*x)[4], int g, int t) {
-#pragma unroll
-    for (int j = 0; j < kBlockQ / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(s + g * kLdS + 8 * j + 2 * t) =
-          pack_bf16(x[j][0], x[j][1]);
-      *reinterpret_cast<uint32_t*>(s + (g + 8) * kLdS + 8 * j + 2 * t) =
-          pack_bf16(x[j][2], x[j][3]);
-    }
-  }
-
-  // out = ds . k for q rows qw..qw+15 of the tile: ds^T is staged at s
-  // ([64 keys, kLdS]) and read transposed; k is the block's [64, D] tile.
   __device__ static void dq(float (*out)[4], const T* s, const T* kb, int qw,
                             int lane) {
 #pragma unroll
@@ -184,65 +118,10 @@ struct Ops<__nv_bfloat16, D> {
 };
 
 template <int D>
-struct Ops<float, D> {
+struct StagedDq<float, D> {
   using T = float;
-  static constexpr int kLd = D + Pad<T>::value;
-  static constexpr int kLdS = kBlockQ + Pad<T>::value;
-
-  __device__ static void nt(float (*acc)[4], const T* a, const T* b, int g,
-                            int t) {
-    const T* a0 = a + g * kLd;
-    const T* a1 = a0 + 8 * kLd;
-#pragma unroll
-    for (int j = 0; j < kBlockQ / 8; ++j) {
-      const T* b0 = b + (8 * j + 2 * t) * kLd;
-      const T* b1 = b0 + kLd;
-      float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
-      for (int d = 0; d < D; ++d) {
-        c0 = fmaf(a0[d], b0[d], c0);
-        c1 = fmaf(a0[d], b1[d], c1);
-        c2 = fmaf(a1[d], b0[d], c2);
-        c3 = fmaf(a1[d], b1[d], c3);
-      }
-      acc[j][0] = c0; acc[j][1] = c1; acc[j][2] = c2; acc[j][3] = c3;
-    }
-  }
-
-  // x goes through the warp's own rows of the staging buffer: every output
-  // element needs a whole row of x, which is spread over four lanes.
-  __device__ static void nn(float (*out)[4], float (*x)[4], const T* b,
-                            T* s, int lane) {
-    const int g = lane / 4, t = lane % 4;
-    stage(s, x, g, t);
-    __syncwarp();
-    const float* x0 = s + g * kLdS;
-    const float* x1 = x0 + 8 * kLdS;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const T* bc = b + 8 * nd + 2 * t;
-      float c0 = out[nd][0], c1 = out[nd][1], c2 = out[nd][2],
-            c3 = out[nd][3];
-      for (int q = 0; q < kBlockQ; ++q) {
-        float b0 = bc[q * kLd], b1 = bc[q * kLd + 1];
-        c0 = fmaf(x0[q], b0, c0);
-        c1 = fmaf(x0[q], b1, c1);
-        c2 = fmaf(x1[q], b0, c2);
-        c3 = fmaf(x1[q], b1, c3);
-      }
-      out[nd][0] = c0; out[nd][1] = c1; out[nd][2] = c2; out[nd][3] = c3;
-    }
-    __syncwarp();
-  }
-
-  __device__ static void stage(T* s, float (*x)[4], int g, int t) {
-#pragma unroll
-    for (int j = 0; j < kBlockQ / 8; ++j) {
-      s[g * kLdS + 8 * j + 2 * t] = x[j][0];
-      s[g * kLdS + 8 * j + 2 * t + 1] = x[j][1];
-      s[(g + 8) * kLdS + 8 * j + 2 * t] = x[j][2];
-      s[(g + 8) * kLdS + 8 * j + 2 * t + 1] = x[j][3];
-    }
-  }
+  static constexpr int kLd = BwdOps<T, D>::kLd;
+  static constexpr int kLdS = BwdOps<T, D>::kLdS;
 
   __device__ static void dq(float (*out)[4], const T* s, const T* kb, int qw,
                             int lane) {
@@ -267,14 +146,15 @@ struct Ops<float, D> {
 
 template <typename T, int D>
 constexpr size_t smem_bytes() {
-  return (2 * kBlockK + 2 * kBlockQ) * Ops<T, D>::kLd * sizeof(T) +
-         kBlockK * Ops<T, D>::kLdS * sizeof(T) + 2 * kBlockQ * sizeof(float);
+  return (2 * kBlockK + 2 * kBlockQ) * BwdOps<T, D>::kLd * sizeof(T) +
+         kBlockK * BwdOps<T, D>::kLdS * sizeof(T) +
+         2 * kBlockQ * sizeof(float);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_kernel(const Params prm) {
-  using O = Ops<T, D>;
+  using O = BwdOps<T, D>;
   constexpr int kLd = O::kLd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);
@@ -365,7 +245,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // every warp's ds^T rows are staged
 
     float dqa[D / 8][4];
-    O::dq(dqa, dss, ks, warp * 16, lane);
+    StagedDq<T, D>::dq(dqa, dss, ks, warp * 16, lane);
     const int r0 = q_start + warp * 16 + g, r1 = r0 + 8;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd) {

@@ -1,7 +1,7 @@
 """Fused flash attention: the Hopper kernels, their plain versions and the
 differentiable dispatch.
 
-Three CUDA kernels, each the counterpart of a Pallas kernel of
+Five CUDA kernels, each the counterpart of a Pallas kernel of
 ``chainermn_tpu/ops/flash_attention.py``:
 
 * :func:`flash_attention` -- ``_flash_kernel``, the forward without a
@@ -10,16 +10,21 @@ Three CUDA kernels, each the counterpart of a Pallas kernel of
   forward that also writes the row statistic ``lse``, the same source with
   its lse store switched on;
 * :func:`flash_attention_bwd` -- ``_flash_bwd_fused_kernel``, the fused
-  backward, ``csrc/flash_attention_bwd.cu``.
+  backward, ``csrc/flash_attention_bwd.cu``;
+* :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv` --
+  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``, the split
+  backward (a dq pass, then a dk/dv pass),
+  ``csrc/flash_attention_bwd_split.cu``.
 
 ``attention(q, k, v)`` dispatches on where the tensors lie, as the JAX
 ``attention`` does on its backends: CUDA tensors that need a gradient go
 through :class:`_FlashDiff` (the ``_flash_diff`` custom VJP: the lse
-forward, then the fused backward); CUDA tensors without one launch the
-plain forward kernel; CPU tensors take :func:`xla_attention` with torch
-autograd.  :func:`attention_with_lse` is the ``(out, lse)`` primitive, and
-on the CPU it takes :func:`_blockwise_attention_lse_torch`.  A CUDA tensor
-never falls back to a plain version: it launches a kernel or raises.
+forward, then the backward that ``_FLASH_BWD`` selects); CUDA tensors
+without one launch the plain forward kernel; CPU tensors take
+:func:`xla_attention` with torch autograd.  :func:`attention_with_lse` is
+the ``(out, lse)`` primitive, and on the CPU it takes
+:func:`_blockwise_attention_lse_torch`.  A CUDA tensor never falls back to
+a plain version: it launches a kernel or raises.
 
 Layout ``[B, H, T, D]`` as in the JAX package.  The kernels read q/k/v/g
 through their strides (the last dimension must be dense and rows 16-byte
@@ -35,6 +40,7 @@ import torch
 
 __all__ = ["attention", "attention_with_lse", "blockwise_attention",
            "flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "xla_attention", "attention_flops", "attention_bytes",
            "attention_bwd_flops", "attention_bwd_bytes"]
 
@@ -42,9 +48,9 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (64, 128)
 
 #: CHAINERMN_TPU_FLASH_BWD: the backward lowering, as in the JAX package
-#: (read once at import, monkeypatchable in tests).  "fused" is the one
-#: kernel ported; "split" (the two-kernel escape hatch) raises until
-#: ROADMAP B4 ports it.
+#: (read once at import, monkeypatchable in tests): "fused" (default) is
+#: the one-pass kernel, "split" the two-kernel escape hatch (a dq pass,
+#: then a dk/dv pass, each recomputing p).
 _FLASH_BWD = os.environ.get("CHAINERMN_TPU_FLASH_BWD", "fused")
 
 
@@ -99,23 +105,57 @@ def _flash_fwd_lse_plain(q, k, v, causal=False, scale=None):
     return out, (m_safe + torch.log(l))[..., 0]
 
 
+def _bwd_p_ds(q, k, v, g, lse, delta, causal, scale):
+    """The backward's recomputed tile, whole: fp32 ``p = exp(s - lse)``
+    (0 where masked) and ``ds = p * (g v^T - delta)``."""
+    s = _scores(q, k, causal, scale)
+    p = torch.where(torch.isfinite(s), torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    gv = torch.einsum("bhqd,bhkd->bhqk", g.float(), v.float())
+    return p, p * (gv - delta[..., None])
+
+
+def _dq_of(ds, q, k, scale):
+    """``scale * ds k`` with ds cast to k's dtype, in q's dtype."""
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
+                      k.float()) * scale
+    return dq.to(q.dtype)
+
+
+def _dkv_of(p, ds, q, k, v, g, scale):
+    """``(scale * ds^T q, p^T g)`` with ds cast to q's dtype and p to g's,
+    in k's and v's dtypes."""
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(g.dtype).float(), g.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _flash_bwd_plain(q, k, v, g, lse, delta, causal=False, scale=None):
     """Plain version of the fused backward on the kernel's inputs (lse and
     ``delta = rowsum(g * out) - g_lse``, both fp32 ``[B, H, Tq]``): fp32
     math with the kernel's casts -- p to g's dtype before the dv dot, ds to
     q's/k's dtype before the dk and dq dots."""
     scale = _scale(scale, q.shape[-1])
-    s = _scores(q, k, causal, scale)
-    p = torch.where(torch.isfinite(s), torch.exp(s - lse[..., None]),
-                    torch.zeros_like(s))
-    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(g.dtype).float(), g.float())
-    gv = torch.einsum("bhqd,bhkd->bhqk", g.float(), v.float())
-    ds = p * (gv - delta[..., None])
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
-                      q.float()) * scale
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
-                      k.float()) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    p, ds = _bwd_p_ds(q, k, v, g, lse, delta, causal, scale)
+    return (_dq_of(ds, q, k, scale), *_dkv_of(p, ds, q, k, v, g, scale))
+
+
+def _flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=False, scale=None):
+    """Plain version of the dq pass (``_flash_bwd_dq_kernel``): dq with ds
+    cast to k's dtype before the dot, scaled, in q's dtype."""
+    scale = _scale(scale, q.shape[-1])
+    _, ds = _bwd_p_ds(q, k, v, g, lse, delta, causal, scale)
+    return _dq_of(ds, q, k, scale)
+
+
+def _flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=False, scale=None):
+    """Plain version of the dk/dv pass (``_flash_bwd_dkv_kernel``):
+    ``(dk, dv)`` with p cast to g's dtype before the dv dot and ds to q's
+    before the dk dot."""
+    scale = _scale(scale, q.shape[-1])
+    p, ds = _bwd_p_ds(q, k, v, g, lse, delta, causal, scale)
+    return _dkv_of(p, ds, q, k, v, g, scale)
 
 
 def _kernel_view(x):
@@ -231,15 +271,45 @@ flash_attention_fwd.launches = 0
 
 def _flash_bwd_mode():
     mode = _FLASH_BWD
-    if mode == "split":
-        raise NotImplementedError(
-            "CHAINERMN_TPU_FLASH_BWD=split: the two-kernel backward "
-            "(_flash_bwd_dq_kernel + _flash_bwd_dkv_kernel) is not ported "
-            "yet (ROADMAP B4); unset it or use 'fused'")
-    if mode != "fused":
+    if mode not in ("fused", "split"):
         raise ValueError(
             f"CHAINERMN_TPU_FLASH_BWD={mode!r} invalid (fused|split)")
     return mode
+
+
+def _bwd_inputs(name, q, k, v, g, lse, delta):
+    """Validate a backward kernel's inputs on one CUDA device: its
+    dimensions ``(B, H, Tq, Tk, D)`` and the tensors as the kernel reads
+    them (q/k/v/g through their strides, lse and delta contiguous)."""
+    dims = B, H, Tq, Tk, D = _check(name, q, k, v)
+    if g.dtype != q.dtype or g.shape != q.shape or g.device != q.device:
+        raise ValueError(f"g must match q: got {g.dtype} {tuple(g.shape)} "
+                         f"on {g.device}, q {q.dtype} {tuple(q.shape)}")
+    for what, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (B, H, Tq) or x.dtype != torch.float32 \
+                or x.device != q.device:
+            raise ValueError(f"{what} must be fp32 {(B, H, Tq)} on "
+                             f"{q.device}, got {x.dtype} {tuple(x.shape)} "
+                             f"on {x.device}")
+    views = [_kernel_view(x) for x in (q, k, v, g)]
+    return dims, views + [lse.contiguous(), delta.contiguous()]
+
+
+def _launch_bwd(name, dims, ins, outs, causal, scale):
+    """Launch the backward kernel ``name`` of the library on the inputs
+    of :func:`_bwd_inputs` into the preallocated ``outs``."""
+    from .._build import load_library
+    B, H, Tq, Tk, D = dims
+    q, k, v, g = ins[:4]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(load_library(), name)(
+            *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
+            _DTYPES[q.dtype], B, H, Tq, Tk, D,
+            *(x.stride(i) for x in (q, k, v, g) for i in range(3)),
+            int(bool(causal)), scale, stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, causal=False, scale=None,
@@ -247,48 +317,33 @@ def flash_attention_bwd(q, k, v, out, lse, g, causal=False, scale=None,
     """Backward of :func:`flash_attention_fwd`: ``(dq, dk, dv)``.
 
     ``g_lse``: optional cotangent of lse; since d lse_i / d s_ij = p_ij it
-    enters as ``delta - g_lse``, as in the JAX wrapper.  CUDA tensors
-    launch the fused kernel (counted in ``flash_attention_bwd.launches``);
-    CPU tensors take :func:`_flash_bwd_plain`."""
-    _flash_bwd_mode()
+    enters as ``delta - g_lse``, as in the JAX wrapper.  ``_FLASH_BWD``
+    selects the lowering: ``"fused"`` launches the fused kernel on CUDA
+    tensors (counted in ``flash_attention_bwd.launches``) and takes
+    :func:`_flash_bwd_plain` on CPU tensors; ``"split"`` runs
+    :func:`flash_attention_bwd_dq`, then :func:`flash_attention_bwd_dkv`."""
+    mode = _flash_bwd_mode()
     scale = _scale(scale, q.shape[-1])
     # delta_i = rowsum(g_i * out_i) (- g_lse_i): one fused reduce, as XLA
     # does it outside the Pallas kernel
     delta = (g.float() * out.float()).sum(dim=-1)
     if g_lse is not None:
         delta = delta - g_lse.float()
+    if mode == "split":
+        dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, causal=causal,
+                                    scale=scale)
+        return (dq, *flash_attention_bwd_dkv(q, k, v, g, lse, delta,
+                                             causal=causal, scale=scale))
     if _on_cpu(q, k, v, g):
         return _flash_bwd_plain(q, k, v, g, lse, delta, causal=causal,
                                 scale=scale)
-    B, H, Tq, Tk, D = _check("flash_attention_bwd", q, k, v)
-    if g.dtype != q.dtype or g.shape != q.shape:
-        raise ValueError(f"g must match q: got {g.dtype} "
-                         f"{tuple(g.shape)}, q {q.dtype} {tuple(q.shape)}")
-    if lse.shape != (B, H, Tq) or lse.dtype != torch.float32:
-        raise ValueError(f"lse must be fp32 {(B, H, Tq)}, got {lse.dtype} "
-                         f"{tuple(lse.shape)}")
-    from .._build import load_library
-    lib = load_library()
-    q, k, v, g = (_kernel_view(x) for x in (q, k, v, g))
-    lse = lse.contiguous()
-    delta = delta.contiguous()
+    dims, ins = _bwd_inputs("flash_attention_bwd", q, k, v, g, lse, delta)
+    B, H, Tq, Tk, D = dims
     dq = torch.zeros((B, H, Tq, D), dtype=torch.float32, device=q.device)
     dk = torch.empty((B, H, Tk, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, H, Tk, D), dtype=v.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _DTYPES[q.dtype], B, H, Tq, Tk, D,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            g.stride(0), g.stride(1), g.stride(2),
-            int(bool(causal)), scale, stream)
-    if err:
-        raise RuntimeError(f"flash attention backward kernel launch "
-                           f"failed: CUDA error {err}")
+    _launch_bwd("flash_attention_bwd", dims, ins, (dq, dk, dv), causal,
+                scale)
     flash_attention_bwd.launches += 1
     # the cross-key-tile dq sum is done by the kernel's atomics; the scale
     # and the cast stay outside, as the JAX wrapper does them in XLA
@@ -298,10 +353,56 @@ def flash_attention_bwd(q, k, v, out, lse, g, causal=False, scale=None,
 flash_attention_bwd.launches = 0
 
 
+def flash_attention_bwd_dq(q, k, v, g, lse, delta, causal=False,
+                           scale=None):
+    """The split backward's dq pass on the kernels' inputs (lse and
+    ``delta``, fp32 ``[B, H, Tq]``): dq in q's dtype.  CUDA tensors launch
+    the kernel (counted in ``flash_attention_bwd_dq.launches``); CPU
+    tensors take :func:`_flash_bwd_dq_plain`."""
+    scale = _scale(scale, q.shape[-1])
+    if _on_cpu(q, k, v, g):
+        return _flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal,
+                                   scale=scale)
+    dims, ins = _bwd_inputs("flash_attention_bwd_dq", q, k, v, g, lse,
+                            delta)
+    B, H, Tq, Tk, D = dims
+    dq = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
+    _launch_bwd("flash_attention_bwd_dq", dims, ins, (dq,), causal, scale)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal=False,
+                            scale=None):
+    """The split backward's dk/dv pass on the kernels' inputs: ``(dk,
+    dv)`` in k's and v's dtypes.  CUDA tensors launch the kernel (counted
+    in ``flash_attention_bwd_dkv.launches``); CPU tensors take
+    :func:`_flash_bwd_dkv_plain`."""
+    scale = _scale(scale, q.shape[-1])
+    if _on_cpu(q, k, v, g):
+        return _flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal,
+                                    scale=scale)
+    dims, ins = _bwd_inputs("flash_attention_bwd_dkv", q, k, v, g, lse,
+                            delta)
+    B, H, Tq, Tk, D = dims
+    dk = torch.empty((B, H, Tk, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, H, Tk, D), dtype=v.dtype, device=q.device)
+    _launch_bwd("flash_attention_bwd_dkv", dims, ins, (dk, dv), causal,
+                scale)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
 class _FlashDiff(torch.autograd.Function):
     """Differentiable flash attention (the JAX ``_flash_diff`` custom
-    VJP): the lse forward, saving q, k, v, out and lse, then the fused
-    backward."""
+    VJP): the lse forward, saving q, k, v, out and lse, then the backward
+    (:func:`flash_attention_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
@@ -345,7 +446,7 @@ class _FlashLseDiff(torch.autograd.Function):
 
 
 def attention(q, k, v, causal=False, scale=None):
-    """Dispatch on the tensors' device: on CUDA the lse forward and fused
+    """Dispatch on the tensors' device: on CUDA the lse forward and
     backward kernels when a gradient is needed, else the no-grad forward
     kernel; on the CPU the plain version under torch autograd."""
     if q.device.type == "cuda":
@@ -443,13 +544,21 @@ def attention_bytes(B, H, Tq, Tk, D, itemsize):
     return (2 * B * H * Tq * D + 2 * B * H * Tk * D) * itemsize
 
 
-def attention_bwd_flops(B, H, Tq, Tk, D, causal):
-    """Multiply-adds x2 of the fused backward's five dots per live (q, k)
-    pair: q k^T, g v^T, p^T g, ds^T q and ds k."""
-    return 10 * B * H * D * _live_pairs(Tq, Tk, causal)
+#: per backward kernel: (dots per live (q, k) pair, [Tq, D] and [Tk, D]
+#: tensors it moves).  fused: q k^T, g v^T, p^T g, ds^T q, ds k; q, g, dq
+#: and k, v, dk, dv.  dq pass: q k^T, g v^T, ds k; q, g, dq and k, v.
+#: dk/dv pass: q k^T, g v^T, p^T g, ds^T q; q, g and k, v, dk, dv.
+_BWD_WORK = {"fused": (5, 3, 4), "dq": (3, 3, 2), "dkv": (4, 2, 4)}
 
 
-def attention_bwd_bytes(B, H, Tq, Tk, D, itemsize):
-    """Bytes the backward must move once each: q, k, v, g and the fp32
-    lse and delta in; dq, dk, dv out."""
-    return ((3 * Tq * D + 4 * Tk * D) * itemsize + 2 * Tq * 4) * B * H
+def attention_bwd_flops(B, H, Tq, Tk, D, causal, part="fused"):
+    """Multiply-adds x2 of a backward kernel's dots (``part``: ``fused``,
+    ``dq`` or ``dkv``) over the live (q, k) pairs."""
+    return 2 * _BWD_WORK[part][0] * B * H * D * _live_pairs(Tq, Tk, causal)
+
+
+def attention_bwd_bytes(B, H, Tq, Tk, D, itemsize, part="fused"):
+    """Bytes a backward kernel must move once each: its q/k-shaped inputs
+    and outputs (``_BWD_WORK``) and the fp32 lse and delta in."""
+    _, n_q, n_k = _BWD_WORK[part]
+    return ((n_q * Tq * D + n_k * Tk * D) * itemsize + 2 * Tq * 4) * B * H

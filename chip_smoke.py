@@ -30,19 +30,42 @@ Phases, each printing one JSON line:
    of one projection with a transposed cotangent, as the model hands them
    over; then times of both kernels there, of their plain versions and of
    SDPA's forward and backward (yardsticks only);
-6. train: the same model (bf16, Adam alpha 3e-4) trained through
+6. kernel check, split backward (``kernel_check_split``): the dq and dk/dv
+   kernels against their plain versions, against torch autograd through
+   ``xla_attention`` and against the fused kernel, on the cases of phase
+   5; then their times, their plain versions' times, SDPA's backward (the
+   pair's yardstick) and their bounds at the training shape;
+7. train: the same model (bf16, Adam alpha 3e-4) trained through
    ``Trainer`` -> ``StandardUpdater`` -> ``Adam.update`` on a
    ``SerialIterator`` of 16 random token rows (batch 8 x T 1024): step
    time, tokens/s, MFU, losses, peak memory and the kernels' launch
-   counts, read around this run alone; one no-grad eval forward; then 3
-   steps under the profiler (``train_profile``);
-7. train parity: one step of a small fp32 model (2 layers, d 256, 4 heads
+   counts, read around this run alone (12 lse forwards and 12 fused
+   backwards per step); one no-grad eval forward; then 3 steps under the
+   profiler (``train_profile``);
+8. train_dp: the same model and data trained data-parallel, as ChainerMN
+   does: ``create_communicator("pure_nccl", allreduce_grad_dtype=
+   "bfloat16")`` over NCCL in a world of one process (one card), then
+   ``bcast_data``, ``scatter_dataset`` and ``Trainer`` ->
+   ``StandardUpdater`` -> ``create_multi_node_optimizer(Adam)``, with the
+   backward on the split kernels (``_FLASH_BWD = "split"`` for this phase
+   only): step time, tokens/s, MFU, losses, peak memory, launches (12 lse
+   forwards, 12 dq and 12 dk/dv passes per step) and the gradient
+   allreduces (one flat bf16 bucket per step); then 3 profiled steps
+   (``train_dp_profile``); the process group is torn down after it;
+9. train parity: one step of a small fp32 model (2 layers, d 256, 4 heads
    of 64, T 256) through the kernels against the same step with attention
-   forced through ``xla_attention``: the loss and every gradient.
+   forced through ``xla_attention``: the loss and every gradient;
+10. train_dp_parity, on that small model: (a) a world-of-one DP step with
+    a lossless wire leaves every parameter bitwise equal to the
+    single-card Adam step, (b) the bf16 wire leaves each gradient equal to
+    the fp32 one rounded to bf16 and back, bitwise, (c) the DP step
+    through the split kernels matches the step through ``xla_attention``
+    within the parity tolerance.
 
-Then the kernels line (launches, error, times and bound) and, last,
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
-before the last line.  Needs one CUDA card; fails without one.
+Then the kernels line (launches, error, times and bound of all five
+kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
+exits non-zero before the last line.  Needs one CUDA card; fails without
+one.
 """
 
 import importlib
@@ -106,7 +129,8 @@ def ptxas_report(log):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-            k = re.search(r"(flash_(?:fwd|bwd)_kernel)I(.+?)EvNS_", name)
+            k = re.search(r"(flash_(?:fwd|bwd|bwd_dq|bwd_dkv)_kernel)I"
+                          r"(.+?)EvNS_", name)
             if k:
                 d = re.search(r"Li(\d+)E", k.group(2))
                 name = (f"{k.group(1)}<"
@@ -288,8 +312,8 @@ def phase_serving(model):
     if not all(0 <= t < MODEL["n_vocab"] for r in done.values()
                for t in r.tokens):
         fail("a generated token lies outside the vocabulary")
-    if launches <= 0 or all_launches != {
-            "fwd": n_layers * engine.full_prefills, "fwd_lse": 0, "bwd": 0}:
+    if launches <= 0 or all_launches != expected_launches(
+            fwd=n_layers * engine.full_prefills):
         fail(f"flash kernel launches {all_launches}, expected {n_layers} x "
              f"{engine.full_prefills} full prefills of the no-grad forward")
     if not engine.allocator.check() or engine.allocator.used_pages:
@@ -413,48 +437,67 @@ def check_train_kernels(q, k, v, g, causal, g_lse=None):
     return row
 
 
-def phase_kernel_train():
-    fa = flash_module()
+def train_cases():
+    """The backward kernels' cases: ``(q, k, v, g, causal, g_lse)``, bf16
+    causal at T 1, 16, 200, 1024, non-causal Tq 128 / Tk 200, D 128, fp32,
+    a non-zero lse cotangent, strided T 300, and last the training shape
+    (B 8, T 1024) in the layouts the model hands over."""
     bf16 = torch.bfloat16
-    checks = [check_train_kernels(*train_inputs(2, T, T, 64, bf16, T), True)
-              for T in (1, 16, 200, 1024)]
-    checks.append(check_train_kernels(
-        *train_inputs(2, 128, 200, 64, bf16, 7), False))
-    checks.append(check_train_kernels(
-        *train_inputs(2, 200, 200, 128, bf16, 8), True))
-    checks.append(check_train_kernels(
-        *train_inputs(2, 200, 200, 64, torch.float32, 9), True))
-    q, k, v, g = train_inputs(2, 200, 200, 64, bf16, 10)
+    cases = [(*train_inputs(2, T, T, 64, bf16, T), True, None)
+             for T in (1, 16, 200, 1024)]
+    cases.append((*train_inputs(2, 128, 200, 64, bf16, 7), False, None))
+    cases.append((*train_inputs(2, 200, 200, 128, bf16, 8), True, None))
+    cases.append((*train_inputs(2, 200, 200, 64, torch.float32, 9), True,
+                  None))
     g_lse = torch.randn((2, 12, 200), device="cuda",
                         generator=torch.Generator(device="cuda")
                         .manual_seed(11))
-    checks.append(check_train_kernels(q, k, v, g, True, g_lse=g_lse))
-    checks.append(check_train_kernels(
-        *train_inputs(2, 300, 300, 64, bf16, 12, strided=True), True))
-    # the training shape, in the layouts the model hands over
-    B, H, T, D = TRAIN_BATCH, 12, MODEL["max_len"], 64
-    q, k, v, g = train_inputs(B, T, T, D, bf16, 13, strided=True)
-    main = check_train_kernels(q, k, v, g, True)
-    checks.append(main)
+    cases.append((*train_inputs(2, 200, 200, 64, bf16, 10), True, g_lse))
+    cases.append((*train_inputs(2, 300, 300, 64, bf16, 12, strided=True),
+                  True, None))
+    B, T = TRAIN_BATCH, MODEL["max_len"]
+    cases.append((*train_inputs(B, T, T, 64, bf16, 13, strided=True), True,
+                  None))
+    return cases
+
+
+def bound_of(nbytes, ops, dtype=torch.bfloat16):
+    """The larger of bytes over the HBM rate and operations over the
+    dtype's peak, in ms, and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_backward(q, k, v, g):
+    """SDPA's backward alone, on a retained graph (a yardstick; the port
+    never calls it)."""
+    lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv, is_causal=True)
+    return lambda: torch.autograd.grad(out, (lq, lk, lv), g,
+                                       retain_graph=True)
+
+
+def phase_kernel_train():
+    fa = flash_module()
+    cases = train_cases()
+    checks = [check_train_kernels(q, k, v, g, causal, g_lse=g_lse)
+              for q, k, v, g, causal, g_lse in cases]
+    main = checks[-1]
     emit({"phase": "kernel_check_train", "checks": checks})
     bad = [c for c in checks if not c["ok"]]
     if bad:
         fail(f"training kernels disagree with their plain versions: {bad}")
 
+    q, k, v, g = cases[-1][:4]
+    B, H, T, D = q.shape
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-    lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
-        lq, lk, lv, is_causal=True)
     delta = (g.float() * out.float()).sum(-1)
     fwd_bytes = fa.attention_bytes(B, H, T, T, D, 2) + B * H * T * 4
     fwd_ops = fa.attention_flops(B, H, T, T, D, True)
     bwd_bytes = fa.attention_bwd_bytes(B, H, T, T, D, 2)
     bwd_ops = fa.attention_bwd_flops(B, H, T, T, D, True)
-
-    def bound_of(nbytes, ops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[bf16]
-        return (max(t_bytes, t_ops) * 1e3,
-                "bytes" if t_bytes >= t_ops else "operations")
 
     fwd = lambda: fa.flash_attention_fwd(q, k, v, causal=True)
     bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
@@ -476,9 +519,7 @@ def phase_kernel_train():
             "device_ms": kernel_device_ms(bwd, kernel="flash_bwd_kernel"),
             "plain_ms": time_ms(lambda: fa._flash_bwd_plain(
                 q, k, v, g, lse, delta, causal=True), iters=5, warmup=1),
-            # SDPA's backward alone, on a retained graph
-            "library_ms": time_ms(lambda: torch.autograd.grad(
-                sdpa_out, (lq, lk, lv), g, retain_graph=True)),
+            "library_ms": time_ms(sdpa_backward(q, k, v, g)),
             "max_abs_err": main["bwd_abs_err"],
         },
     }
@@ -487,6 +528,87 @@ def phase_kernel_train():
     times["bwd"]["bound_ms"], times["bwd"]["bound_by"] = bound_of(
         bwd_bytes, bwd_ops)
     emit({"phase": "kernel_check_train_times", **times})
+    return times
+
+
+def check_split_kernels(q, k, v, g, causal, g_lse=None):
+    """The dq and dk/dv kernels against their plain versions, against
+    torch autograd through xla_attention and against the fused kernel,
+    each of dq, dk, dv in BWD_TOL's measure."""
+    fa = flash_module()
+    dtype = q.dtype
+    out, lse = fa._flash_fwd_lse_plain(q, k, v, causal=causal)
+    delta = (g.float() * out.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse
+    got = (fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal=causal),
+           *fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta,
+                                       causal=causal))
+    torch.cuda.synchronize()
+    ref = (fa._flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal),
+           *fa._flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal))
+    fused = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                   g_lse=g_lse)
+    row = {"B": q.shape[0], "Tq": q.shape[2], "Tk": k.shape[2],
+           "D": q.shape[3], "causal": causal, "dtype": str(dtype),
+           "strided": not q.is_contiguous(), "g_lse": g_lse is not None,
+           "err_dq_dk_dv": bwd_errs(got, ref, dtype),
+           "abs_err_dq_dk_dv": [(a.float() - b.float()).abs().max().item()
+                                for a, b in zip(got, ref)],
+           "fused_err_dq_dk_dv": bwd_errs(got, fused, dtype),
+           "finite": all(bool(torch.isfinite(x.float()).all())
+                         for x in got)}
+    if g_lse is None:
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        torch.autograd.backward(
+            fa.xla_attention(*leaves, causal=causal), g)
+        row["autograd_err_dq_dk_dv"] = bwd_errs(
+            got, [x.grad for x in leaves], dtype)
+    row["ok"] = (row["finite"]
+                 and max(row["err_dq_dk_dv"]) < BWD_TOL[dtype]
+                 and max(row["fused_err_dq_dk_dv"]) < BWD_TOL[dtype]
+                 and max(row.get("autograd_err_dq_dk_dv", [0.0]))
+                 < AUTOGRAD_TOL[dtype])
+    return row
+
+
+def phase_kernel_split():
+    fa = flash_module()
+    cases = train_cases()
+    checks = [check_split_kernels(q, k, v, g, causal, g_lse=g_lse)
+              for q, k, v, g, causal, g_lse in cases]
+    main = checks[-1]
+    emit({"phase": "kernel_check_split", "checks": checks})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        fail(f"split backward kernels disagree: {bad}")
+
+    q, k, v, g = cases[-1][:4]
+    B, H, T, D = q.shape
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = (g.float() * out.float()).sum(-1)
+    args = (q, k, v, g, lse, delta)
+    library_ms = time_ms(sdpa_backward(q, k, v, g))
+    times = {"B": B, "H": H, "T": T, "D": D, "dtype": "bfloat16",
+             "causal": True, "strided": True,
+             "library": "SDPA backward (dq, dk and dv: the pair's work)"}
+    for part, kernel, plain, i in (
+            ("dq", fa.flash_attention_bwd_dq, fa._flash_bwd_dq_plain, [0]),
+            ("dkv", fa.flash_attention_bwd_dkv, fa._flash_bwd_dkv_plain,
+             [1, 2])):
+        call = lambda: kernel(*args, causal=True)
+        ms, by = bound_of(fa.attention_bwd_bytes(B, H, T, T, D, 2, part),
+                          fa.attention_bwd_flops(B, H, T, T, D, True, part))
+        times[part] = {
+            "ms": time_ms(call),
+            "device_ms": kernel_device_ms(
+                call, kernel=f"flash_bwd_{part}_kernel"),
+            "plain_ms": time_ms(lambda: plain(*args, causal=True),
+                                iters=5, warmup=1),
+            "library_ms": library_ms,
+            "bound_ms": ms, "bound_by": by,
+            "max_abs_err": max(main["abs_err_dq_dk_dv"][j] for j in i)}
+    emit({"phase": "kernel_check_split_times", **times})
     return times
 
 
@@ -499,37 +621,50 @@ def transformer_flops_per_token(d_model, n_layers, n_vocab, seq_len):
     return 3.0 * (matmul + attn)
 
 
+#: the wrappers' launch counters, by short name
+LAUNCH_COUNTERS = {"fwd": "flash_attention", "fwd_lse": "flash_attention_fwd",
+                   "bwd": "flash_attention_bwd",
+                   "bwd_dq": "flash_attention_bwd_dq",
+                   "bwd_dkv": "flash_attention_bwd_dkv"}
+
+
 def reset_launches():
     fa = flash_module()
-    for fn in (fa.flash_attention, fa.flash_attention_fwd,
-               fa.flash_attention_bwd):
-        fn.launches = 0
+    for fn in LAUNCH_COUNTERS.values():
+        getattr(fa, fn).launches = 0
 
 
 def read_launches():
     fa = flash_module()
-    return {"fwd": fa.flash_attention.launches,
-            "fwd_lse": fa.flash_attention_fwd.launches,
-            "bwd": fa.flash_attention_bwd.launches}
+    return {key: getattr(fa, fn).launches
+            for key, fn in LAUNCH_COUNTERS.items()}
 
 
-def phase_train():
-    from chainermn_tpu_torch.core.optimizer import Adam
-    from chainermn_tpu_torch.dataset import SerialIterator
-    from chainermn_tpu_torch.models import TransformerLM
-    from chainermn_tpu_torch.training import StandardUpdater, Trainer
-    T, n_layers = MODEL["max_len"], MODEL["n_layers"]
-    model = TransformerLM(compute_dtype=torch.bfloat16, remat=False,
-                          device="cuda", **MODEL)
-    opt = Adam(alpha=3e-4)
-    opt.setup(model)
+def expected_launches(**counts):
+    """The expected launch counts: the given ones, every other kernel 0."""
+    return {key: counts.get(key, 0) for key in LAUNCH_COUNTERS}
+
+
+def train_rows():
+    """bench.py's transformer data, cut: 16 random token rows (numpy seed
+    0) and their next-token targets, repeating every 2 steps."""
     rows = np.random.RandomState(0).randint(
-        0, MODEL["n_vocab"], (TRAIN_ROWS, T)).astype(np.int64)
-    data = [(x, np.roll(x, -1)) for x in rows]
+        0, MODEL["n_vocab"], (TRAIN_ROWS, MODEL["max_len"])).astype(np.int64)
+    return rows, [(x, np.roll(x, -1)) for x in rows]
+
+
+def run_training(opt, dataset, out):
+    """``Trainer`` -> ``StandardUpdater`` -> ``opt`` for TRAIN_STEPS
+    steps of TRAIN_BATCH rows, the launch counts read around this run
+    alone: ``(updater, row)`` with the step times, tokens/s, MFU, losses,
+    peak memory and launches."""
+    from chainermn_tpu_torch.dataset import SerialIterator
+    from chainermn_tpu_torch.training import StandardUpdater, Trainer
+    T = MODEL["max_len"]
     updater = StandardUpdater(
-        SerialIterator(data, TRAIN_BATCH, shuffle=False), opt)
+        SerialIterator(dataset, TRAIN_BATCH, shuffle=False), opt)
     trainer = Trainer(updater, (TRAIN_STEPS, "iteration"),
-                      out=os.path.join("build", "chip_smoke_train"))
+                      out=os.path.join("build", out))
     losses, marks = [], []
 
     def record(tr):   # no sync: tensors and events, read after the run
@@ -547,46 +682,151 @@ def phase_train():
     trainer.run()
     torch.cuda.synchronize()
     launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
     step_ms = [start.elapsed_time(marks[0])] + [
         a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-    losses = [float(x) for x in losses]
     median_ms = float(np.median(step_ms[TRAIN_WARMUP:]))
     tokens_per_s = TRAIN_BATCH * T / (median_ms * 1e-3)
     flops_tok = transformer_flops_per_token(
-        MODEL["d_model"], n_layers, MODEL["n_vocab"], T)
+        MODEL["d_model"], MODEL["n_layers"], MODEL["n_vocab"], T)
+    return updater, {
+        "batch": TRAIN_BATCH, "T": T, "steps": TRAIN_STEPS,
+        "step_ms": step_ms, "median_step_ms": median_ms,
+        "tokens_per_s": tokens_per_s, "flops_per_token": flops_tok,
+        "mfu": flops_tok * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
+        "losses": [float(x) for x in losses],
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches}
+
+
+def check_losses(name, losses):
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
+        fail(f"{name} losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{name}: the loss did not fall on repeated data: {losses}")
+
+
+def profile_steps(name, updater):
+    """3 more steps under the profiler: wall, device busy and idle share,
+    and the top kernels by device time."""
+    wall, busy, by_name = device_profile(
+        lambda: [updater.update() for _ in range(3)])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    emit({"phase": name, "steps": 3, "wall_s": wall, "device_busy_s": busy,
+          "device_idle_share": 1.0 - busy / wall,
+          "nccl_us": sum(us for n, us in by_name.items()
+                         if "nccl" in n.lower()),
+          "top_kernels_us": [[n[:80], us] for n, us in top[:12]]})
+
+
+def phase_train():
+    from chainermn_tpu_torch.core.optimizer import Adam
+    from chainermn_tpu_torch.models import TransformerLM
+    n_layers = MODEL["n_layers"]
+    model = TransformerLM(compute_dtype=torch.bfloat16, remat=False,
+                          device="cuda", **MODEL)
+    opt = Adam(alpha=3e-4)
+    opt.setup(model)
+    rows, data = train_rows()
+    updater, row = run_training(opt, data, "chip_smoke_train")
+    launches = row["launches"]
     # one eval forward without a gradient: the plain forward kernel only
     reset_launches()
     with torch.no_grad():
         model.logits(torch.from_numpy(rows[:TRAIN_BATCH]).cuda())
     torch.cuda.synchronize()
     eval_launches = read_launches()
-    emit({"phase": "train", "batch": TRAIN_BATCH, "T": T,
-          "steps": TRAIN_STEPS, "step_ms": step_ms,
-          "median_step_ms": median_ms, "tokens_per_s": tokens_per_s,
-          "flops_per_token": flops_tok,
-          "mfu": flops_tok * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
-          "losses": losses, "peak_bytes": peak, "launches": launches,
-          "eval_launches": eval_launches})
-    if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
-        fail(f"training losses {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"the loss did not fall on repeated data: {losses}")
-    want = {"fwd": 0, "fwd_lse": n_layers * TRAIN_STEPS,
-            "bwd": n_layers * TRAIN_STEPS}
+    emit({"phase": "train", **row, "eval_launches": eval_launches})
+    check_losses("training", row["losses"])
+    want = expected_launches(fwd_lse=n_layers * TRAIN_STEPS,
+                             bwd=n_layers * TRAIN_STEPS)
     if launches != want:
         fail(f"training launches {launches}, expected {want}")
-    if eval_launches != {"fwd": n_layers, "fwd_lse": 0, "bwd": 0}:
+    if eval_launches != expected_launches(fwd=n_layers):
         fail(f"eval launches {eval_launches}, expected {n_layers} of the "
              "no-grad forward only")
-    # where the time goes: 3 more steps under the profiler
-    wall, busy, by_name = device_profile(
-        lambda: [updater.update() for _ in range(3)])
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit({"phase": "train_profile", "steps": 3, "wall_s": wall,
-          "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
-          "top_kernels_us": [[name[:80], us] for name, us in top]})
-    return launches, median_ms
+    profile_steps("train_profile", updater)
+    return launches, row["median_step_ms"]
+
+
+def phase_train_dp():
+    """The data-parallel step on the card: NCCL world of one, bf16 flat
+    bucket, split backward."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     scatter_dataset)
+    from chainermn_tpu_torch.core.optimizer import Adam
+    from chainermn_tpu_torch.models import TransformerLM
+    fa = flash_module()
+    n_layers = MODEL["n_layers"]
+    comm = create_communicator("pure_nccl", allreduce_grad_dtype="bfloat16")
+    saved = fa._FLASH_BWD
+    try:
+        model = TransformerLM(compute_dtype=torch.bfloat16, remat=False,
+                              device="cuda", **MODEL)
+        comm.bcast_data(model)
+        opt = create_multi_node_optimizer(Adam(alpha=3e-4), comm)
+        opt.setup(model)
+        _, data = train_rows()
+        shard = scatter_dataset(data, comm)
+        buckets = comm.grad_buckets_for(model)
+        fa._FLASH_BWD = "split"
+        comm.calls.clear()
+        updater, row = run_training(opt, shard, "chip_smoke_train_dp")
+        row.update({
+            "phase": "train_dp", "communicator": comm.name,
+            "world": comm.size, "backend": dist.get_backend(),
+            "wire_dtype": str(comm.allreduce_grad_dtype),
+            "buckets": len(buckets),
+            "bucket_bytes": 2 * sum(p.numel() for p in model.parameters()),
+            "grad_allreduces": comm.calls["allreduce_grad"],
+            "collectives": dict(comm.calls)})
+        emit(row)
+        profile_steps("train_dp_profile", updater)
+        # one gradient exchange alone (cast, pack, allreduce, divide,
+        # unpack), every device op by name
+        wall, busy, by_name = device_profile(
+            lambda: comm.multi_node_mean_grad(model))
+        emit({"phase": "train_dp_exchange", "wall_ms": wall * 1e3,
+              "device_ms": busy * 1e3,
+              "ops_us": sorted(([n[:80], us] for n, us in by_name.items()),
+                               key=lambda kv: -kv[1])})
+    finally:
+        fa._FLASH_BWD = saved
+        comm.finalize()
+    check_losses("data-parallel training", row["losses"])
+    want = expected_launches(fwd_lse=n_layers * TRAIN_STEPS,
+                             bwd_dq=n_layers * TRAIN_STEPS,
+                             bwd_dkv=n_layers * TRAIN_STEPS)
+    if row["launches"] != want:
+        fail(f"data-parallel launches {row['launches']}, expected {want}")
+    if len(buckets) != 1 or row["grad_allreduces"] != TRAIN_STEPS \
+            or comm.allreduce_grad_dtype != torch.bfloat16:
+        fail(f"expected one flat bf16 gradient allreduce per step: "
+             f"{len(buckets)} buckets, {row['grad_allreduces']} allreduces "
+             f"over {TRAIN_STEPS} steps, wire {comm.allreduce_grad_dtype}")
+    if dist.is_initialized():
+        fail("the process group outlived the data-parallel phase")
+    return row["launches"], row["median_step_ms"]
+
+
+#: train_parity's small fp32 model
+PARITY_MODEL = dict(n_vocab=1000, d_model=256, n_heads=4, n_layers=2,
+                    max_len=256, seed=0, device="cuda")
+
+
+def parity_batch():
+    rows = np.random.RandomState(2).randint(0, PARITY_MODEL["n_vocab"],
+                                            (2, 256))
+    return (torch.from_numpy(rows).cuda(),
+            torch.from_numpy(np.roll(rows, -1, axis=1)).cuda())
+
+
+def grad_rel_err(grads, ref_grads):
+    """Worst gradient error, relative to each parameter's largest |grad|."""
+    return max((grads[p] - g).abs().max().item()
+               / max(g.abs().max().item(), 1e-30)
+               for p, g in ref_grads.items())
 
 
 def phase_train_parity():
@@ -595,14 +835,10 @@ def phase_train_parity():
     from chainermn_tpu_torch.models import TransformerLM
     from chainermn_tpu_torch.models import transformer as tm
     from chainermn_tpu_torch.ops import xla_attention
-    kw = dict(n_vocab=1000, d_model=256, n_heads=4, n_layers=2,
-              max_len=256, seed=0, device="cuda")
-    rows = np.random.RandomState(2).randint(0, kw["n_vocab"], (2, 256))
-    x = torch.from_numpy(rows).cuda()
-    t = torch.from_numpy(np.roll(rows, -1, axis=1)).cuda()
+    x, t = parity_batch()
 
     def step():
-        model = TransformerLM(**kw)
+        model = TransformerLM(**PARITY_MODEL)
         loss = model(x, t)
         loss.backward()
         return loss.item(), {p: v.grad for p, v in model.namedparams()}
@@ -616,18 +852,91 @@ def phase_train_parity():
         ref_loss, ref_grads = step()
     finally:
         tm.fused_attention = kernel_attention
-    grad_err = max((grads[p] - g).abs().max().item()
-                   / max(g.abs().max().item(), 1e-30)
-                   for p, g in ref_grads.items())
+    grad_err = grad_rel_err(grads, ref_grads)
     row = {"phase": "train_parity", "loss": loss, "ref_loss": ref_loss,
            "loss_err": abs(loss - ref_loss), "grad_rel_err": grad_err,
            "tol": PARITY_TOL, "launches": launches}
     emit(row)
-    if launches != {"fwd": 0, "fwd_lse": 2, "bwd": 2}:
+    if launches != expected_launches(fwd_lse=2, bwd=2):
         fail(f"parity step launches {launches}, expected 2 + 2")
     if not (row["loss_err"] < PARITY_TOL["loss"]
             and grad_err < PARITY_TOL["grad"]):
         fail(f"training through the kernels leaves the plain step: {row}")
+
+
+def phase_train_dp_parity():
+    """On train_parity's model, with the split backward: (a) a world-of-
+    one DP step (lossless wire) is bitwise the single-card Adam step, (b)
+    the bf16 wire rounds each gradient to bf16 and back, bitwise, (c) the
+    DP step through the split kernels matches the one through
+    xla_attention within PARITY_TOL."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer)
+    from chainermn_tpu_torch.core.optimizer import Adam
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.models import transformer as tm
+    from chainermn_tpu_torch.ops import xla_attention
+    fa = flash_module()
+    x, t = parity_batch()
+    saved = fa._FLASH_BWD
+    fa._FLASH_BWD = "split"
+    comm = create_communicator("pure_nccl")
+    try:
+        wire = create_communicator("pure_nccl",
+                                   allreduce_grad_dtype="bfloat16")
+
+        def step(data_parallel):
+            model = TransformerLM(**PARITY_MODEL)
+            opt = Adam(alpha=3e-4)
+            if data_parallel:
+                opt = create_multi_node_optimizer(opt, comm)
+            opt.setup(model)
+            loss = opt.update(model, x, t).item()
+            return loss, dict(model.namedparams())
+
+        # (a) the DP wrapper over a lossless world of one changes nothing
+        loss, single = step(False)
+        reset_launches()
+        dp_loss, dp = step(True)
+        launches = read_launches()
+        a_equal = loss == dp_loss and all(
+            torch.equal(dp[p], v) for p, v in single.items())
+        # (b) the bf16 wire on one backward's gradients
+        model = TransformerLM(**PARITY_MODEL)
+        model(x, t).backward()
+        raw = {p: v.grad.clone() for p, v in model.namedparams()}
+        wire.multi_node_mean_grad(model)
+        torch.cuda.synchronize()
+        b_equal = all(v.grad.dtype == torch.float32
+                      and torch.equal(v.grad, raw[p].bfloat16().float())
+                      for p, v in model.namedparams())
+        # (c) split kernels against plain attention, through the DP step
+        kernel_attention = tm.fused_attention
+        tm.fused_attention = xla_attention
+        try:
+            ref_loss, ref = step(True)
+        finally:
+            tm.fused_attention = kernel_attention
+        grad_err = grad_rel_err({p: v.grad for p, v in dp.items()},
+                                {p: v.grad for p, v in ref.items()})
+        calls = dict(comm.calls)
+    finally:
+        fa._FLASH_BWD = saved
+        comm.finalize()
+    row = {"phase": "train_dp_parity", "a_bitwise_equal": a_equal,
+           "loss": dp_loss, "single_card_loss": loss,
+           "b_bf16_wire_bitwise": b_equal, "c_ref_loss": ref_loss,
+           "c_loss_err": abs(dp_loss - ref_loss), "c_grad_rel_err": grad_err,
+           "tol": PARITY_TOL, "launches": launches, "collectives": calls}
+    emit(row)
+    if launches != expected_launches(fwd_lse=2, bwd_dq=2, bwd_dkv=2):
+        fail(f"DP parity step launches {launches}, expected 2 + 2 + 2")
+    if not (a_equal and b_equal and row["c_loss_err"] < PARITY_TOL["loss"]
+            and grad_err < PARITY_TOL["grad"]):
+        fail(f"the data-parallel step leaves its references: {row}")
+    if dist.is_initialized():
+        fail("the process group outlived the DP parity phase")
 
 
 def main():
@@ -666,8 +975,11 @@ def main():
     del model
     torch.cuda.empty_cache()
     train_times = phase_kernel_train()
+    split_times = phase_kernel_split()
     train_launches, _ = phase_train()
+    dp_launches, _ = phase_train_dp()
     phase_train_parity()
+    phase_train_dp_parity()
 
     main_check = next(c for c in checks if c["T"] == 1024 and c["causal"])
     main_time = next(t for t in times if t["T"] == 1024)
@@ -694,7 +1006,16 @@ def main():
          "chainermn_tpu/ops/flash_attention.py:92"),
         ("flash_attention_bwd", "bwd",
          "chainermn_tpu_torch/csrc/flash_attention_bwd.cu",
-         "chainermn_tpu/ops/flash_attention.py:239")]]})
+         "chainermn_tpu/ops/flash_attention.py:239")]] + [{
+        "name": f"flash_attention_bwd_{part}", "route": "cuda",
+        "source": "chainermn_tpu_torch/csrc/flash_attention_bwd_split.cu",
+        "replaces": replaces, "launches": dp_launches[f"bwd_{part}"],
+        **{f: split_times[part][f] for f in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for part, replaces in [
+        ("dq", "chainermn_tpu/ops/flash_attention.py:146"),
+        ("dkv", "chainermn_tpu/ops/flash_attention.py:187")]]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

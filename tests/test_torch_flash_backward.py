@@ -250,11 +250,16 @@ def test_plain_versions_count_no_launch():
 
 
 def test_split_backward_mode_raises_instead_of_running_fused(monkeypatch):
+    """``split`` runs the dq and dk/dv passes, never the fused backward;
+    an unknown mode raises instead of running either."""
     q, k, v, g = (_t(a) for a in _arrays([(1, 2, 64, 16)] * 4, 2))
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    fused = []
+    monkeypatch.setattr(fa, "_flash_bwd_plain",
+                        lambda *a, **kw: fused.append(1))
     monkeypatch.setattr(fa, "_FLASH_BWD", "split")
-    with pytest.raises(NotImplementedError, match="B4"):
-        fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    assert not fused and [x.shape for x in grads] == [q.shape] * 3
     monkeypatch.setattr(fa, "_FLASH_BWD", "fast")
     with pytest.raises(ValueError, match="invalid"):
         fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card:
 the no-grad forward (``_flash_kernel``), the lse forward
-(``_flash_kernel_lse``) and the fused backward
-(``_flash_bwd_fused_kernel``).
+(``_flash_kernel_lse``), the fused backward (``_flash_bwd_fused_kernel``)
+and the split backward's dq and dk/dv passes (``_flash_bwd_dq_kernel``,
+``_flash_bwd_dkv_kernel``); and the gradient exchange over NCCL in a
+world of one process.
 
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -230,3 +232,100 @@ def test_kernels_match_autograd_through_plain_attention(cuda_device, Tq, Tk,
     xla_attention(*leaves, causal=causal).backward(g)
     ref = [x.grad for x in leaves]
     assert _bwd_err(got, ref, torch.bfloat16) < AUTOGRAD_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Tq,Tk,D,causal,dtype", TRAIN_CASES)
+def test_split_backward_kernels_match_plain_and_fused(cuda_device, B, H, Tq,
+                                                      Tk, D, causal, dtype):
+    """The dq pass and the dk/dv pass against their plain versions and
+    against the fused kernel B2 (the same math; B2's dq sums in another
+    order), in BWD_TOL's measure."""
+    q, k, v, g = _train_inputs(B, H, Tq, Tk, D, dtype, cuda_device, Tq + 3)
+    out, lse = fa._flash_fwd_lse_plain(q, k, v, causal=causal)
+    delta = (g.float() * out.float()).sum(-1)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal=causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta,
+                                        causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    assert all(torch.isfinite(x.float()).all() for x in (dq, dk, dv))
+    ref = (fa._flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal),
+           *fa._flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal))
+    assert _bwd_err((dq, dk, dv), ref, dtype) < BWD_TOL[dtype]
+    fused = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    assert _bwd_err((dq, dk, dv), fused, dtype) < BWD_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_split_mode_backward_is_deterministic_and_reads_strides(
+        cuda_device, monkeypatch):
+    """``_FLASH_BWD = "split"`` sends the autograd backward through the
+    two kernels (strided q/k/v and a transposed cotangent, as the model
+    hands them over); its dq has no atomics, so two runs agree bitwise."""
+    B, T, H, D = 2, 300, 12, 64
+    rng = np.random.RandomState(5)
+    qkv = torch.from_numpy(rng.normal(0, 1, (B, T, 3, H, D)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    g = torch.from_numpy(rng.normal(0, 1, (B, T, H, D)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16).transpose(1, 2)
+    monkeypatch.setattr(fa, "_FLASH_BWD", "split")
+    runs = []
+    for _ in range(2):
+        leaves = [qkv[:, :, i].transpose(1, 2).detach().requires_grad_()
+                  for i in range(3)]
+        before = (fa.flash_attention_bwd.launches,
+                  fa.flash_attention_bwd_dq.launches,
+                  fa.flash_attention_bwd_dkv.launches)
+        attention(*leaves, causal=True).backward(g)
+        torch.cuda.synchronize()
+        assert (fa.flash_attention_bwd.launches,
+                fa.flash_attention_bwd_dq.launches,
+                fa.flash_attention_bwd_dkv.launches) == (
+                    before[0], before[1] + 1, before[2] + 1)
+        runs.append([x.grad for x in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    leaves = [qkv[:, :, i].transpose(1, 2).detach().requires_grad_()
+              for i in range(3)]
+    xla_attention(*leaves, causal=True).backward(g)
+    assert _bwd_err(runs[0], [x.grad for x in leaves],
+                    torch.bfloat16) < AUTOGRAD_TOL
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_mean_grad_leaves_fp32_gradients(cuda_device):
+    """``multi_node_mean_grad`` over NCCL with one rank: a lossless wire
+    leaves every fp32 gradient bitwise as it was (one flat bucket); a
+    bf16 wire rounds it to bf16 and back."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.models import TransformerLM
+    model = TransformerLM(n_vocab=97, d_model=64, n_heads=1, n_layers=2,
+                          max_len=32, seed=0, device=cuda_device)
+    x = torch.from_numpy(np.random.RandomState(6).randint(0, 97, (2, 32)))
+    x = x.to(cuda_device)
+    model(x, torch.roll(x, -1, 1)).backward()
+    raw = {p: v.grad.clone() for p, v in model.namedparams()}
+    comm = create_communicator("pure_nccl")
+    try:
+        assert comm.size == 1 and dist.get_backend() == "nccl"
+        comm.multi_node_mean_grad(model)
+        torch.cuda.synchronize()
+        assert comm.calls["allreduce_grad"] == 1
+        for p, v in model.namedparams():
+            assert v.grad.dtype == torch.float32
+            assert torch.equal(v.grad, raw[p]), p
+        wire = create_communicator("pure_nccl",
+                                   allreduce_grad_dtype="bfloat16")
+        wire.multi_node_mean_grad(model)
+        torch.cuda.synchronize()
+        for p, v in model.namedparams():
+            assert torch.equal(v.grad, raw[p].bfloat16().float()), p
+    finally:
+        comm.finalize()
+    assert not dist.is_initialized()
