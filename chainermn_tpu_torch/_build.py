@@ -19,7 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load_library", "library_path", "build_log", "NvccError"]
+__all__ = ["load_library", "library_path", "build_log", "cuda_tool",
+           "NvccError", "ARGTYPES"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -52,19 +53,21 @@ def library_path():
     return _BUILD / f"libchainermn_tpu_torch_{_digest()}.so"
 
 
-def _nvcc():
-    found = shutil.which("nvcc")
+def cuda_tool(name):
+    """The path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on
+    PATH, else in CUDA_HOME's or /usr/local/cuda's ``bin``."""
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise NvccError("nvcc not found (looked on PATH and in CUDA_HOME or "
+    raise NvccError(f"{name} not found (looked on PATH and in CUDA_HOME or "
                     "/usr/local/cuda): the CUDA kernels cannot be built")
 
 
 def _build(out):
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     _BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
         objs, procs = [], []
@@ -97,21 +100,34 @@ def _build(out):
     return "\n".join(logs)
 
 
-def _bind(lib):
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, *[ll] * 9, i,
-                   ctypes.c_float, p]
-    fn.restype = i
+def _argtypes():
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+    table = {
+        # q, k, v, o, lse; dtype, B, H, Tq, Tk, D; 9 strides; causal,
+        # scale, block_q, block_k, stream
+        "flash_attention_fwd": [p] * 5 + [i] * 6 + [ll] * 9
+        + [i, f, i, i, p]}
     # the backward launchers: q, k, v, g, lse, delta, then their outputs
-    # (fused: dq, dk, dv; split: dq, or dk and dv)
+    # (fused: dq, dk, dv; split: dq, or dk and dv); dtype, B, H, Tq, Tk, D;
+    # 12 strides; causal, scale, stream
     for name, n_out in (("flash_attention_bwd", 3),
                         ("flash_attention_bwd_dq", 1),
                         ("flash_attention_bwd_dkv", 2)):
+        table[name] = [p] * (6 + n_out) + [i] * 6 + [ll] * 12 + [i, f, p]
+    return table
+
+
+#: ctypes argument types of every ``extern "C"`` launcher in ``csrc/``
+#: (each returns a cudaError_t as an int)
+ARGTYPES = _argtypes()
+
+
+def _bind(lib):
+    for name, types in ARGTYPES.items():
         fn = getattr(lib, name)
-        fn.argtypes = [*[p] * (6 + n_out), i, i, i, i, i, i, *[ll] * 12, i,
-                       ctypes.c_float, p]
-        fn.restype = i
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
     return lib
 
 

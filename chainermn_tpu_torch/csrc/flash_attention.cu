@@ -1,137 +1,48 @@
-// Flash attention forward for Hopper (sm_90a): the CUDA counterpart of
+// Flash attention forward, fp32, and the C entry point of both forwards.
+//
+// The bf16 forward, the main path of training and serving, is the Hopper
+// kernel in flash_fwd_sm90.cu (TMA and wgmma), the counterpart of
 // chainermn_tpu/ops/flash_attention.py::_flash_kernel and, with a non-null
-// lse pointer, of _flash_kernel_lse (the training forward), which also
-// writes the row statistic lse = m_safe + log(max(l, 1e-30)) in fp32: m_safe
-// is 0 for a row with no live key, so such a row's lse is finite (-69.08).
-// One kernel body serves both; the lse store is a template flag.
+// lse pointer, of ::_flash_kernel_lse.  This file keeps the fp32 forward,
+// the parity path of the fp32 model and tests (wgmma takes no fp32
+// inputs): the same function and numerics, lse = m_safe + log(max(l,
+// 1e-30)) in fp32 when asked for (m_safe is 0 for a row with no live key,
+// so such a row's out is 0 and its lse finite, -69.08).
 //
-// What it computes: out = softmax(scale * q k^T [causal mask]) v for
-// q [B, H, Tq, D] and k/v [B, H, Tk, D], with the JAX kernel's numerics:
-// q/k/v enter the dots in their storage dtype, accumulators and the online
-// softmax state (m, l, acc) are fp32, p is cast to v's dtype before the PV
-// dot, and the -inf / m_safe / corr rules plus the final l >= 1e-30 clamp
-// make a fully masked row come out as 0 instead of NaN.  Key tiles past
-// the causal diagonal are skipped; the ragged edge (any T >= 1) is masked
-// inside the kernel, so no shape ever falls back to the plain version.
-//
-// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM): at
-// B = 1, H = 12, T = 1024, D = 64 causal (one serving prefill layer), the
-// causal QK^T + PV work is 4 * B*H * D * T(T+1)/2 = 1.61 GFLOP (1.6 us)
-// and q/k/v/o are 4 * B*H*T*D * 2 B = 6.3 MB (1.9 us), so a launch cannot
-// take less than about 2 us and is bytes-bound at this size.  At the
-// training shape (B = 8, same H/T/D) the lse forward does 12.9 GFLOP
-// (13.0 us) and moves q/k/v/o plus the fp32 lse, 50.7 MB (15.1 us): bytes
-// again.
-//
-// How the design answers it: one block of 4 warps per (b*h, 64-row q
-// tile), each warp owning 16 q rows.  K/V tiles of 64 rows are staged in
-// shared memory (16-byte vector loads, padded rows so the fragment reads
-// are conflict free) and read from device memory once per q tile; q, the
-// [64, 64] score tile and the output accumulator never leave registers.
-// bf16 QK^T and PV run on mma.sync m16n8k16 tensor-core instructions with
-// fp32 accumulation, and the score fragments are reused in place as the A
-// operand of PV (the FlashAttention-2 register layout).  fp32 inputs take
-// the same tiling with the dots done on CUDA cores.  Single-buffered
-// loads, no TMA and no wgmma: the simple, correct first version.
+// fp32 design: one block of 4 warps per (b*h, 64-row q tile), each warp
+// owning 16 q rows; K/V tiles of 64 rows staged in padded shared memory
+// (single-buffered 16-byte vector loads, the ragged edge zero-filled and
+// masked), the products on CUDA cores in the mma C fragment layout, key
+// tiles past the causal diagonal skipped.  Bound at the fp32 parity shape
+// (B 2, H 4, T 256, D 64 causal): 0.07 GFLOP over 67 TFLOP/s (1.0 us).
 //
 // Plain C interface (bound with ctypes): the launcher returns
 // cudaGetLastError(); it launches on the caller's stream and allocates
 // nothing.  Strides are in elements; the last dimension must be dense and
 // every row 16-byte aligned (the Python wrapper checks and copies if not).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_fwd.cuh"
 
 namespace {
 
-using flash::mma_bf16;
-using flash::pack_bf16;
 using flash::Pad;
+using Params = flash::FwdParams;
 
 constexpr int kBlockQ = 64;   // q rows per block
 constexpr int kBlockK = 64;   // key rows per shared-memory tile
 constexpr int kWarps = 4;     // 16 q rows per warp
 constexpr int kThreads = kWarps * 32;
 
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  float* lse;  // [B*H, Tq], or null for the plain forward
-  int H, Tq, Tk;
-  long long sqb, sqh, sqt;
-  long long skb, skh, skt;
-  long long svb, svh, svt;
-  int causal;
-  float scale;
-};
-
-// Fragment layout shared by both element types (the mma C layout): lane =
-// 4 * g + t holds, for n-tile j, columns 8j + 2t and 8j + 2t + 1 of rows
-// g (entries 0, 1) and g + 8 (entries 2, 3) of the warp's 16 rows.
+// Fragment layout (the mma C layout): lane = 4 * g + t holds, for n-tile
+// j, columns 8j + 2t and 8j + 2t + 1 of rows g (entries 0, 1) and g + 8
+// (entries 2, 3) of the warp's 16 rows.
 template <typename T, int D>
 struct Tile;
-
-template <int D>
-struct Tile<__nv_bfloat16, D> {
-  using T = __nv_bfloat16;
-  static constexpr int kLd = D + Pad<T>::value;
-  uint32_t qa[D / 16][4];
-
-  __device__ void load_q(const T* qs, int g, int t) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const T* r0 = qs + g * kLd + kk * 16 + 2 * t;
-      const T* r1 = r0 + 8 * kLd;
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(r1);
-      qa[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-      qa[kk][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
-    }
-  }
-
-  // s[j][*] = q . k for the 64 keys of the tile (unscaled).
-  __device__ void qk(float (*s)[4], const T* ks, int g, int t) {
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const T* kr = ks + (8 * j + g) * kLd + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
-        uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
-        mma_bf16(s[j], qa[kk], b0, b1);
-      }
-    }
-  }
-
-  // o += bf16(p) . v, the score fragments reused as the A operand.
-  __device__ void pv(float (*o)[4], float (*p)[4], const T* vs, float*,
-                     int g, int t) {
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-      pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-      pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-      pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-      const T* v0 = vs + (16 * kk + 2 * t) * kLd + g;
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const T* vr = v0 + 8 * nd;
-        uint32_t b0 = pack_bf16(vr[0], vr[kLd]);
-        uint32_t b1 = pack_bf16(vr[8 * kLd], vr[9 * kLd]);
-        mma_bf16(o[nd], pa, b0, b1);
-      }
-    }
-  }
-
-};
 
 template <int D>
 struct Tile<float, D> {
@@ -326,7 +237,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int D, bool kLse>
-cudaError_t launch_as(const Params& prm, int B, cudaStream_t stream) {
+cudaError_t launch_as(const Params& prm, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
   static bool configured = false;
   if (!configured) {
@@ -336,36 +247,37 @@ cudaError_t launch_as(const Params& prm, int B, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((prm.Tq + kBlockQ - 1) / kBlockQ, B * prm.H);
+  dim3 grid((prm.Tq + kBlockQ - 1) / kBlockQ, prm.B * prm.H);
   flash_fwd_kernel<T, D, kLse><<<grid, kThreads, smem, stream>>>(prm);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch(const Params& prm, int B, cudaStream_t stream) {
-  return prm.lse ? launch_as<T, D, true>(prm, B, stream)
-                 : launch_as<T, D, false>(prm, B, stream);
+cudaError_t launch(const Params& prm, cudaStream_t stream) {
+  return prm.lse ? launch_as<T, D, true>(prm, stream)
+                 : launch_as<T, D, false>(prm, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32.  lse: fp32 [B*H, Tq] output, or null
-// for the forward without it.  Returns a cudaError_t (0 = success);
-// cudaErrorInvalidValue for a dtype or head dim the kernel has no
-// instantiation for.
+// dtype: 0 = bfloat16 (flash_fwd_sm90.cu, tiles of block_q q rows and
+// block_k keys), 1 = float32 (this file; the tiles are not read).  lse:
+// fp32 [B*H, Tq] output, or null for the forward without it.  Returns a
+// cudaError_t (0 = success); cudaErrorInvalidValue for a dtype, head dim,
+// tile pair or scale the kernels do not take, or strides a tensor map
+// cannot describe.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
     int dtype, int B,
     int H, int Tq, int Tk, int D, long long sqb, long long sqh,
     long long sqt, long long skb, long long skh, long long skt,
     long long svb, long long svh, long long svt, int causal, float scale,
-    void* stream) {
-  Params prm{q, k, v, o, lse, H, Tq, Tk, sqb, sqh, sqt, skb, skh, skt,
-             svb, svh, svt, causal, scale};
+    int block_q, int block_k, void* stream) {
+  const Params prm{q, k, v, o, lse, B, H, Tq, Tk, sqb, sqh, sqt,
+                   skb, skh, skt, svb, svh, svt, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64>(prm, B, s);
-  if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(prm, B, s);
-  if (dtype == 1 && D == 64) return launch<float, 64>(prm, B, s);
-  if (dtype == 1 && D == 128) return launch<float, 128>(prm, B, s);
+  if (dtype == 0) return flash::fwd_bf16_sm90(prm, D, block_q, block_k, s);
+  if (dtype == 1 && D == 64) return launch<float, 64>(prm, s);
+  if (dtype == 1 && D == 128) return launch<float, 128>(prm, s);
   return cudaErrorInvalidValue;
 }

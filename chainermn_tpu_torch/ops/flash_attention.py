@@ -5,10 +5,11 @@ Five CUDA kernels, each the counterpart of a Pallas kernel of
 ``chainermn_tpu/ops/flash_attention.py``:
 
 * :func:`flash_attention` -- ``_flash_kernel``, the forward without a
-  gradient (eval, serving prefill), ``csrc/flash_attention.cu``;
+  gradient (eval, serving prefill): bf16 on TMA and ``wgmma``,
+  ``csrc/flash_fwd_sm90.cu``; fp32 on CUDA cores, ``csrc/flash_attention.cu``;
 * :func:`flash_attention_fwd` -- ``_flash_kernel_lse``, the training
-  forward that also writes the row statistic ``lse``, the same source with
-  its lse store switched on;
+  forward that also writes the row statistic ``lse``, the same kernels with
+  their lse store switched on;
 * :func:`flash_attention_bwd` -- ``_flash_bwd_fused_kernel``, the fused
   backward, ``csrc/flash_attention_bwd.cu``;
 * :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv` --
@@ -27,9 +28,10 @@ the ``(out, lse)`` primitive, and on the CPU it takes
 a plain version: it launches a kernel or raises.
 
 Layout ``[B, H, T, D]`` as in the JAX package.  The kernels read q/k/v/g
-through their strides (the last dimension must be dense and rows 16-byte
-aligned, else the wrapper makes a contiguous copy) and write contiguous
-outputs.  They take bf16 or fp32 at head dim 64 or 128.
+through their strides (the last dimension must be dense, rows 16-byte
+aligned and no stride 0, else the wrapper makes a contiguous copy) and write
+contiguous outputs.  They take bf16 or fp32 at head dim 64 or 128; the
+forward takes a positive finite scale.
 """
 
 from __future__ import annotations
@@ -160,10 +162,12 @@ def _flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=False, scale=None):
 
 def _kernel_view(x):
     """``x`` itself when the kernel can read it through its strides (dense
-    last dimension, 16-byte aligned rows), else a contiguous copy."""
+    last dimension, 16-byte aligned rows, no stride 0 on an extent above 1:
+    what a TMA tensor map takes), else a contiguous copy."""
     vec = 16 // x.element_size()
     ok = (x.stride(3) == 1 and x.data_ptr() % 16 == 0
-          and all(x.stride(i) % vec == 0 for i in range(3)))
+          and all(x.stride(i) % vec == 0 and (x.stride(i) or x.shape[i] == 1)
+                  for i in range(3)))
     return x if ok else x.contiguous()
 
 
@@ -210,25 +214,62 @@ def _needs_grad(*xs):
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
+#: the card the tiles are chosen for (H100 SXM): SMs and L2 bytes
+_SMS = 132
+_L2_BYTES = 50 * 2 ** 20
+
+
+def _fwd_tiles(B, H, Tq, Tk, D):
+    """The bf16 forward's ``(q rows, keys)`` per tile, by the H100
+    measurements of ``tools/flash_fwd_tiles.py`` (PERF.md).  When the
+    bf16 K and V of every head outgrow the L2, 128-row tiles: two consumer
+    warpgroups share each K/V tile, halving the K/V traffic to device
+    memory.  Otherwise 64-row tiles, with keys
+    in tiles of 64 where ``B * H * ceil(Tq / 64)`` gives every SM three
+    blocks (the training shape; three fit at D 64), else in tiles of 128
+    at D 64 (a serving prefill at B 1: fewer, longer steps on the
+    critical path).  D 128 takes 64-key tiles (registers)."""
+    if 4 * B * H * Tk * D > _L2_BYTES:
+        return 128, (128 if D == 64 else 64)
+    if D == 128 or B * H * -(-Tq // 64) >= 3 * _SMS:
+        return 64, 64
+    return 64, 128
+
+
+_fwd_launcher = None
+
+
+def _fwd_kernel():
+    """The library's ``flash_attention_fwd``, looked up once."""
+    global _fwd_launcher
+    if _fwd_launcher is None:
+        from .._build import load_library
+        _fwd_launcher = load_library().flash_attention_fwd
+    return _fwd_launcher
+
+
 def _launch_fwd(name, q, k, v, causal, scale, with_lse):
     """Launch the forward kernel: ``(out, lse or None)``."""
     B, H, Tq, Tk, D = _check(name, q, k, v)
-    from .._build import load_library
-    lib = load_library()
+    scale = _scale(scale, D)
+    if not 0.0 < scale < float("inf"):
+        raise ValueError(f"{name} takes a positive finite scale, got {scale}")
+    launch = _fwd_kernel()
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
-    out = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    dev = q.device
+    out = torch.empty((B, H, Tq, D), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=dev)
            if with_lse else None)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None,
             _DTYPES[q.dtype], B, H, Tq, Tk, D,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            int(bool(causal)), _scale(scale, D), stream)
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(bool(causal)), scale, *_fwd_tiles(B, H, Tq, Tk, D))
+    if dev.index == torch.cuda.current_device():
+        err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out, lse

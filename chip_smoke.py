@@ -6,14 +6,19 @@
 Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the
-   kernels built from ``chainermn_tpu_torch/csrc`` (build seconds, and
-   registers and spill bytes per kernel instantiation from ptxas);
+   kernels built from ``chainermn_tpu_torch/csrc`` (build seconds,
+   registers and spill bytes per kernel instantiation from ptxas, and per
+   forward instantiation the counts of ``HGMMA`` (wgmma) and ``UTMALDG``
+   (TMA tile loads) in the library's SASS, which every bf16 forward must
+   have);
 2. kernel check: the flash kernel against its plain PyTorch version on
-   the card (bf16 causal at H 12, D 64, T in {16, 128, 200, 1024}, one
-   non-causal and one fp32 case), and times of the kernel, the plain
-   version and ``torch.nn.functional.scaled_dot_product_attention`` (timed
-   as a yardstick only; the port never calls it) at T in {128, 256, 512,
-   1024};
+   the card (bf16 causal at B 1, H 12, D 64, T in {16, 128, 200, 1024},
+   B 8 at T 2200 for the 128-row tiles, one non-causal and one fp32 case),
+   and times of the kernel (per call, on
+   the device, and the host's cost of one launch), the plain version and
+   ``torch.nn.functional.scaled_dot_product_attention`` (per call and its
+   kernels' device time; timed as a yardstick only, the port never calls
+   it) at T in {128, 256, 512, 1024};
 3. serving: a GPT-2-small-class ``TransformerLM`` (vocab 32768, d 768,
    12 heads of 64, 12 layers, random weights from seed 0, bf16) served by
    ``ServingEngine`` (512 pages of 16, batch 8, context 1024): 16 chat
@@ -28,8 +33,9 @@ Phases, each printing one JSON line:
    200, 1024}, non-causal Tq 128 / Tk 200, D 128, fp32, a non-zero lse
    cotangent, and at the training shape (B 8, T 1024) on q/k/v sliced out
    of one projection with a transposed cotangent, as the model hands them
-   over; then times of both kernels there, of their plain versions and of
-   SDPA's forward and backward (yardsticks only);
+   over; then times of both kernels there (per call, device, and the lse
+   forward's host cost per launch), of their plain versions and of SDPA's
+   forward and backward (per call and device; yardsticks only);
 6. kernel check, split backward (``kernel_check_split``): the dq and dk/dv
    kernels against their plain versions, against torch autograd through
    ``xla_attention`` and against the fused kernel, on the cases of phase
@@ -121,6 +127,25 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def kernel_label(mangled):
+    """A readable name for one of the library's kernel instantiations:
+    ``flash_fwd_sm90_kernel<bf16,D64,BQ128,BK128,lse>`` (D, q and key tile
+    of the bf16 forward), ``flash_bwd_kernel<bf16,D64>``; other names as
+    they are."""
+    k = re.search(r"(flash_(?:fwd_sm90|fwd|bwd_dq|bwd_dkv|bwd)_kernel)I",
+                  mangled)
+    if not k:
+        return mangled
+    args = mangled[k.end():]
+    ints = re.findall(r"Li(\d+)E", args)
+    lse = ",lse" if "Lb1E" in args else ""
+    if k.group(1) == "flash_fwd_sm90_kernel" and len(ints) == 3:
+        return (f"{k.group(1)}<bf16,D{ints[0]},BQ{ints[1]},BK{ints[2]}"
+                f"{lse}>")
+    dtype = "bf16" if "bfloat16" in args else "fp32"
+    return f"{k.group(1)}<{dtype},D{ints[0] if ints else '?'}{lse}>"
+
+
 def ptxas_report(log):
     """Registers and spill bytes per kernel instantiation, from nvcc's
     ``-Xptxas -v`` output (empty when the library was built earlier)."""
@@ -128,15 +153,7 @@ def ptxas_report(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
-            k = re.search(r"(flash_(?:fwd|bwd|bwd_dq|bwd_dkv)_kernel)I"
-                          r"(.+?)EvNS_", name)
-            if k:
-                d = re.search(r"Li(\d+)E", k.group(2))
-                name = (f"{k.group(1)}<"
-                        f"{'bf16' if 'bfloat16' in k.group(2) else 'fp32'},"
-                        f"D{d.group(1) if d else '?'}"
-                        f"{',lse' if 'Lb1E' in k.group(2) else ''}>")
+            name = kernel_label(m.group(1))
             report[name] = {}
         elif name is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -148,6 +165,42 @@ def ptxas_report(log):
             if m:
                 report[name]["registers"] = int(m.group(1))
     return report
+
+
+def sass_counts(lib):
+    """Per forward kernel instantiation of the built library, the counts
+    of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile load) instructions in
+    ``cuobjdump -sass``."""
+    from chainermn_tpu_torch._build import cuda_tool
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            label = kernel_label(m.group(1))
+            name = label if label.startswith("flash_fwd") else None
+            if name:
+                counts[name] = {"HGMMA": 0, "UTMALDG": 0}
+        elif name:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[name][op] += op in line
+    return counts
+
+
+def host_us(fn, n=50):
+    """Host wall time of ``n`` launches enqueued without a sync, per
+    launch, in microseconds: the wrapper's and the launch's cost on the
+    CPU."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    per = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return per * 1e6
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -191,9 +244,9 @@ def device_profile(fn):
     return wall, busy * 1e-6, by_name
 
 
-def qkv(T, dtype, seed, H=12, D=64):
+def qkv(T, dtype, seed, H=12, D=64, B=1):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn((1, H, T, D), generator=g, device="cuda")
+    return [torch.randn((B, H, T, D), generator=g, device="cuda")
             .to(dtype) for _ in range(3)]
 
 
@@ -207,47 +260,79 @@ def bound(T, dtype, causal, H=12, D=64):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_device_ms(fn, iters=20, kernel="flash_fwd_kernel"):
+#: the profiler's names of the port's kernels, template arguments and
+#: parameters stripped (``kernel_base_name``): compared whole, so that
+#: PyTorch's own ``pytorch_flash::flash_fwd_kernel`` never matches
+FWD_KERNEL = "(anonymous namespace)::flash_fwd_sm90_kernel"
+BWD_KERNEL = "(anonymous namespace)::flash_bwd_kernel"
+SPLIT_KERNELS = {part: f"(anonymous namespace)::flash_bwd_{part}_kernel"
+                 for part in ("dq", "dkv")}
+
+
+def kernel_base_name(name):
+    """``void ns::f<a, b>(args)`` -> ``ns::f``."""
+    anon = "(anonymous namespace)"
+    base = name.removeprefix("void ").replace(anon, "\0")
+    return re.split(r"[<(]", base, maxsplit=1)[0].replace("\0", anon)
+
+
+def kernel_device_ms(fn, kernel, iters=20):
     """Mean device time of one kernel alone (profiler), without the
     host-side cost of each call that the event timing includes."""
     fn()
     _, _, by_name = device_profile(lambda: [fn() for _ in range(iters)])
-    us = sum(t for name, t in by_name.items() if kernel in name)
+    us = sum(t for name, t in by_name.items()
+             if kernel_base_name(name) == kernel)
+    return us / iters * 1e-3 if us else None
+
+
+def library_device_ms(fn, iters=20):
+    """Mean device time of one library call (a yardstick): every kernel
+    and memset it puts on the card, summed over the same kind of window
+    as ``kernel_device_ms``; None when the profiler recorded no device
+    event (not measured)."""
+    fn()
+    _, _, by_name = device_profile(lambda: [fn() for _ in range(iters)])
+    us = sum(by_name.values())
     return us / iters * 1e-3 if us else None
 
 
 def phase_kernel():
     from chainermn_tpu_torch.ops import flash_attention, xla_attention
     checks = []
-    for T, causal, dtype in [(16, True, torch.bfloat16),
-                             (128, True, torch.bfloat16),
-                             (200, True, torch.bfloat16),
-                             (1024, True, torch.bfloat16),
-                             (1024, False, torch.bfloat16),
-                             (200, True, torch.float32)]:
-        q, k, v = qkv(T, dtype, seed=T)
+    # B 1 takes 64 x 128 tiles; B 8 at T 2200, 128 x 128 (PERF.md)
+    for B, T, causal, dtype in [(1, 16, True, torch.bfloat16),
+                                (1, 128, True, torch.bfloat16),
+                                (1, 200, True, torch.bfloat16),
+                                (1, 1024, True, torch.bfloat16),
+                                (1, 1024, False, torch.bfloat16),
+                                (8, 2200, True, torch.bfloat16),
+                                (1, 200, True, torch.float32)]:
+        q, k, v = qkv(T, dtype, seed=T, B=B)
         out = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ref = xla_attention(q, k, v, causal=causal)
         err = (out.float() - ref.float()).abs().max().item()
         ok = bool(torch.isfinite(out.float()).all()) and err < TOL[dtype]
-        checks.append({"T": T, "causal": causal, "dtype": str(dtype),
-                       "max_abs_err": err, "tol": TOL[dtype], "ok": ok})
+        checks.append({"B": B, "T": T, "causal": causal,
+                       "dtype": str(dtype), "max_abs_err": err,
+                       "tol": TOL[dtype], "ok": ok})
     times = []
     for T in (128, 256, 512, 1024):
         q, k, v = qkv(T, torch.bfloat16, seed=T + 1)
         b_ms, b_by = bound(T, torch.bfloat16, True)
+        kernel = lambda: flash_attention(q, k, v, causal=True)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
         times.append({
             "T": T, "B": 1, "H": 12, "D": 64, "dtype": "bfloat16",
-            "causal": True,
-            "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
+            "causal": True, "ms": time_ms(kernel),
             "plain_ms": time_ms(
                 lambda: xla_attention(q, k, v, causal=True), iters=10),
-            "library_ms": time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=True)),
-            "device_ms": kernel_device_ms(
-                lambda: flash_attention(q, k, v, causal=True)),
+            "library_ms": time_ms(sdpa),
+            "device_ms": kernel_device_ms(kernel, FWD_KERNEL),
+            "library_device_ms": library_device_ms(sdpa),
+            "host_us": host_us(kernel),
             "bound_ms": b_ms, "bound_by": b_by})
     emit({"phase": "kernel_check", "checks": checks, "times": times})
     bad = [c for c in checks if not c["ok"]]
@@ -501,25 +586,29 @@ def phase_kernel_train():
 
     fwd = lambda: fa.flash_attention_fwd(q, k, v, causal=True)
     bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True)
+    sdpa_bwd = sdpa_backward(q, k, v, g)
     times = {
         "B": B, "H": H, "T": T, "D": D, "dtype": "bfloat16",
         "causal": True, "strided": True,
         "fwd_lse": {
             "ms": time_ms(fwd),
-            "device_ms": kernel_device_ms(fwd, kernel="flash_fwd_kernel"),
+            "device_ms": kernel_device_ms(fwd, FWD_KERNEL),
+            "host_us": host_us(fwd),
             "plain_ms": time_ms(lambda: fa._flash_fwd_lse_plain(
                 q, k, v, causal=True), iters=5, warmup=1),
-            "library_ms": time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=True)),
+            "library_ms": time_ms(sdpa),
+            "library_device_ms": library_device_ms(sdpa),
             "max_abs_err": max(main["out_err"], main["lse_err"]),
         },
         "bwd": {
             "ms": time_ms(bwd),
-            "device_ms": kernel_device_ms(bwd, kernel="flash_bwd_kernel"),
+            "device_ms": kernel_device_ms(bwd, BWD_KERNEL),
             "plain_ms": time_ms(lambda: fa._flash_bwd_plain(
                 q, k, v, g, lse, delta, causal=True), iters=5, warmup=1),
-            "library_ms": time_ms(sdpa_backward(q, k, v, g)),
+            "library_ms": time_ms(sdpa_bwd),
+            "library_device_ms": library_device_ms(sdpa_bwd),
             "max_abs_err": main["bwd_abs_err"],
         },
     }
@@ -588,7 +677,9 @@ def phase_kernel_split():
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     delta = (g.float() * out.float()).sum(-1)
     args = (q, k, v, g, lse, delta)
-    library_ms = time_ms(sdpa_backward(q, k, v, g))
+    sdpa_bwd = sdpa_backward(q, k, v, g)
+    library_ms = time_ms(sdpa_bwd)
+    library_dev_ms = library_device_ms(sdpa_bwd)
     times = {"B": B, "H": H, "T": T, "D": D, "dtype": "bfloat16",
              "causal": True, "strided": True,
              "library": "SDPA backward (dq, dk and dv: the pair's work)"}
@@ -601,11 +692,11 @@ def phase_kernel_split():
                           fa.attention_bwd_flops(B, H, T, T, D, True, part))
         times[part] = {
             "ms": time_ms(call),
-            "device_ms": kernel_device_ms(
-                call, kernel=f"flash_bwd_{part}_kernel"),
+            "device_ms": kernel_device_ms(call, SPLIT_KERNELS[part]),
             "plain_ms": time_ms(lambda: plain(*args, causal=True),
                                 iters=5, warmup=1),
             "library_ms": library_ms,
+            "library_device_ms": library_dev_ms,
             "bound_ms": ms, "bound_by": by,
             "max_abs_err": max(main["abs_err_dq_dk_dv"][j] for j in i)}
     emit({"phase": "kernel_check_split_times", **times})
@@ -963,9 +1054,17 @@ def main():
     # nvcc's -Xptxas -v report (registers, spills) beside the library
     with open(library_path().with_suffix(".log"), "w") as f:
         f.write(build_log())
+    sass = sass_counts(library_path())
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "ptxas": ptxas_report(build_log())})
+          "build_s": build_s, "ptxas": ptxas_report(build_log()),
+          "sass": sass})
+    plain_fwd = [name for name, n in sass.items()
+                 if name.startswith("flash_fwd_sm90_kernel<bf16")
+                 and not (n["HGMMA"] and n["UTMALDG"])]
+    if plain_fwd or not any(n.startswith("flash_fwd_sm90") for n in sass):
+        fail(f"bf16 forward instantiations without wgmma or TMA: "
+             f"{plain_fwd or sass}")
 
     checks, times = phase_kernel()
     model = TransformerLM(compute_dtype=torch.bfloat16, device="cuda",
@@ -981,28 +1080,26 @@ def main():
     phase_train_parity()
     phase_train_dp_parity()
 
-    main_check = next(c for c in checks if c["T"] == 1024 and c["causal"])
+    main_check = next(c for c in checks
+                      if c["B"] == 1 and c["T"] == 1024 and c["causal"])
     main_time = next(t for t in times if t["T"] == 1024)
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms", "device_ms", "library_device_ms")
     emit({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
-        "source": "chainermn_tpu_torch/csrc/flash_attention.cu",
+        "source": "chainermn_tpu_torch/csrc/flash_fwd_sm90.cu",
         "replaces": "chainermn_tpu/ops/flash_attention.py:322",
         "launches": launches,
         "max_abs_err": main_check["max_abs_err"],
-        "ms": main_time["ms"], "plain_ms": main_time["plain_ms"],
-        "bound_ms": main_time["bound_ms"],
-        "bound_by": main_time["bound_by"],
-        "library_ms": main_time["library_ms"],
+        **{f: main_time[f] for f in fields[1:]},
     }] + [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": train_launches[key],
-        **{f: train_times[key][f] for f in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
+        **{f: train_times[key][f] for f in fields},
     } for name, key, source, replaces in [
         ("flash_attention_fwd_lse", "fwd_lse",
-         "chainermn_tpu_torch/csrc/flash_attention.cu",
+         "chainermn_tpu_torch/csrc/flash_fwd_sm90.cu",
          "chainermn_tpu/ops/flash_attention.py:92"),
         ("flash_attention_bwd", "bwd",
          "chainermn_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -1010,9 +1107,7 @@ def main():
         "name": f"flash_attention_bwd_{part}", "route": "cuda",
         "source": "chainermn_tpu_torch/csrc/flash_attention_bwd_split.cu",
         "replaces": replaces, "launches": dp_launches[f"bwd_{part}"],
-        **{f: split_times[part][f] for f in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
+        **{f: split_times[part][f] for f in fields},
     } for part, replaces in [
         ("dq", "chainermn_tpu/ops/flash_attention.py:146"),
         ("dkv", "chainermn_tpu/ops/flash_attention.py:187")]]})

@@ -49,19 +49,37 @@ TRAIN_CASES = [
     (2, 12, 200, 200, 64, True, torch.float32),
 ]
 
+# the forward's cases: the training cases and the Hopper kernel's tile
+# edges (ragged ends on both sides), Tq != Tk with and without causal, and
+# every tile pair _fwd_tiles picks: B * H small (B 1, H 12: 64 x 128 at D
+# 64), large (B 8, H 12: 64 x 64) and K/V past the L2 (B 8 at Tk 2200:
+# 128 x 128 at D 64, B 4 at D 128: 128 x 64, two consumer warpgroups)
+FWD_CASES = TRAIN_CASES + [
+    (1, 12, T, T, 64, True, torch.bfloat16)
+    for T in (1, 63, 64, 65, 127, 128, 129, 255, 1024)] + [
+    (2, 3, 128, 200, 64, False, torch.bfloat16),
+    (2, 3, 200, 130, 64, False, torch.bfloat16),
+    (2, 3, 100, 300, 64, True, torch.bfloat16),
+    (2, 3, 300, 100, 64, True, torch.bfloat16),
+    (1, 12, 1024, 1024, 128, True, torch.bfloat16),
+    (8, 12, 1024, 1024, 64, True, torch.bfloat16),
+    (8, 12, 1000, 1000, 64, True, torch.bfloat16),
+    (8, 12, 1000, 700, 64, False, torch.bfloat16),
+    (8, 12, 1024, 1024, 128, True, torch.bfloat16),
+    (8, 12, 1000, 1000, 128, True, torch.bfloat16),
+    (2, 12, 2048, 2048, 64, True, torch.bfloat16),
+    (8, 12, 2200, 2200, 64, True, torch.bfloat16),
+    (8, 12, 1500, 2200, 64, False, torch.bfloat16),
+    (4, 12, 2200, 2200, 128, True, torch.bfloat16),
+    (2, 3, 130, 130, 128, False, torch.float32),
+]
+
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     return torch.device("cuda")
-
-
-def _qkv(B, H, T, D, seed, dtype, device):
-    rng = np.random.RandomState(seed)
-    return [torch.from_numpy(rng.normal(0, 1, (B, H, T, D))
-                             .astype(np.float32)).to(device, dtype)
-            for _ in range(3)]
 
 
 def _train_inputs(B, H, Tq, Tk, D, dtype, device, seed):
@@ -87,18 +105,11 @@ def _bwd_err(got, ref, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,D,causal,dtype", [
-    (1, 64, True, torch.bfloat16),
-    (16, 64, True, torch.bfloat16),
-    (200, 64, True, torch.bfloat16),
-    (1024, 64, True, torch.bfloat16),
-    (128, 64, False, torch.bfloat16),
-    (200, 128, True, torch.bfloat16),
-    (200, 64, True, torch.float32),
-    (130, 128, False, torch.float32),
-])
-def test_flash_kernel_matches_plain(cuda_device, T, D, causal, dtype):
-    q, k, v = _qkv(2, 3, T, D, T + D, dtype, cuda_device)
+@pytest.mark.parametrize("B,H,Tq,Tk,D,causal,dtype", FWD_CASES)
+def test_flash_kernel_matches_plain(cuda_device, B, H, Tq, Tk, D, causal,
+                                    dtype):
+    q, k, v, _ = _train_inputs(B, H, Tq, Tk, D, dtype, cuda_device,
+                               Tq + Tk + D)
     before = flash_attention.launches
     out = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -106,6 +117,40 @@ def test_flash_kernel_matches_plain(cuda_device, T, D, causal, dtype):
     ref = xla_attention(q, k, v, causal=causal)
     assert torch.isfinite(out.float()).all()
     assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+def test_forward_kernels_are_deterministic(cuda_device, D):
+    """Two launches on the same inputs agree bitwise: the forward has no
+    atomics and a fixed order of sums (every tile pair of the bf16
+    kernel)."""
+    for B, T in ((1, 1000), (8, 1000), (8, 2200)):
+        q, k, v, _ = _train_inputs(B, 12, T, T, D, torch.bfloat16,
+                                   cuda_device, B + D)
+        a = fa.flash_attention_fwd(q, k, v, causal=True)
+        b = fa.flash_attention_fwd(q, k, v, causal=True)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert torch.equal(flash_attention(q, k, v, causal=True),
+                           flash_attention(q, k, v, causal=True))
+        assert torch.equal(flash_attention(q, k, v, causal=True), a[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [0.0, -0.125, float("inf"), float("nan")])
+def test_forward_refuses_a_scale_the_kernel_does_not_take(cuda_device,
+                                                          scale):
+    """No fallback: the forward takes a positive finite scale and raises
+    on any other, launching nothing."""
+    q, k, v, _ = _train_inputs(1, 2, 64, 64, 64, torch.bfloat16,
+                               cuda_device, 0)
+    before = (flash_attention.launches, fa.flash_attention_fwd.launches)
+    with pytest.raises(ValueError, match="scale"):
+        flash_attention(q, k, v, causal=True, scale=scale)
+    with pytest.raises(ValueError, match="scale"):
+        fa.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    assert (flash_attention.launches,
+            fa.flash_attention_fwd.launches) == before
 
 
 @pytest.mark.gpu
@@ -147,7 +192,7 @@ def test_grad_attention_launches_lse_forward_then_fused_backward(
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,Tq,Tk,D,causal,dtype", TRAIN_CASES)
+@pytest.mark.parametrize("B,H,Tq,Tk,D,causal,dtype", FWD_CASES)
 def test_lse_forward_matches_plain(cuda_device, B, H, Tq, Tk, D, causal,
                                    dtype):
     q, k, v, _ = _train_inputs(B, H, Tq, Tk, D, dtype, cuda_device, Tq + D)
