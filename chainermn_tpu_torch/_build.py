@@ -105,9 +105,9 @@ def _argtypes():
                    ctypes.c_float)
     table = {
         # q, k, v, o, lse; dtype, B, H, Tq, Tk, D; 9 strides; causal,
-        # scale, block_q, block_k, stream
+        # scale, block_k, stream
         "flash_attention_fwd": [p] * 5 + [i] * 6 + [ll] * 9
-        + [i, f, i, i, p]}
+        + [i, f, i, p]}
     # the backward launchers: q, k, v, g, lse, delta, then their outputs
     # (fused: dq, dk, dv; split: dq, or dk and dv); dtype, B, H, Tq, Tk, D;
     # 12 strides; causal, scale, stream

@@ -260,23 +260,22 @@ cudaError_t launch(const Params& prm, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = bfloat16 (flash_fwd_sm90.cu, tiles of block_q q rows and
-// block_k keys), 1 = float32 (this file; the tiles are not read).  lse:
-// fp32 [B*H, Tq] output, or null for the forward without it.  Returns a
-// cudaError_t (0 = success); cudaErrorInvalidValue for a dtype, head dim,
-// tile pair or scale the kernels do not take, or strides a tensor map
-// cannot describe.
+// dtype: 0 = bfloat16 (flash_fwd_sm90.cu, key tiles of block_k), 1 =
+// float32 (this file; block_k is not read).  lse: fp32 [B*H, Tq] output,
+// or null for the forward without it.  Returns a cudaError_t (0 =
+// success); cudaErrorInvalidValue for a dtype, head dim or key tile the
+// kernels do not take, or strides a tensor map cannot describe.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
     int dtype, int B,
     int H, int Tq, int Tk, int D, long long sqb, long long sqh,
     long long sqt, long long skb, long long skh, long long skt,
     long long svb, long long svh, long long svt, int causal, float scale,
-    int block_q, int block_k, void* stream) {
+    int block_k, void* stream) {
   const Params prm{q, k, v, o, lse, B, H, Tq, Tk, sqb, sqh, sqt,
                    skb, skh, skt, svb, svh, svt, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return flash::fwd_bf16_sm90(prm, D, block_q, block_k, s);
+  if (dtype == 0) return flash::fwd_bf16_sm90(prm, D, block_k, s);
   if (dtype == 1 && D == 64) return launch<float, 64>(prm, s);
   if (dtype == 1 && D == 128) return launch<float, 128>(prm, s);
   return cudaErrorInvalidValue;

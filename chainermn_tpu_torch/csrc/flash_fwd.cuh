@@ -21,9 +21,9 @@ struct FwdParams {
   float scale;
 };
 
-// bf16 on TMA and wgmma: q tiles of block_q rows, key tiles of block_k
-// (D 64: 64 x 64, 64 x 128 or 128 x 128; D 128: 64 x 64 or 128 x 64).
-cudaError_t fwd_bf16_sm90(const FwdParams& prm, int D, int block_q,
-                          int block_k, cudaStream_t stream);
+// bf16 on TMA and wgmma: q tiles of 64 rows, key tiles of block_k (D 64:
+// 64 or 128; D 128: 64).
+cudaError_t fwd_bf16_sm90(const FwdParams& prm, int D, int block_k,
+                          cudaStream_t stream);
 
 }  // namespace flash

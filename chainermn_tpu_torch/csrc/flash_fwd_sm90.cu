@@ -9,9 +9,10 @@
 //
 // What it computes: out = softmax(scale * q k^T [causal, top-left: k <= q])
 // v for q [B, H, Tq, D] and k/v [B, H, Tk, D] read through their strides,
-// any Tq, Tk >= 1, D 64 or 128, with the JAX kernel's numerics: bf16 q/k/v
-// into the products, fp32 accumulation and online-softmax state (m, l, acc),
-// p cast to bf16 before the PV product, the m_safe / corr / l >= 1e-30 rules.
+// any Tq, Tk >= 1, D 64 or 128, any finite scale (0 and negative included),
+// with the JAX kernel's numerics: bf16 q/k/v into the products, fp32
+// accumulation and online-softmax state (m, l, acc), p cast to bf16 before
+// the PV product, the m_safe / corr / l >= 1e-30 rules.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM).  Training
 // shape (B 8, H 12, T 1024, D 64, causal, with lse): 12.9 GFLOP (13.0 us)
@@ -31,26 +32,25 @@
 //   key tiles are in flight while the current one is computed, and each of
 //   q, k, v is read from device memory once per q tile.  Causal key tiles
 //   past the diagonal are never loaded.
-// - Consumer warpgroups (one per 64 q rows) run both products on wgmma:
-//   S = Q K^T with Q and K read from shared memory (both K-major), then
-//   O += P V with P's fp32 accumulator packed to bf16 in place as the
-//   register A operand (the m64nN accumulator layout is the A layout) and V
-//   read MN-major through the transpose bit.  S, P and O never leave
-//   registers.  Tile j's Q K^T and tile j - 1's P V are issued as one batch,
-//   and the warpgroups of the 2-3 blocks on an SM interleave one's softmax
-//   (ex2 on the SFUs) with another's products.  Within a warpgroup ptxas
-//   places the P V's wait ahead of the softmax, so the two do not overlap
-//   there (PERF.md).
-// - Per score: one FFMA folds scale * log2(e) and the row max into the
-//   argument of ex2; the mask runs only on tiles that cross the causal
-//   diagonal or the ragged end of Tk.
-// - Tiles (BQ q rows x BK keys), chosen by the Python wrapper
-//   (_fwd_tiles) from H100 measurements: 64 x 64 at the training shape
-//   (three blocks per SM at 109 registers), 64 x 128 for a serving prefill
-//   at B 1 (fewer, longer steps on the critical path), 128 x 128 once K
-//   and V outgrow the L2 (two consumer warpgroups share each K/V tile,
-//   halving that traffic); 64-key tiles at D 128 (registers).  Grid
-//   (B*H, q tiles), the heaviest causal q tiles first.
+// - One consumer warpgroup per block owns its 64 q rows and runs both
+//   products on wgmma: S = Q K^T with Q and K read from shared memory (both
+//   K-major), then O += P V with P's fp32 accumulator packed to bf16 in
+//   place as the register A operand (the m64nN accumulator layout is the A
+//   layout) and V read MN-major through the transpose bit.  S, P and O
+//   never leave registers.  Tile j's Q K^T and tile j - 1's P V are issued
+//   as one batch, and the warpgroups of the 2-3 blocks on an SM interleave
+//   one's softmax (ex2 on the SFUs) with another's products.  Within a
+//   warpgroup ptxas places the P V's wait ahead of the softmax, so the two
+//   do not overlap there (PERF.md).
+// - Per score: one FMUL by scale * log2(e) ahead of the row max (so the
+//   max is that of what enters ex2, right for a scale of either sign or 0)
+//   and one FADD into ex2; the mask runs only on tiles that cross the
+//   causal diagonal or the ragged end of Tk.
+// - Tiles of 64 q rows x BK keys, BK chosen by the Python wrapper
+//   (_fwd_block_k) from H100 measurements: 64 at the training shape (three
+//   blocks per SM), 128 for a serving prefill at B 1 (fewer, longer steps
+//   on the critical path); 64 at D 128 (registers).  Grid (B*H, q tiles),
+//   the heaviest causal q tiles first.
 //
 // Plain C interface through flash_attention.cu's entry point; launches on
 // the caller's stream and allocates nothing.
@@ -70,6 +70,8 @@ using flash::FwdParams;
 using flash::pack_bf16;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kBQ = 64;  // q rows per block: one consumer warpgroup
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -77,32 +79,31 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <int D, int BQ, int BK>
+template <int D, int BK>
 struct Tiles {
   // K/V ring depth: three stages at D 64 (the prefetch distance must cover
   // a tile while the previous one is still held by its P V), two at D 128
   static constexpr int kStages = D == 64 ? 3 : 2;
   // 64 x 64 tiles at D 64: three blocks per SM (at most 136 registers)
-  static constexpr int kMinBlocks = D == 64 && BQ == 64 && BK == 64 ? 3 : 1;
-  static constexpr int kConsumers = BQ / 64;  // warpgroups, 64 q rows each
-  static constexpr int kThreads = kConsumers * 128 + 32;  // + producer warp
+  static constexpr int kMinBlocks = D == 64 && BK == 64 ? 3 : 1;
+  static constexpr int kThreads = 128 + 32;    // consumers + producer warp
   static constexpr int kChunks = D / 64;       // 64-column boxes per row
-  static constexpr int kQChunk = BQ * 128;     // bytes of one box of Q
+  static constexpr int kQChunk = kBQ * 128;    // bytes of one box of Q
   static constexpr int kKVChunk = BK * 128;    // bytes of one box of K or V
-  static constexpr int kQBytes = BQ * D * 2;
+  static constexpr int kQBytes = kBQ * D * 2;
   static constexpr int kKVBytes = BK * D * 2;  // one stage of K (or V)
   // 1024 bytes of slack to align the swizzled tiles to 1024
   static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes;
 };
 
-template <int D, int BQ, int BK, bool kLse>
-__global__ void __launch_bounds__(Tiles<D, BQ, BK>::kThreads,
-                                  Tiles<D, BQ, BK>::kMinBlocks)
+template <int D, int BK, bool kLse>
+__global__ void __launch_bounds__(Tiles<D, BK>::kThreads,
+                                  Tiles<D, BK>::kMinBlocks)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
                           const FwdParams prm, float scale_log2) {
-  using Tl = Tiles<D, BQ, BK>;
+  using Tl = Tiles<D, BK>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar_q;
   __shared__ __align__(8) uint64_t full_k[Tl::kStages];
@@ -116,11 +117,11 @@ __global__ void __launch_bounds__(Tiles<D, BQ, BK>::kThreads,
 
   const int bh = blockIdx.x;
   const int b = bh / prm.H, h = bh % prm.H;
-  const int q_start = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest first
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
   const int n_kt = (prm.Tk + BK - 1) / BK;
-  // causal: key tiles up to the one holding key q_start + BQ - 1
+  // causal: key tiles up to the one holding key q_start + kBQ - 1
   const int n_iter =
-      prm.causal ? min((q_start + BQ + BK - 1) / BK, n_kt) : n_kt;
+      prm.causal ? min((q_start + kBQ + BK - 1) / BK, n_kt) : n_kt;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -128,13 +129,13 @@ __global__ void __launch_bounds__(Tiles<D, BQ, BK>::kThreads,
     for (int s = 0; s < Tl::kStages; ++s) {
       mbar_init(&full_k[s], 1);
       mbar_init(&full_v[s], 1);
-      mbar_init(&empty[s], Tl::kConsumers);  // one arrival per warpgroup
+      mbar_init(&empty[s], 1);  // the consumer warpgroup's one arrival
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == Tl::kConsumers * 4) {  // the producer warp: one thread loads
+  if (warp == 4) {  // the producer warp: one thread loads
     if (lane == 0) {
       prefetch_tensor_map(&map_q);
       prefetch_tensor_map(&map_k);
@@ -160,13 +161,11 @@ __global__ void __launch_bounds__(Tiles<D, BQ, BK>::kThreads,
     return;
   }
 
-  // a consumer warpgroup: 64 q rows from r_lo; this thread holds rows row0
-  // and row0 + 8, columns 8j + 2c and 8j + 2c + 1 of every n8 block j
-  const int wg = warp / 4, w = warp % 4;
+  // the consumer warpgroup: this thread holds rows row0 and row0 + 8,
+  // columns 8j + 2c and 8j + 2c + 1 of every n8 block j
   const int g = lane / 4, c = lane % 4;
-  const int r_lo = q_start + 64 * wg;
-  const int row0 = r_lo + 16 * w + g;
-  const uint32_t q_addr = smem_u32(sq) + wg * 64 * 128;
+  const int row0 = q_start + 16 * warp + g;
+  const uint32_t q_addr = smem_u32(sq);
 
   float o[D / 2];   // m64nD accumulator (at D 128: two m64n64 halves)
   float sc[BK / 2];  // m64nBK scores, then probabilities
@@ -177,7 +176,8 @@ __global__ void __launch_bounds__(Tiles<D, BQ, BK>::kThreads,
   for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BK / 4; ++i) pa[i] = 0u;
-  float m[2] = {-INFINITY, -INFINITY};  // row max of the raw scores
+  // row max of scale * log2(e) * s: the exponent of ex2
+  float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // this thread's partial row sums
   float corr[2];
 
@@ -229,8 +229,12 @@ __global__ void __launch_bounds__(Tiles<D, BQ, BK>::kThreads,
   // touches neither o nor pa (a PV may still be reading them)
   auto softmax = [&](int kt) {
     const int k_lo = kt * BK;
+    // the scale first, so that the row max is the largest exponent for a
+    // scale of either sign (and masked scores stay -inf at a scale of 0)
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
     // the causal diagonal or the ragged end of Tk crosses this tile
-    if (k_lo + BK > prm.Tk || (prm.causal && k_lo + BK - 1 > r_lo)) {
+    if (k_lo + BK > prm.Tk || (prm.causal && k_lo + BK - 1 > q_start)) {
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
         const int kpos = k_lo + 8 * (i / 4) + 2 * c + (i & 1);
@@ -238,8 +242,7 @@ __global__ void __launch_bounds__(Tiles<D, BQ, BK>::kThreads,
         if (kpos >= prm.Tk || (prm.causal && kpos > row)) sc[i] = -INFINITY;
       }
     }
-    // m and the scale enter ex2 through one FFMA; four independent chains
-    // per row for the max and the sum
+    // four independent chains per row for the max and the sum
     float mx4[2][4], ls4[2][4];
 #pragma unroll
     for (int r = 0; r < 2; ++r)
@@ -256,13 +259,13 @@ __global__ void __launch_bounds__(Tiles<D, BQ, BK>::kThreads,
       mx[r] = fmaxf(fmaxf(mx4[r][0], mx4[r][1]), fmaxf(mx4[r][2], mx4[r][3]));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      msc[r] = mx[r] == -INFINITY ? 0.f : mx[r] * scale_log2;  // m_safe
-      corr[r] = ex2(fmaf(m[r], scale_log2, -msc[r]));  // 0 if m was -inf
+      msc[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // m_safe
+      corr[r] = ex2(m[r] - msc[r]);  // 0 if m was -inf
       m[r] = mx[r];
     }
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
-      sc[i] = ex2(fmaf(sc[i], scale_log2, -msc[(i / 2) & 1]));
+      sc[i] = ex2(sc[i] - msc[(i / 2) & 1]);
       ls4[(i / 2) & 1][(i / 4) % 2 * 2 + (i & 1)] += sc[i];
     }
 #pragma unroll
@@ -281,17 +284,13 @@ __global__ void __launch_bounds__(Tiles<D, BQ, BK>::kThreads,
     for (int i = 0; i < BK / 4; ++i)
       pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
   };
-  // a stage is free once this warpgroup's wgmma reading it completed: one
-  // arrival per warpgroup (a wgmma group completes for all its warps)
-  const bool leader = threadIdx.x % 128 == 0;
+  // a stage is free once the warpgroup's wgmma reading it completed (a
+  // wgmma group completes for all its warps): one arrival
+  const bool leader = threadIdx.x == 0;
   auto release = [&](int s) {
     if (leader) mbar_arrive(&empty[s]);
   };
 
-  // this warpgroup's key tiles: causal rows r_lo .. r_lo + 63 stop earlier
-  // than the block's last tile when BQ > BK
-  const int n_own =
-      prm.causal ? min((r_lo + 64 + BK - 1) / BK, n_iter) : n_iter;
   mbar_wait(&bar_q, 0);
   mbar_wait(&full_k[0], 0);
   issue_qk(0);
@@ -301,7 +300,7 @@ __global__ void __launch_bounds__(Tiles<D, BQ, BK>::kThreads,
   pack();
   // tile kt's Q K^T and tile kt - 1's P V go to the tensor cores as one
   // batch; the softmax of tile kt needs only the first
-  for (int kt = 1; kt < n_own; ++kt) {
+  for (int kt = 1; kt < n_iter; ++kt) {
     const int s = kt % Tl::kStages, sp = (kt - 1) % Tl::kStages;
     mbar_wait(&full_k[s], (kt / Tl::kStages) & 1);
     mbar_wait(&full_v[sp], ((kt - 1) / Tl::kStages) & 1);
@@ -317,20 +316,12 @@ __global__ void __launch_bounds__(Tiles<D, BQ, BK>::kThreads,
     pack();
   }
   {
-    const int sl = (n_own - 1) % Tl::kStages;
-    mbar_wait(&full_v[sl], ((n_own - 1) / Tl::kStages) & 1);
+    const int sl = (n_iter - 1) % Tl::kStages;
+    mbar_wait(&full_v[sl], ((n_iter - 1) / Tl::kStages) & 1);
     rescale();
     issue_pv(sl);
     wgmma_wait<0>();
     sync_pv();
-    release(sl);
-  }
-  // the block's later tiles hold no live key for these rows: release them
-  // in order, once each has arrived (so no stage is released twice ahead)
-  for (int kt = n_own; kt < n_iter; ++kt) {
-    const int s = kt % Tl::kStages;
-    mbar_wait(&full_k[s], (kt / Tl::kStages) & 1);
-    release(s);
   }
 
   float inv[2];
@@ -357,19 +348,19 @@ __global__ void __launch_bounds__(Tiles<D, BQ, BK>::kThreads,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
-      if (row < prm.Tq)
-        lse[row] = (m[r] == -INFINITY ? 0.f : m[r] * prm.scale) +
+      if (row < prm.Tq)  // m back from log2 to natural log
+        lse[row] = (m[r] == -INFINITY ? 0.f : m[r] * kLn2) +
                    logf(fmaxf(l[r], 1e-30f));
     }
   }
 }
 
-template <int D, int BQ, int BK, bool kLse>
+template <int D, int BK, bool kLse>
 cudaError_t launch(const FwdParams& prm, cudaStream_t stream) {
-  using Tl = Tiles<D, BQ, BK>;
+  using Tl = Tiles<D, BK>;
   CUtensorMap mq, mk, mv;
   if (!encode_bf16_4d(&mq, prm.q, D, prm.Tq, prm.H, prm.B, prm.sqt, prm.sqh,
-                      prm.sqb, BQ) ||
+                      prm.sqb, kBQ) ||
       !encode_bf16_4d(&mk, prm.k, D, prm.Tk, prm.H, prm.B, prm.skt, prm.skh,
                       prm.skb, BK) ||
       !encode_bf16_4d(&mv, prm.v, D, prm.Tk, prm.H, prm.B, prm.svt, prm.svh,
@@ -382,43 +373,33 @@ cudaError_t launch(const FwdParams& prm, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (!(configured >> dev & 1ull)) {
-    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D, BQ, BK, kLse>,
+    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D, BK, kLse>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Tl::kSmem);
     if (err != cudaSuccess) return err;
     configured |= 1ull << dev;
   }
-  dim3 grid(prm.B * prm.H, (prm.Tq + BQ - 1) / BQ);
-  flash_fwd_sm90_kernel<D, BQ, BK, kLse>
+  dim3 grid(prm.B * prm.H, (prm.Tq + kBQ - 1) / kBQ);
+  flash_fwd_sm90_kernel<D, BK, kLse>
       <<<grid, Tl::kThreads, Tl::kSmem, stream>>>(mq, mk, mv, prm,
                                                   prm.scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <int D, int BQ, int BK>
+template <int D, int BK>
 cudaError_t launch_tiles(const FwdParams& prm, cudaStream_t s) {
-  return prm.lse ? launch<D, BQ, BK, true>(prm, s)
-                 : launch<D, BQ, BK, false>(prm, s);
+  return prm.lse ? launch<D, BK, true>(prm, s) : launch<D, BK, false>(prm, s);
 }
 
 }  // namespace
 
 namespace flash {
 
-cudaError_t fwd_bf16_sm90(const FwdParams& prm, int D, int block_q,
-                          int block_k, cudaStream_t s) {
-  if (!(prm.scale > 0.f) || isinf(prm.scale)) return cudaErrorInvalidValue;
-  const int bq = block_q, bk = block_k;
-  if (D == 64 && bq == 64 && bk == 64)
-    return launch_tiles<64, 64, 64>(prm, s);
-  if (D == 64 && bq == 64 && bk == 128)
-    return launch_tiles<64, 64, 128>(prm, s);
-  if (D == 64 && bq == 128 && bk == 128)
-    return launch_tiles<64, 128, 128>(prm, s);
-  if (D == 128 && bq == 64 && bk == 64)
-    return launch_tiles<128, 64, 64>(prm, s);
-  if (D == 128 && bq == 128 && bk == 64)
-    return launch_tiles<128, 128, 64>(prm, s);
+cudaError_t fwd_bf16_sm90(const FwdParams& prm, int D, int block_k,
+                          cudaStream_t s) {
+  if (D == 64 && block_k == 64) return launch_tiles<64, 64>(prm, s);
+  if (D == 64 && block_k == 128) return launch_tiles<64, 128>(prm, s);
+  if (D == 128 && block_k == 64) return launch_tiles<128, 64>(prm, s);
   return cudaErrorInvalidValue;
 }
 

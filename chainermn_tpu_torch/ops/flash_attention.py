@@ -30,8 +30,7 @@ a plain version: it launches a kernel or raises.
 Layout ``[B, H, T, D]`` as in the JAX package.  The kernels read q/k/v/g
 through their strides (the last dimension must be dense, rows 16-byte
 aligned and no stride 0, else the wrapper makes a contiguous copy) and write
-contiguous outputs.  They take bf16 or fp32 at head dim 64 or 128; the
-forward takes a positive finite scale.
+contiguous outputs.  They take bf16 or fp32 at head dim 64 or 128.
 """
 
 from __future__ import annotations
@@ -214,26 +213,19 @@ def _needs_grad(*xs):
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
-#: the card the tiles are chosen for (H100 SXM): SMs and L2 bytes
+#: SMs of the card the tiles are chosen for (H100 SXM)
 _SMS = 132
-_L2_BYTES = 50 * 2 ** 20
 
 
-def _fwd_tiles(B, H, Tq, Tk, D):
-    """The bf16 forward's ``(q rows, keys)`` per tile, by the H100
-    measurements of ``tools/flash_fwd_tiles.py`` (PERF.md).  When the
-    bf16 K and V of every head outgrow the L2, 128-row tiles: two consumer
-    warpgroups share each K/V tile, halving the K/V traffic to device
-    memory.  Otherwise 64-row tiles, with keys
-    in tiles of 64 where ``B * H * ceil(Tq / 64)`` gives every SM three
-    blocks (the training shape; three fit at D 64), else in tiles of 128
-    at D 64 (a serving prefill at B 1: fewer, longer steps on the
-    critical path).  D 128 takes 64-key tiles (registers)."""
-    if 4 * B * H * Tk * D > _L2_BYTES:
-        return 128, (128 if D == 64 else 64)
+def _fwd_block_k(B, H, Tq, D):
+    """Keys per tile of the bf16 forward (its q tiles are 64 rows), by the
+    H100 measurements of ``tools/flash_fwd_tiles.py`` (PERF.md): 64 where
+    ``B * H * ceil(Tq / 64)`` blocks give every SM three (the training
+    shape; three fit at D 64), else 128 at D 64 (a serving prefill at B 1:
+    fewer, longer steps on the critical path).  D 128 takes 64 (registers)."""
     if D == 128 or B * H * -(-Tq // 64) >= 3 * _SMS:
-        return 64, 64
-    return 64, 128
+        return 64
+    return 128
 
 
 _fwd_launcher = None
@@ -252,8 +244,6 @@ def _launch_fwd(name, q, k, v, causal, scale, with_lse):
     """Launch the forward kernel: ``(out, lse or None)``."""
     B, H, Tq, Tk, D = _check(name, q, k, v)
     scale = _scale(scale, D)
-    if not 0.0 < scale < float("inf"):
-        raise ValueError(f"{name} takes a positive finite scale, got {scale}")
     launch = _fwd_kernel()
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
     dev = q.device
@@ -264,7 +254,7 @@ def _launch_fwd(name, q, k, v, causal, scale, with_lse):
             lse.data_ptr() if with_lse else None,
             _DTYPES[q.dtype], B, H, Tq, Tk, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(bool(causal)), scale, *_fwd_tiles(B, H, Tq, Tk, D))
+            int(bool(causal)), scale, _fwd_block_k(B, H, Tq, D))
     if dev.index == torch.cuda.current_device():
         err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
     else:

@@ -15,9 +15,12 @@ import torch
 
 from chainermn_tpu.ops import flash_attention as jax_flash_attention
 from chainermn_tpu.ops import xla_attention as jax_xla_attention
+from chainermn_tpu.ops.flash_attention import (
+    flash_attention_fwd as jax_flash_attention_fwd)
 from chainermn_tpu_torch.ops import attention, flash_attention, xla_attention
 from chainermn_tpu_torch.ops.flash_attention import (attention_bytes,
-                                                     attention_flops)
+                                                     attention_flops,
+                                                     flash_attention_fwd)
 
 ATOL = 1e-5   # fp32, summation order only
 
@@ -56,6 +59,25 @@ def test_dispatch_matches_jax_pallas_kernel_interpreted(T, causal):
         block_q=32, block_k=32, interpret=True))
     out = attention(*_torch(q, k, v), causal=causal).numpy()
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125, 0.3])
+@pytest.mark.parametrize("causal", [False, True])
+def test_lse_forward_takes_any_finite_scale_as_the_pallas_kernel(scale,
+                                                                 causal):
+    """The lse forward at any finite scale -- 0 (uniform attention over
+    the live keys) and negative included, as the Hopper kernel takes them
+    -- against the Pallas ``_flash_kernel_lse`` in interpret mode."""
+    q, k, v = _qkv(T=64, seed=11 + causal)
+    ref_out, ref_lse = jax_flash_attention_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        scale=scale, block_q=32, block_k=32, interpret=True)
+    out, lse = flash_attention_fwd(*_torch(q, k, v), causal=causal,
+                                   scale=scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=ATOL,
+                               rtol=0)
 
 
 def test_non_causal_cross_lengths_match_jax():

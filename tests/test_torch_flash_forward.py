@@ -1,9 +1,9 @@
-"""The Hopper flash forward's host side, on the CPU: the tile rule of the
-wrapper and the ctypes table of every C launcher.
+"""The Hopper flash forward's host side, on the CPU: the key-tile rule of
+the wrapper and the ctypes table of every C launcher.
 
 The kernels themselves need the card (``tests/test_torch_gpu.py``); what
-is checked here is what a chip call would otherwise find first: a tile
-choice off the rule, or a launcher whose ctypes ``argtypes`` no longer
+is checked here is what a chip call would otherwise find first: a key tile
+off the rule, or a launcher whose ctypes ``argtypes`` no longer
 match its C parameters (ctypes would pass a pointer as a 32-bit int, or
 shift every argument after a missing one).
 """
@@ -45,31 +45,30 @@ def _launchers():
     return found
 
 
-@pytest.mark.parametrize("B,H,Tq,Tk,D,want", [
-    (8, 12, 1024, 1024, 64, (64, 64)),   # training: 1536 blocks, 3 per SM
-    (1, 12, 1024, 1024, 64, (64, 128)),  # a serving prefill at B 1
-    (1, 12, 128, 128, 64, (64, 128)),    # a short prefill: 24 blocks
-    (2, 12, 1024, 1024, 64, (64, 128)),  # 384 blocks: fewer than 3 per SM
-    (3, 12, 1000, 1000, 64, (64, 64)),   # a ragged Tq counts its tile
-    (2, 12, 2048, 2048, 64, (64, 64)),   # K and V (12.6 MB) fit in the L2
-    (16, 12, 2048, 2048, 64, (128, 128)),  # K and V (101 MB) do not
-    (16, 12, 2048, 512, 64, (64, 64)),   # short keys: K and V fit again
-    (8, 12, 1024, 1024, 128, (64, 64)),  # D 128: 64-key tiles
-    (16, 12, 2048, 2048, 128, (128, 64)),
+@pytest.mark.parametrize("B,H,Tq,D,want", [
+    (8, 12, 1024, 64, 64),    # training: 1536 blocks, 3 per SM
+    (1, 12, 1024, 64, 128),   # a serving prefill at B 1
+    (1, 12, 128, 64, 128),    # a short prefill: 24 blocks
+    (2, 12, 1024, 64, 128),   # 384 blocks: fewer than 3 per SM
+    (3, 12, 1000, 64, 64),    # a ragged Tq counts its tile
+    (2, 12, 2048, 64, 64),
+    (16, 12, 2048, 64, 64),
+    (8, 12, 1024, 128, 64),   # D 128: 64-key tiles (registers)
+    (1, 12, 128, 128, 64),
+    (16, 12, 2048, 128, 64),
 ])
-def test_fwd_tiles_follow_the_measured_rule(B, H, Tq, Tk, D, want):
-    assert fa._fwd_tiles(B, H, Tq, Tk, D) == want
+def test_fwd_tiles_follow_the_measured_rule(B, H, Tq, D, want):
+    assert fa._fwd_block_k(B, H, Tq, D) == want
 
 
 def test_fwd_tiles_thresholds():
-    # 128-row tiles once the bf16 K and V of every head outgrow the L2
-    T = fa._L2_BYTES // (4 * 12 * 64)
-    assert fa._fwd_tiles(1, 12, 64, T + 1, 64) == (128, 128)
-    assert fa._fwd_tiles(1, 12, 64, T, 64) == (64, 128)
-    # 64-key tiles once 64-row tiles give every SM three blocks
+    # 64-key tiles once the 64-row q tiles give every SM three blocks
     n = fa._SMS
-    assert fa._fwd_tiles(1, 3 * n, 64, 64, 64) == (64, 64)
-    assert fa._fwd_tiles(1, 3 * n - 1, 64, 64, 64) == (64, 128)
+    assert fa._fwd_block_k(1, 3 * n, 64, 64) == 64
+    assert fa._fwd_block_k(1, 3 * n - 1, 64, 64) == 128
+    assert fa._fwd_block_k(1, n, 3 * 64, 64) == 64
+    assert fa._fwd_block_k(1, n, 2 * 64 + 1, 64) == 64
+    assert fa._fwd_block_k(1, n, 2 * 64, 64) == 128
 
 
 def test_every_c_launcher_has_a_ctypes_table():
@@ -84,9 +83,9 @@ def test_ctypes_argtypes_match_the_c_parameters(name):
         assert C_TYPES[c_type] is ct, (i, c_type, ct)
 
 
-def test_forward_launcher_takes_both_tiles_before_the_stream():
+def test_forward_launcher_takes_the_key_tile_before_the_stream():
     types = _build.ARGTYPES["flash_attention_fwd"]
-    assert types[-3:] == [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    assert types[-3:] == [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def test_bound_forward_launcher_is_looked_up_once(monkeypatch):

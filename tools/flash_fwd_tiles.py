@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
-"""Device time of the port's bf16 flash forward at each of its tile pairs,
+"""Device time of the port's bf16 flash forward at each of its key tiles,
 beside SDPA's, on one CUDA card: the measurements behind
-``chainermn_tpu_torch.ops.flash_attention._fwd_tiles``.
+``chainermn_tpu_torch.ops.flash_attention._fwd_block_k``.
 
     python3 tools/flash_fwd_tiles.py
 
 Prints the card's name and power limit, then one JSON line per shape:
 the profiler's device microseconds per launch of the lse forward for each
-``(q rows, keys)`` tile pair at D 64, of
+key tile at D 64 (q tiles of 64 rows), of
 ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick; the
-port never calls it), the pair ``_fwd_tiles`` picks, and the largest
-difference between the pairs' outputs (the same function; bf16 rounding).
-The tile pairs and SDPA are timed with the profiler tracing the card
-alone; the picked pair and SDPA once more with the host traced too
+port never calls it), the key tile ``_fwd_block_k`` picks, and the largest
+difference between the tiles' outputs (the same function; bf16 rounding).
+The key tiles and SDPA are timed with the profiler tracing the card
+alone; the picked tile and SDPA once more with the host traced too
 (``*_host_traced``), as ``chip_smoke.py`` traces them.
 """
 
@@ -24,12 +24,12 @@ import sys
 
 import torch
 
-TILES = ((64, 64), (64, 128), (128, 128))
+BLOCK_K = (64, 128)
 # (B, T, causal, strided): training (q/k/v sliced out of one projection),
-# a serving prefill at B 1, and the sizes around the rule's thresholds
+# a serving prefill at B 1, and the sizes around the rule's threshold
 SHAPES = ((8, 1024, True, True), (1, 1024, True, False),
           (4, 1024, True, False), (8, 1024, False, False),
-          (2, 2048, True, False), (16, 2048, True, False))
+          (2, 2048, True, False))
 H, D = 12, 64
 
 
@@ -69,19 +69,19 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    pick = fa._fwd_tiles
+    pick = fa._fwd_block_k
     try:
         for B, T, causal, strided in SHAPES:
             q, k, v = inputs(B, T, strided, gen)
             row = {"B": B, "H": H, "T": T, "D": D, "causal": causal,
-                   "strided": strided, "picked": pick(B, H, T, T, D)}
+                   "strided": strided, "picked": pick(B, H, T, D)}
             outs = []
-            for tiles in TILES:
-                fa._fwd_tiles = lambda *_, t=tiles: t
+            for bk in BLOCK_K:
+                fa._fwd_block_k = lambda *_, t=bk: t
                 fwd = lambda: fa.flash_attention_fwd(q, k, v, causal=causal)
-                row[f"us_{tiles[0]}x{tiles[1]}"] = device_us(fwd)
+                row[f"us_64x{bk}"] = device_us(fwd)
                 outs.append(fwd()[0].float())
-            fa._fwd_tiles = pick
+            fa._fwd_block_k = pick
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal)
             row["sdpa_us"] = device_us(sdpa)
@@ -93,7 +93,7 @@ def main():
                 (o - outs[0]).abs().max().item() for o in outs[1:])
             print(json.dumps(row), flush=True)
     finally:
-        fa._fwd_tiles = pick
+        fa._fwd_block_k = pick
     return 0
 
 
