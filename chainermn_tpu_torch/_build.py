@@ -109,12 +109,15 @@ def _argtypes():
         "flash_attention_fwd": [p] * 5 + [i] * 6 + [ll] * 9
         + [i, f, i, p]}
     # the backward launchers: q, k, v, g, lse, delta, then their outputs
-    # (fused: dq, dk, dv; split: dq, or dk and dv); dtype, B, H, Tq, Tk, D;
-    # 12 strides; causal, scale, stream
-    for name, n_out in (("flash_attention_bwd", 3),
+    # (fused: the fp32 dq accumulator, dq, dk, dv; split: dq, or dk and
+    # dv); dtype, B, H, Tq, Tk, D; 12 strides; causal, scale, stream
+    for name, n_out in (("flash_attention_bwd", 4),
                         ("flash_attention_bwd_dq", 1),
                         ("flash_attention_bwd_dkv", 2)):
         table[name] = [p] * (6 + n_out) + [i] * 6 + [ll] * 12 + [i, f, p]
+    # the delta pass: g, out, g_lse, delta, dq_zero; dtype, B, H, Tq, D;
+    # the strides of g and out; stream
+    table["flash_attention_bwd_delta"] = [p] * 5 + [i] * 5 + [ll] * 6 + [p]
     return table
 
 

@@ -1,11 +1,18 @@
-// Fused flash attention backward for Hopper (sm_90a): the CUDA counterpart
-// of chainermn_tpu/ops/flash_attention.py::_flash_bwd_fused_kernel (with the
-// XLA sum of its dq partial planes folded in).
+// Fused flash attention backward: the C entry point of the counterpart of
+// chainermn_tpu/ops/flash_attention.py::_flash_bwd_fused_kernel (with the
+// XLA sum of its dq partial planes, scale and cast folded in), and its
+// fp32 kernel.
+//
+// bf16, the main path of training, is the Hopper kernel in
+// flash_bwd_sm90.cu (a TMA-fed Q/dO ring, wgmma for the five products, dq
+// added per tile by a bulk reduce), followed by its dq epilogue.  This
+// file keeps the fp32 kernel, the parity path of the fp32 model and tests
+// (wgmma takes no fp32 inputs).
 //
 // What it computes, for q/g [B, H, Tq, D], k/v [B, H, Tk, D], the forward's
 // row statistic lse [B*H, Tq] (fp32) and delta = rowsum(g * out) - g_lse
-// [B*H, Tq] (fp32, computed by the caller as in the JAX wrapper): for every
-// (q tile, key tile) pair, once,
+// [B*H, Tq] (fp32, the delta pass of flash_bwd_sm90.cu): for every (q tile,
+// key tile) pair, once,
 //     p  = exp(scale * q k^T - lse)      (0 where masked: causal, ragged)
 //     ds = p * (g v^T - delta)
 //     dv += p^T g,   dk += ds^T q,   dq += ds k
@@ -14,108 +21,46 @@
 // fp32 accumulation, p is cast to g's dtype before the dv dot and ds to
 // q's/k's dtype before the dk and dq dots.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM): at the
-// training shape B = 8, H = 12, T = 1024, D = 64, causal (524,800 live
-// (q, k) pairs per head), the five dots are 10 * B*H * D * pairs = 32.2
-// GFLOP (32.6 us); q, k, v, g in, dq, dk, dv out (bf16) plus lse and delta
-// (fp32) are at least 88.9 MB (26.5 us).  Bound: ~33 us, set by operations.
+// fp32 design: one block of 4 warps per (b*h, 64-row key tile); each warp
+// owns 16 keys.  The key tile's k and v stay in shared memory, dk and dv
+// accumulate in registers across the q tiles (under `causal` the q loop
+// starts at the first tile that reaches the key tile).  Each step stages a
+// 64-row q tile and its g rows, lse and delta in padded shared memory and
+// computes the score tile key-major, s^T = k q^T, on CUDA cores in the mma
+// C fragment layout (flash::BwdOps), p^T and ds^T staged through shared
+// memory; each block adds its dq contribution into the zeroed fp32
+// [B*H, Tq, D] accumulator with atomicAdd.  Bound at the fp32 parity shape
+// (B 2, H 4, T 256, D 64 causal): 0.17 GFLOP over 67 TFLOP/s (2.5 us).
 //
-// How the design answers it: one block of 4 warps per (b*h, 64-row key
-// tile); each warp owns 16 keys.  The key tile's k and v stay in shared
-// memory for the whole block, and dk, dv accumulate in fp32 registers
-// across the q tiles (under `causal` the q loop starts at the first tile
-// that reaches the key tile).  Each step stages a 64-row q tile and its g
-// rows, lse and delta in shared memory and computes the score tile
-// key-major, s^T = k q^T, so that p^T and ds^T are already the A operand of
-// dv += p^T g and dk += ds^T q (mma.sync m16n8k16 bf16, fp32 accumulate,
-// the accumulator fragments reused in place as in the forward).  dq needs
-// ds q-major: ds^T is staged through shared memory and read back
-// transposed with ldmatrix.trans (the FlashAttention-2 layout); the B
-// operands of the three transposed products come the same way.  Blocks
-// cannot reduce across the grid on Hopper, so each block adds its dq
-// contribution into one zeroed fp32 [B*H, Tq, D] buffer with atomicAdd;
-// the caller scales and casts it (atomics make dq's low bits depend on
-// the order of the adds).  fp32 inputs take the same tiling with the dots
-// on CUDA cores, staging p^T and ds^T through shared memory: a parity
-// path, not a fast one.  Single-buffered loads, no TMA, no wgmma.
-//
-// Plain C interface (bound with ctypes), like the forward: the launcher
-// returns cudaGetLastError(), launches on the caller's stream and
-// allocates nothing.  Strides are in elements; the last dimension must be
-// dense and every row 16-byte aligned (the Python wrapper checks).
+// Plain C interface (bound with ctypes): the launcher returns
+// cudaGetLastError(), launches on the caller's stream and allocates
+// nothing.  Strides are in elements; the last dimension must be dense and
+// every row 16-byte aligned (the Python wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bwd.cuh"
 #include "flash_common.cuh"
 
 namespace {
 
 using flash::BwdOps;
-using flash::mma_bf16;
 
 constexpr int kBlockK = flash::kBwdTile;  // key rows per block
 constexpr int kBlockQ = flash::kBwdTile;  // q rows per inner step
 constexpr int kWarps = 4;                 // 16 keys per warp
 constexpr int kThreads = kWarps * 32;
 
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* g;
-  const float* lse;    // [B*H, Tq]
-  const float* delta;  // [B*H, Tq]
-  float* dq;           // [B*H, Tq, D] fp32, zeroed by the caller, unscaled
-  void* dk;            // [B*H, Tk, D]
-  void* dv;            // [B*H, Tk, D]
-  int H, Tq, Tk;
-  long long sqb, sqh, sqt;
-  long long skb, skh, skt;
-  long long svb, svh, svt;
-  long long sgb, sgh, sgt;
-  int causal;
-  float scale;
-};
+using Params = flash::BwdParams;  // dq: the zeroed fp32 accumulator
 
 // out = ds . k for q rows qw..qw+15 of the tile: ds^T is staged at s
-// ([64 keys, kLdS], every warp's rows) and read transposed; k is the
-// block's [64, D] tile.  The other products are flash::BwdOps.
+// ([64 keys, kLdS], every warp's rows); k is the block's [64, D] tile.
+// The other products are flash::BwdOps.
 template <typename T, int D>
 struct StagedDq;
-
-template <int D>
-struct StagedDq<__nv_bfloat16, D> {
-  using T = __nv_bfloat16;
-  static constexpr int kLd = BwdOps<T, D>::kLd;
-  static constexpr int kLdS = BwdOps<T, D>::kLdS;
-
-  __device__ static void dq(float (*out)[4], const T* s, const T* kb, int qw,
-                            int lane) {
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      out[nd][0] = out[nd][1] = out[nd][2] = out[nd][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[4];
-      flash::ldsm_x4_trans(
-          a, s + (16 * kk + (lane >> 4) * 8 + (lane & 7)) * kLdS + qw +
-                 ((lane >> 3) & 1) * 8);
-      const T* row =
-          kb + (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLd +
-          (lane >> 4) * 8;
-#pragma unroll
-      for (int nd = 0; nd < D / 8; nd += 2) {
-        uint32_t bf[4];
-        flash::ldsm_x4_trans(bf, row + 8 * nd);
-        mma_bf16(out[nd], a, bf[0], bf[1]);
-        mma_bf16(out[nd + 1], a, bf[2], bf[3]);
-      }
-    }
-  }
-};
 
 template <int D>
 struct StagedDq<float, D> {
@@ -280,7 +225,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int D>
-cudaError_t launch(const Params& prm, int B, cudaStream_t stream) {
+cudaError_t launch(const Params& prm, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
   static bool configured = false;
   if (!configured) {
@@ -290,32 +235,36 @@ cudaError_t launch(const Params& prm, int B, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((prm.Tk + kBlockK - 1) / kBlockK, B * prm.H);
+  dim3 grid((prm.Tk + kBlockK - 1) / kBlockK, prm.B * prm.H);
   flash_bwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(prm);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32.  dq: fp32 [B*H, Tq, D], zeroed; it
-// receives the unscaled sum of ds . k.  dk/dv: [B*H, Tk, D] in the input
-// dtype.  Returns a cudaError_t (0 = success); cudaErrorInvalidValue for a
-// dtype or head dim the kernel has no instantiation for.
+// dtype: 0 = bfloat16 (flash_bwd_sm90.cu), 1 = float32.  dq_acc: fp32
+// [B*H, Tq, D], zeroed (the delta pass does it); it receives the unscaled
+// sum of ds . k, and the epilogue writes dq = scale * dq_acc in the input
+// dtype.  dk/dv: [B*H, Tk, D] in the input dtype.  Returns a cudaError_t
+// (0 = success); cudaErrorInvalidValue for a dtype or head dim without an
+// instantiation.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* g,
-    const float* lse, const float* delta, float* dq, void* dk, void* dv,
-    int dtype, int B, int H, int Tq, int Tk, int D, long long sqb,
+    const float* lse, const float* delta, float* dq_acc, void* dq, void* dk,
+    void* dv, int dtype, int B, int H, int Tq, int Tk, int D, long long sqb,
     long long sqh, long long sqt, long long skb, long long skh,
     long long skt, long long svb, long long svh, long long svt,
     long long sgb, long long sgh, long long sgt, int causal, float scale,
     void* stream) {
-  Params prm{q,   k,   v,   g,   lse, delta, dq,  dk,  dv,  H,   Tq,
-             Tk,  sqb, sqh, sqt, skb, skh,   skt, svb, svh, svt, sgb,
-             sgh, sgt, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64>(prm, B, s);
-  if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(prm, B, s);
-  if (dtype == 1 && D == 64) return launch<float, 64>(prm, B, s);
-  if (dtype == 1 && D == 128) return launch<float, 128>(prm, B, s);
-  return cudaErrorInvalidValue;
+  const Params prm{q,   k,   v,   g,   lse, delta, dq_acc, dk,  dv,
+                   B,   H,   Tq,  Tk,  sqb, sqh,   sqt,    skb, skh,
+                   skt, svb, svh, svt, sgb, sgh,   sgt,    causal, scale};
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) err = flash::bwd_bf16_sm90(prm, D, true, s);
+  if (dtype == 1 && D == 64) err = launch<float, 64>(prm, s);
+  if (dtype == 1 && D == 128) err = launch<float, 128>(prm, s);
+  if (err != cudaSuccess) return err;
+  return flash::bwd_dq_epilogue(dq_acc, dq, dtype, (long long)B * H * Tq * D,
+                                scale, s);
 }

@@ -5,7 +5,7 @@
 //
 // What they compute, for q/g [B, H, Tq, D], k/v [B, H, Tk, D], the
 // forward's row statistic lse [B*H, Tq] (fp32) and delta = rowsum(g * out)
-// - g_lse [B*H, Tq] (fp32, computed by the caller as in the JAX wrapper):
+// - g_lse [B*H, Tq] (fp32, the delta pass of flash_bwd_sm90.cu):
 // each pass recomputes, for every live (q tile, key tile) pair,
 //     p  = exp(scale * q k^T - lse)      (0 where masked: causal, ragged)
 //     ds = p * (g v^T - delta)
@@ -35,16 +35,18 @@
 // (k read transposed with ldmatrix), just as p is the A operand of p v in
 // the forward.  Each block owns its q rows, so dq needs no atomicAdd and
 // no fp32 scratch buffer: it is written once, in q's dtype, and the result
-// is deterministic (the fused kernel's dq is not: its atomics add in a
+// is deterministic (the fused kernel's dq is not: its bulk adds land in a
 // varying order).  Under `causal` the key loop stops at the diagonal
-// tile.  The dk/dv pass is the fused kernel without its dq part: one block
-// per (b*h, 64-key tile), key-major tiles s^T = k q^T so that p^T and ds^T
-// are already the A operands of dv += p^T g and dk += ds^T q, dk and dv in
-// fp32 registers across the q tiles; no ds^T staging through shared
-// memory and no atomics.  The tile products are flash::BwdOps, shared with
-// the fused kernel.  fp32 inputs take the same tiling with the dots on
-// CUDA cores (a parity path).  Single-buffered loads, mma.sync, no TMA and
-// no wgmma: the simple, correct first version.
+// tile.  Single-buffered loads, mma.sync (flash::BwdOps), no TMA and no
+// wgmma: the simple, correct first version.
+//
+// The dk/dv pass is the fused kernel without its dq part.  In bf16 it is
+// the Hopper kernel of flash_bwd_sm90.cu with its dq flag off (TMA-fed
+// Q/dO ring, wgmma); this file keeps its fp32 version (one block per
+// (b*h, 64-key tile), key-major tiles s^T = k q^T so that p^T and ds^T are
+// the operands of dv += p^T g and dk += ds^T q, dk and dv in registers
+// across the q tiles, the dots on CUDA cores: a parity path), and the C
+// entry point of both.
 //
 // Plain C interface (bound with ctypes), like the other kernels: each
 // launcher returns cudaGetLastError(), launches on the caller's stream and
@@ -56,6 +58,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bwd.cuh"
 #include "flash_common.cuh"
 
 namespace {
@@ -314,12 +317,14 @@ cudaError_t launch(const Params& prm, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// bf16 only for the dq pass: the bf16 dk/dv pass is flash_bwd_sm90.cu's
 template <bool kDq>
 int dispatch(const Params& prm, int dtype, int B, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64, kDq>(prm, B, s);
-  if (dtype == 0 && D == 128)
-    return launch<__nv_bfloat16, 128, kDq>(prm, B, s);
+  if (kDq && dtype == 0 && D == 64)
+    return launch<__nv_bfloat16, 64, true>(prm, B, s);
+  if (kDq && dtype == 0 && D == 128)
+    return launch<__nv_bfloat16, 128, true>(prm, B, s);
   if (dtype == 1 && D == 64) return launch<float, 64, kDq>(prm, B, s);
   if (dtype == 1 && D == 128) return launch<float, 128, kDq>(prm, B, s);
   return cudaErrorInvalidValue;
@@ -344,6 +349,7 @@ extern "C" int flash_attention_bwd_dq(
 }
 
 // dk/dv: [B*H, Tk, D] in the input dtype, written whole (dk scaled).
+// bf16 runs the Hopper kernel of flash_bwd_sm90.cu without its dq part.
 extern "C" int flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* g,
     const float* lse, const float* delta, void* dk, void* dv, int dtype,
@@ -351,6 +357,14 @@ extern "C" int flash_attention_bwd_dkv(
     long long sqt, long long skb, long long skh, long long skt,
     long long svb, long long svh, long long svt, long long sgb,
     long long sgh, long long sgt, int causal, float scale, void* stream) {
+  if (dtype == 0) {
+    const flash::BwdParams prm{q,   k,   v,   g,   lse, delta,   nullptr,
+                               dk,  dv,  B,   H,   Tq,  Tk,      sqb,
+                               sqh, sqt, skb, skh, skt, svb,     svh,
+                               svt, sgb, sgh, sgt, causal, scale};
+    return flash::bwd_bf16_sm90(prm, D, false,
+                                static_cast<cudaStream_t>(stream));
+  }
   Params prm{q,   k,   v,   g,   lse, delta, dk,  dv,  H,   Tq,
              Tk,  sqb, sqh, sqt, skb, skh,   skt, svb, svh, svt,
              sgb, sgh, sgt, causal, scale};

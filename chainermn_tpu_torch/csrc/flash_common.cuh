@@ -93,8 +93,9 @@ __device__ __forceinline__ void store2<float>(float* out, long long idx,
   *reinterpret_cast<float2*>(out + idx) = make_float2(a, b);
 }
 
-// The backward kernels' tile products (the fused B2 and the split dq and
-// dk/dv passes), over 64-row tiles.  A warp owns 16 rows of one operand
+// The backward kernels' tile products (the split dq pass, and the fp32
+// fused and dk/dv kernels; bf16 B2 and dk/dv are flash_bwd_sm90.cu's),
+// over 64-row tiles.  A warp owns 16 rows of one operand
 // (keys in B2 and the dk/dv pass, q rows in the dq pass) and meets the 64
 // rows of a shared-memory tile of the other.  Fragments follow the mma C
 // layout above: a warp's [16, 64] tile is float x[8][4], its [16, D]

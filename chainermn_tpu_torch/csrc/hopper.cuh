@@ -2,7 +2,8 @@
 // loads into 128-byte-swizzled shared memory, mbarriers, wgmma shared-memory
 // descriptors and the warpgroup products, and the host-side encoding of a
 // tensor map.  Device helpers are thin wrappers over one PTX instruction
-// each (PTX ISA 8.x: cp.async.bulk.tensor, mbarrier, wgmma).
+// each (PTX ISA 8.x: cp.async.bulk.tensor, cp.reduce.async.bulk,
+// mbarrier, wgmma).
 #pragma once
 
 #include <cuda.h>
@@ -42,6 +43,17 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                                                       uint32_t bytes) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Announce `bytes` of transactions (TMA) to come in the current phase,
+// without an arrival.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
@@ -221,6 +233,75 @@ __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
         "r"(1));
 }
 
+// d[0:32] (+)= A . B, m64n64k16: A and B from shared memory through their
+// descriptors, both MN-major (the transpose bits: A's 64 rows and B's 64
+// columns contiguous, the reduction dimension along the rows of the
+// tile); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_mn64(float* d, uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// ---- shared memory seen by the async proxy, named barriers ---------------
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads of them (wgmma operands, bulk copies out).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- bulk reductions ------------------------------------------------------
+
+// Add `bytes` of fp32 from shared memory at src into global memory at dst,
+// element by element, as one asynchronous bulk operation of this thread's
+// current bulk group.  dst and src 16-byte aligned, bytes a multiple of 16.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst,
+                                                    const void* src,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+      "[%0], [%1], %2;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read their
+// shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // ---- host -----------------------------------------------------------------
 

@@ -11,11 +11,18 @@ Five CUDA kernels, each the counterpart of a Pallas kernel of
   forward that also writes the row statistic ``lse``, the same kernels with
   their lse store switched on;
 * :func:`flash_attention_bwd` -- ``_flash_bwd_fused_kernel``, the fused
-  backward, ``csrc/flash_attention_bwd.cu``;
+  backward: bf16 on TMA and ``wgmma``, ``csrc/flash_bwd_sm90.cu``, with
+  its dq epilogue; fp32 on CUDA cores, ``csrc/flash_attention_bwd.cu``;
 * :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv` --
   ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``, the split
   backward (a dq pass, then a dk/dv pass),
-  ``csrc/flash_attention_bwd_split.cu``.
+  ``csrc/flash_attention_bwd_split.cu``; the bf16 dk/dv pass is the fused
+  Hopper kernel with its dq part switched off.
+
+Both backward lowerings start with :func:`flash_attention_bwd_delta`, one
+pass for the JAX wrapper's XLA reduce ``delta = rowsum(g * out) - g_lse``
+(``csrc/flash_bwd_sm90.cu``), which also zeroes the fused kernel's fp32
+dq accumulator.
 
 ``attention(q, k, v)`` dispatches on where the tensors lie, as the JAX
 ``attention`` does on its backends: CUDA tensors that need a gradient go
@@ -42,8 +49,8 @@ import torch
 __all__ = ["attention", "attention_with_lse", "blockwise_attention",
            "flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "xla_attention", "attention_flops", "attention_bytes",
-           "attention_bwd_flops", "attention_bwd_bytes"]
+           "flash_attention_bwd_delta", "xla_attention", "attention_flops",
+           "attention_bytes", "attention_bwd_flops", "attention_bwd_bytes"]
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (64, 128)
@@ -130,6 +137,15 @@ def _dkv_of(p, ds, q, k, v, g, scale):
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
                       q.float()) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_delta_plain(g, out, g_lse=None):
+    """Plain version of the delta pass: fp32 ``rowsum(g * out) - g_lse``,
+    ``[B, H, Tq]``, the JAX wrapper's reduce."""
+    delta = (g.float() * out.float()).sum(dim=-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta
 
 
 def _flash_bwd_plain(q, k, v, g, lse, delta, causal=False, scale=None):
@@ -326,21 +342,97 @@ def _bwd_inputs(name, q, k, v, g, lse, delta):
     return dims, views + [lse.contiguous(), delta.contiguous()]
 
 
+_bwd_launchers = {}
+
+
+def _launch(name, dev, *args):
+    """Call the library's launcher ``name`` (looked up once) with ``args``
+    and the current stream of ``dev``, making ``dev`` current only when it
+    is not; raise on a CUDA error."""
+    launch = _bwd_launchers.get(name)
+    if launch is None:
+        from .._build import load_library
+        launch = _bwd_launchers[name] = getattr(load_library(), name)
+    if dev.index == torch.cuda.current_device():
+        err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
 def _launch_bwd(name, dims, ins, outs, causal, scale):
     """Launch the backward kernel ``name`` of the library on the inputs
     of :func:`_bwd_inputs` into the preallocated ``outs``."""
-    from .._build import load_library
     B, H, Tq, Tk, D = dims
     q, k, v, g = ins[:4]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(load_library(), name)(
+    _launch(name, q.device,
             *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
             _DTYPES[q.dtype], B, H, Tq, Tk, D,
             *(x.stride(i) for x in (q, k, v, g) for i in range(3)),
-            int(bool(causal)), scale, stream)
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+            int(bool(causal)), scale)
+
+
+def _launch_delta(g, out, g_lse, dq_zero):
+    """Launch the delta pass on CUDA ``g`` and ``out`` ``[B, H, Tq, D]``
+    (``g_lse`` fp32 ``[B, H, Tq]`` or None): fp32 delta ``[B, H, Tq]``;
+    ``dq_zero``, an fp32 ``[B, H, Tq, D]`` buffer or None, is zeroed in the
+    same pass.  Counted in ``flash_attention_bwd_delta.launches``."""
+    if g.dtype not in _DTYPES or out.dtype != g.dtype or g.dim() != 4 \
+            or out.shape != g.shape or g.shape[-1] not in _HEAD_DIMS \
+            or out.device != g.device or g.device.type != "cuda":
+        raise ValueError(f"the delta pass takes g and out of one shape "
+                         f"[B, H, Tq, D], D in {_HEAD_DIMS}, bfloat16 or "
+                         f"float32, on one CUDA device: got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}, {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    B, H, Tq, D = g.shape
+    if g_lse is not None:
+        if g_lse.shape != (B, H, Tq) or g_lse.device != g.device:
+            raise ValueError(f"g_lse must be {(B, H, Tq)} on {g.device}, "
+                             f"got {tuple(g_lse.shape)} on {g_lse.device}")
+        g_lse = g_lse.float().contiguous()
+    g, out = _kernel_view(g), _kernel_view(out)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=g.device)
+    _launch("flash_attention_bwd_delta", g.device, g.data_ptr(),
+            out.data_ptr(), None if g_lse is None else g_lse.data_ptr(),
+            delta.data_ptr(), None if dq_zero is None else dq_zero.data_ptr(),
+            _DTYPES[g.dtype], B, H, Tq, D, *g.stride()[:3],
+            *out.stride()[:3])
+    flash_attention_bwd_delta.launches += 1
+    return delta
+
+
+def flash_attention_bwd_delta(g, out, g_lse=None):
+    """The backward's row statistic ``delta = rowsum(g * out) - g_lse``,
+    fp32 ``[B, H, Tq]``.  CUDA tensors launch the delta pass (counted in
+    ``flash_attention_bwd_delta.launches``); CPU tensors take
+    :func:`_bwd_delta_plain`."""
+    if _on_cpu(g, out, *(() if g_lse is None else (g_lse,))):
+        return _bwd_delta_plain(g, out, g_lse)
+    return _launch_delta(g, out, g_lse, None)
+
+
+flash_attention_bwd_delta.launches = 0
+
+
+def _fused_bwd(q, k, v, out, lse, g, causal, scale, g_lse):
+    """The fused backward on CUDA tensors: the delta pass (which zeroes
+    the fp32 dq accumulator), then the kernel and its dq epilogue.
+    Returns ``(dq_acc, dq, dk, dv)``: ``dq_acc`` is the unscaled fp32 sum
+    the epilogue scales and casts into dq."""
+    B, H, Tq, Tk, D = _check("flash_attention_bwd", q, k, v)
+    dq_acc = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device)
+    delta = _launch_delta(g, out, g_lse, dq_acc)
+    dims, ins = _bwd_inputs("flash_attention_bwd", q, k, v, g, lse, delta)
+    dq = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, H, Tk, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, H, Tk, D), dtype=v.dtype, device=q.device)
+    _launch_bwd("flash_attention_bwd", dims, ins, (dq_acc, dq, dk, dv),
+                causal, scale)
+    flash_attention_bwd.launches += 1
+    return dq_acc, dq, dk, dv
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, causal=False, scale=None,
@@ -349,36 +441,25 @@ def flash_attention_bwd(q, k, v, out, lse, g, causal=False, scale=None,
 
     ``g_lse``: optional cotangent of lse; since d lse_i / d s_ij = p_ij it
     enters as ``delta - g_lse``, as in the JAX wrapper.  ``_FLASH_BWD``
-    selects the lowering: ``"fused"`` launches the fused kernel on CUDA
-    tensors (counted in ``flash_attention_bwd.launches``) and takes
-    :func:`_flash_bwd_plain` on CPU tensors; ``"split"`` runs
+    selects the lowering: ``"fused"`` launches the delta pass, then the
+    fused kernel with its dq epilogue on CUDA tensors (counted in
+    ``flash_attention_bwd_delta.launches`` and
+    ``flash_attention_bwd.launches``) and takes :func:`_flash_bwd_plain`
+    on CPU tensors; ``"split"`` runs :func:`flash_attention_bwd_delta`,
     :func:`flash_attention_bwd_dq`, then :func:`flash_attention_bwd_dkv`."""
     mode = _flash_bwd_mode()
     scale = _scale(scale, q.shape[-1])
-    # delta_i = rowsum(g_i * out_i) (- g_lse_i): one fused reduce, as XLA
-    # does it outside the Pallas kernel
-    delta = (g.float() * out.float()).sum(dim=-1)
-    if g_lse is not None:
-        delta = delta - g_lse.float()
     if mode == "split":
+        delta = flash_attention_bwd_delta(g, out, g_lse)
         dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, causal=causal,
                                     scale=scale)
         return (dq, *flash_attention_bwd_dkv(q, k, v, g, lse, delta,
                                              causal=causal, scale=scale))
-    if _on_cpu(q, k, v, g):
-        return _flash_bwd_plain(q, k, v, g, lse, delta, causal=causal,
-                                scale=scale)
-    dims, ins = _bwd_inputs("flash_attention_bwd", q, k, v, g, lse, delta)
-    B, H, Tq, Tk, D = dims
-    dq = torch.zeros((B, H, Tq, D), dtype=torch.float32, device=q.device)
-    dk = torch.empty((B, H, Tk, D), dtype=k.dtype, device=q.device)
-    dv = torch.empty((B, H, Tk, D), dtype=v.dtype, device=q.device)
-    _launch_bwd("flash_attention_bwd", dims, ins, (dq, dk, dv), causal,
-                scale)
-    flash_attention_bwd.launches += 1
-    # the cross-key-tile dq sum is done by the kernel's atomics; the scale
-    # and the cast stay outside, as the JAX wrapper does them in XLA
-    return (dq * scale).to(q.dtype), dk, dv
+    if _on_cpu(q, k, v, g, out):
+        return _flash_bwd_plain(q, k, v, g, lse,
+                                _bwd_delta_plain(g, out, g_lse),
+                                causal=causal, scale=scale)
+    return _fused_bwd(q, k, v, out, lse, g, causal, scale, g_lse)[1:]
 
 
 flash_attention_bwd.launches = 0

@@ -8,9 +8,9 @@ Phases, each printing one JSON line:
 1. device: the card's name and power limit (``nvidia-smi``), and the
    kernels built from ``chainermn_tpu_torch/csrc`` (build seconds,
    registers and spill bytes per kernel instantiation from ptxas, and per
-   forward instantiation the counts of ``HGMMA`` (wgmma) and ``UTMALDG``
-   (TMA tile loads) in the library's SASS, which every bf16 forward must
-   have);
+   Hopper instantiation the counts of ``HGMMA`` (wgmma) and ``UTMALDG``
+   (TMA tile loads) in the library's SASS, which every bf16 forward and
+   backward instantiation must have);
 2. kernel check: the flash kernel against its plain PyTorch version on
    the card (bf16 causal at B 1, H 12, D 64, T in {16, 128, 200, 1024},
    one non-causal and one fp32 case),
@@ -27,27 +27,31 @@ Phases, each printing one JSON line:
    the kernel's launch count is read around this run alone;
 4. decode parity: prefill plus 8 decode steps through the engine's
    programs against the one-shot forward, within the bf16 band;
-5. kernel check, training: the lse forward and the fused backward
-   against their plain versions (and the backward against torch autograd
-   through ``xla_attention``) at bf16 causal B 2, H 12, D 64, T in {1, 16,
-   200, 1024}, non-causal Tq 128 / Tk 200, D 128, fp32, a non-zero lse
-   cotangent, and at the training shape (B 8, T 1024) on q/k/v sliced out
-   of one projection with a transposed cotangent, as the model hands them
-   over; then times of both kernels there (per call, device, and the lse
-   forward's host cost per launch), of their plain versions and of SDPA's
-   forward and backward (per call and device; yardsticks only);
+5. kernel check, training: the lse forward, the delta pass and the fused
+   backward against their plain versions (the backward also against torch
+   autograd through ``xla_attention``, and its dq epilogue bitwise against
+   the scale and cast of its fp32 accumulator) at bf16 causal B 2, H 12,
+   D 64, T in {1, 16, 200, 1024}, non-causal Tq 128 / Tk 200, D 128, fp32,
+   a non-zero lse cotangent, and at the training shape (B 8, T 1024) on
+   q/k/v sliced out of one projection with a transposed cotangent, as the
+   model hands them over; then times of both kernels there (per call,
+   device, the whole call's device time ``call_device_ms``: for the
+   backward the delta pass, kernel and epilogue; host cost per launch), of
+   their plain versions and of SDPA's forward and backward (per call and
+   device; yardsticks only);
 6. kernel check, split backward (``kernel_check_split``): the dq and dk/dv
    kernels against their plain versions, against torch autograd through
    ``xla_attention`` and against the fused kernel, on the cases of phase
-   5; then their times, their plain versions' times, SDPA's backward (the
-   pair's yardstick) and their bounds at the training shape;
+   5; then their times, the device time of the whole split backward call
+   (delta pass and both passes), their plain versions' times, SDPA's
+   backward (the pair's yardstick) and their bounds at the training shape;
 7. train: the same model (bf16, Adam alpha 3e-4) trained through
    ``Trainer`` -> ``StandardUpdater`` -> ``Adam.update`` on a
    ``SerialIterator`` of 16 random token rows (batch 8 x T 1024): step
    time, tokens/s, MFU, losses, peak memory and the kernels' launch
-   counts, read around this run alone (12 lse forwards and 12 fused
-   backwards per step); one no-grad eval forward; then 3 steps under the
-   profiler (``train_profile``);
+   counts, read around this run alone (12 lse forwards, 12 delta passes
+   and 12 fused backwards per step); one no-grad eval forward; then 3
+   steps under the profiler (``train_profile``);
 8. train_dp: the same model and data trained data-parallel, as ChainerMN
    does: ``create_communicator("pure_nccl", allreduce_grad_dtype=
    "bfloat16")`` over NCCL in a world of one process (one card), then
@@ -55,7 +59,8 @@ Phases, each printing one JSON line:
    ``StandardUpdater`` -> ``create_multi_node_optimizer(Adam)``, with the
    backward on the split kernels (``_FLASH_BWD = "split"`` for this phase
    only): step time, tokens/s, MFU, losses, peak memory, launches (12 lse
-   forwards, 12 dq and 12 dk/dv passes per step) and the gradient
+   forwards, 12 delta passes, 12 dq and 12 dk/dv passes per step) and the
+   gradient
    allreduces (one flat bf16 bucket per step); then 3 profiled steps
    (``train_dp_profile``); the process group is torn down after it;
 9. train parity: one step of a small fp32 model (2 layers, d 256, 4 heads
@@ -68,8 +73,8 @@ Phases, each printing one JSON line:
     through the split kernels matches the step through ``xla_attention``
     within the parity tolerance.
 
-Then the kernels line (launches, error, times and bound of all five
-kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
+Then the kernels line (launches, error, times, the whole call's device
+time and bound of all five kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before the last line.  Needs one CUDA card; fails without
 one.
 """
@@ -97,7 +102,7 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 BF16_BAND = 0.25   # logits, paged decode vs one-shot (decode-parity suite)
 # backward against its plain version.  bf16: each of dq, dk, dv relative
 # to its own largest |ref| (bwd_errs); both sides round p and ds to bf16
-# before the dots, but dq's atomics add in another order and a last-bit
+# before the dots, but dq's tiles add in another order and a last-bit
 # difference of an fp32 value can flip a rounding.  fp32: absolute (sum
 # order, expf).
 BWD_TOL = {torch.bfloat16: 5e-3, torch.float32: 2e-4}
@@ -105,6 +110,9 @@ BWD_TOL = {torch.bfloat16: 5e-3, torch.float32: 2e-4}
 # autograd keeps ds in fp32 where the kernel (as the JAX kernel) casts it
 # to bf16 before the dk and dq dots, a difference that sums over the keys
 LSE_TOL = 1e-4     # lse is fp32 on both sides: log of a sum in another order
+# the delta pass: fp32 rowsums of D products of order 1 on both sides, in
+# another order (|delta| < 64, a few fp32 ulps)
+DELTA_TOL = 1e-4
 AUTOGRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 # training parity, fp32 model: loss absolute, gradients relative to each
 # parameter's largest |grad| (summation order and expf through 2 layers)
@@ -130,10 +138,11 @@ def emit(obj):
 def kernel_label(mangled):
     """A readable name for one of the library's kernel instantiations:
     ``flash_fwd_sm90_kernel<bf16,D64,BK128,lse>`` (D and key tile of the
-    bf16 forward), ``flash_bwd_kernel<bf16,D64>``; other names as
-    they are."""
-    k = re.search(r"(flash_(?:fwd_sm90|fwd|bwd_dq|bwd_dkv|bwd)_kernel)I",
-                  mangled)
+    bf16 forward), ``flash_bwd_sm90_kernel<bf16,D64,dq>`` (the bf16
+    backward, fused with dq or the dk/dv pass ``dkv``),
+    ``flash_bwd_kernel<fp32,D64>``; other names as they are."""
+    k = re.search(r"(flash_(?:fwd_sm90|fwd|bwd_sm90|bwd_dq|bwd_dkv|bwd)"
+                  r"_kernel)I", mangled)
     if not k:
         return mangled
     args = mangled[k.end():]
@@ -141,6 +150,9 @@ def kernel_label(mangled):
     lse = ",lse" if "Lb1E" in args else ""
     if k.group(1) == "flash_fwd_sm90_kernel" and len(ints) == 2:
         return f"{k.group(1)}<bf16,D{ints[0]},BK{ints[1]}{lse}>"
+    if k.group(1) == "flash_bwd_sm90_kernel" and ints:
+        part = "dq" if "Lb1E" in args else "dkv"
+        return f"{k.group(1)}<bf16,D{ints[0]},{part}>"
     dtype = "bf16" if "bfloat16" in args else "fp32"
     return f"{k.group(1)}<{dtype},D{ints[0] if ints else '?'}{lse}>"
 
@@ -166,10 +178,14 @@ def ptxas_report(log):
     return report
 
 
+#: the kernels whose bf16 instantiations must run on wgmma and TMA
+SM90_KERNELS = ("flash_fwd_sm90_kernel<bf16", "flash_bwd_sm90_kernel<bf16")
+
+
 def sass_counts(lib):
-    """Per forward kernel instantiation of the built library, the counts
-    of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile load) instructions in
-    ``cuobjdump -sass``."""
+    """Per Hopper kernel instantiation of the built library (the bf16
+    forward and backward), the counts of ``HGMMA`` (wgmma) and ``UTMALDG``
+    (TMA tile load) instructions in ``cuobjdump -sass``."""
     from chainermn_tpu_torch._build import cuda_tool
     sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
@@ -179,7 +195,7 @@ def sass_counts(lib):
         m = re.search(r"Function : (\S+)", line)
         if m:
             label = kernel_label(m.group(1))
-            name = label if label.startswith("flash_fwd") else None
+            name = label if label.startswith(SM90_KERNELS) else None
             if name:
                 counts[name] = {"HGMMA": 0, "UTMALDG": 0}
         elif name:
@@ -263,9 +279,10 @@ def bound(T, dtype, causal, H=12, D=64):
 #: parameters stripped (``kernel_base_name``): compared whole, so that
 #: PyTorch's own ``pytorch_flash::flash_fwd_kernel`` never matches
 FWD_KERNEL = "(anonymous namespace)::flash_fwd_sm90_kernel"
-BWD_KERNEL = "(anonymous namespace)::flash_bwd_kernel"
-SPLIT_KERNELS = {part: f"(anonymous namespace)::flash_bwd_{part}_kernel"
-                 for part in ("dq", "dkv")}
+# one bf16 body for B2 (its dq flag on) and B4's dk/dv pass (off)
+BWD_KERNEL = "(anonymous namespace)::flash_bwd_sm90_kernel"
+SPLIT_KERNELS = {"dq": "(anonymous namespace)::flash_bwd_dq_kernel",
+                 "dkv": BWD_KERNEL}
 
 
 def kernel_base_name(name):
@@ -330,6 +347,7 @@ def phase_kernel():
             "library_ms": time_ms(sdpa),
             "device_ms": kernel_device_ms(kernel, FWD_KERNEL),
             "library_device_ms": library_device_ms(sdpa),
+            "call_device_ms": library_device_ms(kernel),
             "host_us": host_us(kernel),
             "bound_ms": b_ms, "bound_by": b_by})
     emit({"phase": "kernel_check", "checks": checks, "times": times})
@@ -491,10 +509,12 @@ def check_train_kernels(q, k, v, g, causal, g_lse=None):
     ref_out, ref_lse = fa._flash_fwd_lse_plain(q, k, v, causal=causal)
     grads = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
                                    g_lse=g_lse)
+    got_delta = fa.flash_attention_bwd_delta(g, out, g_lse)
+    # the epilogue alone: dq is its fp32 accumulator scaled and cast
+    scale = fa._scale(None, q.shape[-1])
+    acc, dq = fa._fused_bwd(q, k, v, out, lse, g, causal, scale, g_lse)[:2]
     torch.cuda.synchronize()
-    delta = (g.float() * out.float()).sum(-1)
-    if g_lse is not None:
-        delta = delta - g_lse
+    delta = fa._bwd_delta_plain(g, out, g_lse)
     ref = fa._flash_bwd_plain(q, k, v, g, lse, delta, causal=causal)
     row = {"B": q.shape[0], "Tq": q.shape[2], "Tk": k.shape[2],
            "D": q.shape[3], "causal": causal, "dtype": str(dtype),
@@ -504,6 +524,8 @@ def check_train_kernels(q, k, v, g, causal, g_lse=None):
            "bwd_err_dq_dk_dv": bwd_errs(grads, ref, dtype),
            "bwd_abs_err": max((a.float() - b.float()).abs().max().item()
                               for a, b in zip(grads, ref)),
+           "delta_err": (got_delta - delta).abs().max().item(),
+           "epilogue_bitwise": torch.equal(dq, (acc * scale).to(dtype)),
            "finite": all(bool(torch.isfinite(x.float()).all())
                          for x in (out, lse, *grads))}
     if g_lse is None:
@@ -514,6 +536,8 @@ def check_train_kernels(q, k, v, g, causal, g_lse=None):
             grads, [x.grad for x in leaves], dtype)
     row["ok"] = (row["finite"] and row["out_err"] < TOL[dtype]
                  and row["lse_err"] < LSE_TOL
+                 and row["delta_err"] < DELTA_TOL
+                 and row["epilogue_bitwise"]
                  and max(row["bwd_err_dq_dk_dv"]) < BWD_TOL[dtype]
                  and max(row.get("autograd_err_dq_dk_dv", [0.0]))
                  < AUTOGRAD_TOL[dtype])
@@ -576,7 +600,7 @@ def phase_kernel_train():
     q, k, v, g = cases[-1][:4]
     B, H, T, D = q.shape
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-    delta = (g.float() * out.float()).sum(-1)
+    delta = fa._bwd_delta_plain(g, out)
     fwd_bytes = fa.attention_bytes(B, H, T, T, D, 2) + B * H * T * 4
     fwd_ops = fa.attention_flops(B, H, T, T, D, True)
     bwd_bytes = fa.attention_bwd_bytes(B, H, T, T, D, 2)
@@ -596,6 +620,7 @@ def phase_kernel_train():
             "host_us": host_us(fwd),
             "plain_ms": time_ms(lambda: fa._flash_fwd_lse_plain(
                 q, k, v, causal=True), iters=5, warmup=1),
+            "call_device_ms": library_device_ms(fwd),
             "library_ms": time_ms(sdpa),
             "library_device_ms": library_device_ms(sdpa),
             "max_abs_err": max(main["out_err"], main["lse_err"]),
@@ -603,6 +628,10 @@ def phase_kernel_train():
         "bwd": {
             "ms": time_ms(bwd),
             "device_ms": kernel_device_ms(bwd, BWD_KERNEL),
+            # the whole call: delta pass (with the dq accumulator's
+            # zeroing), kernel and dq epilogue, beside SDPA's whole call
+            "call_device_ms": library_device_ms(bwd),
+            "host_us": host_us(bwd),
             "plain_ms": time_ms(lambda: fa._flash_bwd_plain(
                 q, k, v, g, lse, delta, causal=True), iters=5, warmup=1),
             "library_ms": time_ms(sdpa_bwd),
@@ -673,14 +702,22 @@ def phase_kernel_split():
     q, k, v, g = cases[-1][:4]
     B, H, T, D = q.shape
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-    delta = (g.float() * out.float()).sum(-1)
+    delta = fa.flash_attention_bwd_delta(g, out)
     args = (q, k, v, g, lse, delta)
     sdpa_bwd = sdpa_backward(q, k, v, g)
     library_ms = time_ms(sdpa_bwd)
     library_dev_ms = library_device_ms(sdpa_bwd)
+    saved = fa._FLASH_BWD
+    fa._FLASH_BWD = "split"
+    try:   # one split flash_attention_bwd call: delta pass, dq, dk/dv
+        call_dev_ms = library_device_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, g, causal=True))
+    finally:
+        fa._FLASH_BWD = saved
     times = {"B": B, "H": H, "T": T, "D": D, "dtype": "bfloat16",
              "causal": True, "strided": True,
-             "library": "SDPA backward (dq, dk and dv: the pair's work)"}
+             "library": "SDPA backward (dq, dk and dv: the pair's work)",
+             "call_device_ms": call_dev_ms}
     for part, kernel, plain, i in (
             ("dq", fa.flash_attention_bwd_dq, fa._flash_bwd_dq_plain, [0]),
             ("dkv", fa.flash_attention_bwd_dkv, fa._flash_bwd_dkv_plain,
@@ -691,6 +728,8 @@ def phase_kernel_split():
         times[part] = {
             "ms": time_ms(call),
             "device_ms": kernel_device_ms(call, SPLIT_KERNELS[part]),
+            "call_device_ms": call_dev_ms,
+            "host_us": host_us(call),
             "plain_ms": time_ms(lambda: plain(*args, causal=True),
                                 iters=5, warmup=1),
             "library_ms": library_ms,
@@ -713,6 +752,7 @@ def transformer_flops_per_token(d_model, n_layers, n_vocab, seq_len):
 #: the wrappers' launch counters, by short name
 LAUNCH_COUNTERS = {"fwd": "flash_attention", "fwd_lse": "flash_attention_fwd",
                    "bwd": "flash_attention_bwd",
+                   "bwd_delta": "flash_attention_bwd_delta",
                    "bwd_dq": "flash_attention_bwd_dq",
                    "bwd_dkv": "flash_attention_bwd_dkv"}
 
@@ -827,6 +867,7 @@ def phase_train():
     emit({"phase": "train", **row, "eval_launches": eval_launches})
     check_losses("training", row["losses"])
     want = expected_launches(fwd_lse=n_layers * TRAIN_STEPS,
+                             bwd_delta=n_layers * TRAIN_STEPS,
                              bwd=n_layers * TRAIN_STEPS)
     if launches != want:
         fail(f"training launches {launches}, expected {want}")
@@ -885,6 +926,7 @@ def phase_train_dp():
         comm.finalize()
     check_losses("data-parallel training", row["losses"])
     want = expected_launches(fwd_lse=n_layers * TRAIN_STEPS,
+                             bwd_delta=n_layers * TRAIN_STEPS,
                              bwd_dq=n_layers * TRAIN_STEPS,
                              bwd_dkv=n_layers * TRAIN_STEPS)
     if row["launches"] != want:
@@ -946,8 +988,8 @@ def phase_train_parity():
            "loss_err": abs(loss - ref_loss), "grad_rel_err": grad_err,
            "tol": PARITY_TOL, "launches": launches}
     emit(row)
-    if launches != expected_launches(fwd_lse=2, bwd=2):
-        fail(f"parity step launches {launches}, expected 2 + 2")
+    if launches != expected_launches(fwd_lse=2, bwd_delta=2, bwd=2):
+        fail(f"parity step launches {launches}, expected 2 + 2 + 2")
     if not (row["loss_err"] < PARITY_TOL["loss"]
             and grad_err < PARITY_TOL["grad"]):
         fail(f"training through the kernels leaves the plain step: {row}")
@@ -1019,8 +1061,9 @@ def phase_train_dp_parity():
            "c_loss_err": abs(dp_loss - ref_loss), "c_grad_rel_err": grad_err,
            "tol": PARITY_TOL, "launches": launches, "collectives": calls}
     emit(row)
-    if launches != expected_launches(fwd_lse=2, bwd_dq=2, bwd_dkv=2):
-        fail(f"DP parity step launches {launches}, expected 2 + 2 + 2")
+    if launches != expected_launches(fwd_lse=2, bwd_delta=2, bwd_dq=2,
+                                     bwd_dkv=2):
+        fail(f"DP parity step launches {launches}, expected 2 x 4")
     if not (a_equal and b_equal and row["c_loss_err"] < PARITY_TOL["loss"]
             and grad_err < PARITY_TOL["grad"]):
         fail(f"the data-parallel step leaves its references: {row}")
@@ -1057,12 +1100,13 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": ptxas_report(build_log()),
           "sass": sass})
-    plain_fwd = [name for name, n in sass.items()
-                 if name.startswith("flash_fwd_sm90_kernel<bf16")
-                 and not (n["HGMMA"] and n["UTMALDG"])]
-    if plain_fwd or not any(n.startswith("flash_fwd_sm90") for n in sass):
-        fail(f"bf16 forward instantiations without wgmma or TMA: "
-             f"{plain_fwd or sass}")
+    plain = [name for name, n in sass.items()
+             if not (n["HGMMA"] and n["UTMALDG"])]
+    missing = [k for k in SM90_KERNELS
+               if not any(n.startswith(k) for n in sass)]
+    if plain or missing:
+        fail(f"bf16 Hopper instantiations without wgmma or TMA: "
+             f"{plain or sass}; kernels not found: {missing}")
 
     checks, times = phase_kernel()
     model = TransformerLM(compute_dtype=torch.bfloat16, device="cuda",
@@ -1082,7 +1126,8 @@ def main():
                       if c["B"] == 1 and c["T"] == 1024 and c["causal"])
     main_time = next(t for t in times if t["T"] == 1024)
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-              "library_ms", "device_ms", "library_device_ms")
+              "library_ms", "device_ms", "library_device_ms",
+              "call_device_ms", "host_us")
     emit({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -1100,15 +1145,17 @@ def main():
          "chainermn_tpu_torch/csrc/flash_fwd_sm90.cu",
          "chainermn_tpu/ops/flash_attention.py:92"),
         ("flash_attention_bwd", "bwd",
-         "chainermn_tpu_torch/csrc/flash_attention_bwd.cu",
+         "chainermn_tpu_torch/csrc/flash_bwd_sm90.cu",
          "chainermn_tpu/ops/flash_attention.py:239")]] + [{
         "name": f"flash_attention_bwd_{part}", "route": "cuda",
-        "source": "chainermn_tpu_torch/csrc/flash_attention_bwd_split.cu",
-        "replaces": replaces, "launches": dp_launches[f"bwd_{part}"],
+        "source": source, "replaces": replaces,
+        "launches": dp_launches[f"bwd_{part}"],
         **{f: split_times[part][f] for f in fields},
-    } for part, replaces in [
-        ("dq", "chainermn_tpu/ops/flash_attention.py:146"),
-        ("dkv", "chainermn_tpu/ops/flash_attention.py:187")]]})
+    } for part, source, replaces in [
+        ("dq", "chainermn_tpu_torch/csrc/flash_attention_bwd_split.cu",
+         "chainermn_tpu/ops/flash_attention.py:146"),
+        ("dkv", "chainermn_tpu_torch/csrc/flash_bwd_sm90.cu",
+         "chainermn_tpu/ops/flash_attention.py:187")]]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -282,3 +282,88 @@ def test_backward_work_counts():
         == 4 * 8 * 12 * 64 * pairs
     assert fa.attention_bwd_bytes(8, 12, 1024, 1024, 64, 2) \
         == 8 * 12 * (7 * 1024 * 64 * 2 + 2 * 1024 * 4)
+
+
+def _jax_wrapper_delta(monkeypatch, out, g, g_lse):
+    """The delta the JAX ``flash_attention_bwd`` hands its Pallas kernels:
+    the wrapper runs with ``pl.pallas_call`` replaced by a stand-in that
+    records the kernel's inputs (q, k, v, g, lse, delta) and returns
+    zeros of the declared outputs."""
+    import types
+    seen = []
+
+    def pallas_call(kernel, *, out_shape, **kw):
+        def call(*args):
+            seen.append(args)
+            return [jnp.zeros(s.shape, s.dtype) for s in out_shape]
+        return call
+
+    names = {n: getattr(jfa.pl, n) for n in dir(jfa.pl)
+             if not n.startswith("__")}
+    names["pallas_call"] = pallas_call
+    monkeypatch.setattr(jfa, "pl", types.SimpleNamespace(**names))
+    monkeypatch.setattr(jfa, "_FLASH_BWD", "fused")
+    B, H, T, D = g.shape
+    x = _j(np.zeros((B, H, T, D), np.float32))
+    jfa.flash_attention_bwd(x, x, x, _j(out), _j(np.zeros((B, H, T))),
+                            _j(g), causal=True,
+                            g_lse=None if g_lse is None else _j(g_lse))
+    (args,) = seen
+    return np.asarray(args[5]).reshape(B, H, T)
+
+
+@pytest.mark.parametrize("with_g_lse", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_plain_delta_matches_the_jax_wrapper(monkeypatch, D, with_g_lse):
+    """``_bwd_delta_plain`` (what the delta pass computes, and what a CPU
+    tensor takes) against the delta the JAX wrapper computes: fp32 sums of
+    D products of order 1, 2e-5."""
+    out, g, g_lse = _arrays([(2, 3, 40, D), (2, 3, 40, D), (2, 3, 40)],
+                            D + with_g_lse)
+    g_lse = g_lse if with_g_lse else None
+    want = _jax_wrapper_delta(monkeypatch, out, g, g_lse)
+    got = fa._bwd_delta_plain(_t(g), _t(out),
+                              None if g_lse is None else _t(g_lse))
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 40)
+    _close(got, want, what="delta")
+    # the counted entry point takes the plain version on CPU tensors
+    before = fa.flash_attention_bwd_delta.launches
+    assert torch.equal(fa.flash_attention_bwd_delta(
+        _t(g), _t(out), None if g_lse is None else _t(g_lse)), got)
+    assert fa.flash_attention_bwd_delta.launches == before
+
+
+def test_plain_delta_matches_the_jax_wrapper_bf16(monkeypatch):
+    """bf16 g and out: both sides upcast exactly and sum in fp32."""
+    out, g = _arrays([(1, 2, 64, 64)] * 2, 31)
+    bo, bg = (np.asarray(_t(x, torch.bfloat16).float()) for x in (out, g))
+    want = _jax_wrapper_delta(monkeypatch, bo, bg, None)
+    got = fa._bwd_delta_plain(_t(g, torch.bfloat16),
+                              _t(out, torch.bfloat16))
+    _close(got, want, what="delta")
+
+
+def test_cpu_backward_never_loads_the_library(monkeypatch):
+    """The delta pass and both lowerings take their plain versions on CPU
+    tensors without building or loading the kernels."""
+    from chainermn_tpu_torch import _build
+    monkeypatch.setattr(_build, "load_library", lambda: pytest.fail(
+        "the library was loaded for CPU tensors"))
+    q, k, v, g = (_t(a) for a in _arrays([(1, 2, 64, 64)] * 4, 33))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    fa.flash_attention_bwd_delta(g, out)
+    for mode in ("fused", "split"):
+        monkeypatch.setattr(fa, "_FLASH_BWD", mode)
+        fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+
+
+def test_fused_launcher_takes_the_dq_accumulator_and_dq():
+    """The fused launcher's outputs: the fp32 dq accumulator its epilogue
+    reads, then dq, dk, dv; the delta pass's five pointers."""
+    import ctypes
+    from chainermn_tpu_torch import _build
+    p = ctypes.c_void_p
+    assert _build.ARGTYPES["flash_attention_bwd"][:11] == [p] * 10 + [
+        ctypes.c_int]
+    assert _build.ARGTYPES["flash_attention_bwd_delta"][:6] == [p] * 5 + [
+        ctypes.c_int]

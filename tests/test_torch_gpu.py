@@ -29,7 +29,7 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # backward against its plain version.  bf16: each of dq, dk, dv relative
 # to its own largest |ref| (_bwd_err); p and ds round to bf16 before the
 # dots on both sides, but an fp32 difference in the last bit can flip a
-# rounding, and the kernel's dq atomics add in another order.  fp32:
+# rounding, and the kernel's dq tiles add in another order.  fp32:
 # absolute, sums in another order and expf on CUDA cores.
 BWD_TOL = {torch.bfloat16: 5e-3, torch.float32: 2e-4}
 # backward against torch autograd through xla_attention, same measure:
@@ -382,3 +382,121 @@ def test_nccl_world_of_one_mean_grad_leaves_fp32_gradients(cuda_device):
     finally:
         comm.finalize()
     assert not dist.is_initialized()
+
+
+# the Hopper backward's tile edges (64-row q tiles, 64-key warpgroups,
+# 128-key blocks at D 64), Tq != Tk both ways, D 128:
+# (B, H, Tq, Tk, D, causal)
+HOPPER_BWD_CASES = [
+    (2, 3, T, T, 64, True) for T in (1, 63, 64, 65, 127, 129, 1024)] + [
+    (2, 3, 128, 200, 64, False), (2, 3, 200, 130, 64, False),
+    (2, 3, 100, 300, 64, True), (2, 3, 300, 100, 64, True),
+    (2, 3, 1, 65, 64, False), (2, 3, 200, 200, 128, True),
+    (2, 3, 130, 70, 128, False), (1, 12, 1024, 1024, 128, True)]
+
+
+def _strided_train_inputs(B, H, T, D, device, seed):
+    """q, k, v sliced out of one ``[B, T, 3, H, D]`` projection and a
+    transposed ``[B, T, H, D]`` cotangent, as the model hands them over."""
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rng.normal(0, 1, (B, T, 3, H, D)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    g = torch.from_numpy(rng.normal(0, 1, (B, T, H, D)).astype(
+        np.float32)).to(device, torch.bfloat16).transpose(1, 2)
+    return [qkv[:, :, i].transpose(1, 2) for i in range(3)] + [g]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Tq,Tk,D,causal", HOPPER_BWD_CASES)
+def test_hopper_backward_matches_plain(cuda_device, B, H, Tq, Tk, D,
+                                       causal):
+    """The bf16 Hopper kernel in both modes -- fused (dq, dk, dv) and the
+    split backward's dk/dv pass -- against their plain versions."""
+    q, k, v, g = _train_inputs(B, H, Tq, Tk, D, torch.bfloat16, cuda_device,
+                               Tq + 7 * Tk + D)
+    out, lse = fa._flash_fwd_lse_plain(q, k, v, causal=causal)
+    delta = fa._bwd_delta_plain(g, out)
+    ref = fa._flash_bwd_plain(q, k, v, g, lse, delta, causal=causal)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    dkv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x.float()).all() for x in (*got, *dkv))
+    assert _bwd_err(got, ref, torch.bfloat16) < BWD_TOL[torch.bfloat16]
+    assert _bwd_err((ref[0], *dkv), ref, torch.bfloat16) \
+        < BWD_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [0.0, -0.125, 0.0625])
+@pytest.mark.parametrize("D", [64, 128])
+def test_hopper_backward_strided_any_scale_and_lse_cotangent(cuda_device,
+                                                             scale, D):
+    """Strided q/k/v with a transposed g, a non-zero lse cotangent, and
+    scales of 0, below 0 and above 0, in both modes."""
+    B, H, T = 2, 12, 300
+    q, k, v, g = _strided_train_inputs(B, H, T, D, cuda_device, D)
+    assert not q.is_contiguous() and not g.is_contiguous()
+    g_lse = torch.from_numpy(np.random.RandomState(D + 1).normal(
+        0, 1, (B, H, T)).astype(np.float32)).to(cuda_device)
+    out, lse = fa._flash_fwd_lse_plain(q, k, v, causal=True, scale=scale)
+    delta = fa._bwd_delta_plain(g, out, g_lse)
+    ref = fa._flash_bwd_plain(q, k, v, g, lse, delta, causal=True,
+                              scale=scale)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True,
+                                 scale=scale, g_lse=g_lse)
+    dkv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal=True,
+                                     scale=scale)
+    assert _bwd_err(got, ref, torch.bfloat16) < BWD_TOL[torch.bfloat16]
+    assert _bwd_err((ref[0], *dkv), ref, torch.bfloat16) \
+        < BWD_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+def test_hopper_backward_dk_dv_are_deterministic(cuda_device, D):
+    """dk and dv have no atomics: two calls agree bitwise in both modes
+    (fused dq's low bits depend on the order of the bulk adds)."""
+    q, k, v, g = _strided_train_inputs(8, 12, 1024, D, cuda_device, 3)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = fa.flash_attention_bwd_delta(g, out)
+    a = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    b = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    c = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal=True)
+    d = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal=True)
+    assert torch.equal(c[0], d[0]) and torch.equal(c[1], d[1])
+    # the same products and sums in both modes
+    assert torch.equal(a[1], c[0]) and torch.equal(a[2], c[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+def test_delta_pass_and_dq_epilogue_match_plain(cuda_device, dtype, D):
+    """The delta pass (strided g, with and without g_lse) against its
+    plain version: fp32 sums in another order, 1e-4 for |delta| < 64; the
+    dq epilogue bitwise against the scale and cast of the fp32
+    accumulator it reads (one fp32 multiply and one rounding on both
+    sides)."""
+    B, H, T = 2, 12, 300
+    rng = np.random.RandomState(D)
+    out = torch.from_numpy(rng.normal(0, 1, (B, H, T, D)).astype(
+        np.float32)).to(cuda_device, dtype)
+    g = torch.from_numpy(rng.normal(0, 1, (B, T, H, D)).astype(
+        np.float32)).to(cuda_device, dtype).transpose(1, 2)
+    g_lse = torch.from_numpy(rng.normal(0, 1, (B, H, T)).astype(
+        np.float32)).to(cuda_device)
+    for gl in (None, g_lse):
+        before = fa.flash_attention_bwd_delta.launches
+        got = fa.flash_attention_bwd_delta(g, out, gl)
+        assert fa.flash_attention_bwd_delta.launches == before + 1
+        ref = fa._bwd_delta_plain(g, out, gl)
+        assert got.shape == (B, H, T) and got.dtype == torch.float32
+        assert (got - ref).abs().max().item() < 1e-4
+    q, k, v, _ = _train_inputs(B, H, T, T, D, dtype, cuda_device, 5)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    for scale in (None, -0.125):
+        s = fa._scale(scale, D)
+        acc, dq, _, _ = fa._fused_bwd(q, k, v, o, lse, g, True, s, g_lse)
+        assert dq.dtype == dtype
+        assert torch.equal(dq, (acc * s).to(dtype))
