@@ -129,7 +129,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* gg = static_cast<const T*>(prm.g) + b * prm.sgb + h * prm.sgh;
   const float* lse_g = prm.lse + (long long)bh * prm.Tq;
   const float* delta_g = prm.delta + (long long)bh * prm.Tq;
-  float* dq_g = prm.dq + (long long)bh * prm.Tq * D;
+  float* dq_g = static_cast<float*>(prm.dq) + (long long)bh * prm.Tq * D;
 
   const T* kw = ks + warp * 16 * kLd;  // this warp's 16 keys
   const T* vw = vs + warp * 16 * kLd;

@@ -1,7 +1,13 @@
-// Split flash attention backward for Hopper (sm_90a): the CUDA counterparts
-// of chainermn_tpu/ops/flash_attention.py::_flash_bwd_dq_kernel (the dq
-// pass) and ::_flash_bwd_dkv_kernel (the dk/dv pass), the two-kernel
-// lowering that CHAINERMN_TPU_FLASH_BWD=split selects.
+// Split flash attention backward for Hopper (sm_90a): the fp32 kernels of
+// the two-kernel lowering that CHAINERMN_TPU_FLASH_BWD=split selects, and
+// the C entry points of both passes.  They are the CUDA counterparts of
+// chainermn_tpu/ops/flash_attention.py::_flash_bwd_dq_kernel (the dq pass)
+// and ::_flash_bwd_dkv_kernel (the dk/dv pass).  In bf16 the entry points
+// launch the Hopper kernels (TMA and wgmma): the dq pass of
+// flash_bwd_dq_sm90.cu and the dk/dv pass of flash_bwd_sm90.cu (the fused
+// kernel with its dq part switched off).  This file keeps their fp32
+// versions on CUDA cores (wgmma takes no fp32 inputs), the parity path of
+// the fp32 model and tests.
 //
 // What they compute, for q/g [B, H, Tq, D], k/v [B, H, Tk, D], the
 // forward's row statistic lse [B*H, Tq] (fp32) and delta = rowsum(g * out)
@@ -10,50 +16,27 @@
 //     p  = exp(scale * q k^T - lse)      (0 where masked: causal, ragged)
 //     ds = p * (g v^T - delta)
 // and the dq pass sums dq = scale * ds k over the key tiles, the dk/dv pass
-// dv = p^T g and dk = scale * ds^T q over the q tiles.  The JAX kernels'
-// points of rounding are kept: q/k/v/g enter the dots in their storage
-// dtype with fp32 accumulation, ds is cast to k's dtype before the dq dot,
-// p to g's dtype before the dv dot and ds to q's dtype before the dk dot;
-// dq, dk and dv are written once, in the inputs' dtype.
+// dv = p^T g and dk = scale * ds^T q over the q tiles; dq, dk and dv are
+// written once, in the inputs' dtype, without atomics (bitwise
+// deterministic).
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM) at the
-// training shape B = 8, H = 12, T = 1024, D = 64, causal (524,800 live
-// pairs per head):
-//   dq pass:   3 dots, 6 * B*H * D * pairs = 19.3 GFLOP (19.6 us); q, k, v,
-//              g, lse, delta in and dq out are 63.7 MB (19.0 us).
-//   dk/dv:     4 dots, 25.8 GFLOP (26.1 us); q, k, v, g, lse, delta in and
-//              dk, dv out are 76.3 MB (22.8 us).
-// Both are set by operations, barely; the pair costs 45.6 us against the
-// fused kernel's 32.6 us, the price of recomputing p and g v^T twice.
-//
-// How the design answers it.  The dq pass is the forward's shape, q-major:
-// one block of 4 warps per (b*h, 64-row q tile), each warp owning 16 q
-// rows, with the q tile, its g rows and, per key tile, the k and v tiles
-// in shared memory (64-row tiles, the lse forward's layout).  The score
-// tile s = q k^T and g v^T come out in the mma accumulator fragments, and
-// the fragments of ds are reused in place as the A operand of dq += ds k
-// (k read transposed with ldmatrix), just as p is the A operand of p v in
-// the forward.  Each block owns its q rows, so dq needs no atomicAdd and
-// no fp32 scratch buffer: it is written once, in q's dtype, and the result
-// is deterministic (the fused kernel's dq is not: its bulk adds land in a
-// varying order).  Under `causal` the key loop stops at the diagonal
-// tile.  Single-buffered loads, mma.sync (flash::BwdOps), no TMA and no
-// wgmma: the simple, correct first version.
-//
-// The dk/dv pass is the fused kernel without its dq part.  In bf16 it is
-// the Hopper kernel of flash_bwd_sm90.cu with its dq flag off (TMA-fed
-// Q/dO ring, wgmma); this file keeps its fp32 version (one block per
-// (b*h, 64-key tile), key-major tiles s^T = k q^T so that p^T and ds^T are
-// the operands of dv += p^T g and dk += ds^T q, dk and dv in registers
-// across the q tiles, the dots on CUDA cores: a parity path), and the C
-// entry point of both.
+// fp32 design: one block of 4 warps per (b*h, 64-row tile), each warp
+// owning 16 rows; the dq pass is q-major (the q tile and its g rows, then
+// per key tile the k and v tiles in padded shared memory), the dk/dv pass
+// key-major (the k and v tiles, then per q tile the q and g tiles and
+// their lse and delta rows), so that p, ds (dq pass) or p^T, ds^T (dk/dv
+// pass) come out of the score product in the fragment layout of the
+// product that consumes them (flash::BwdOps).  Single-buffered 16-byte
+// loads with the ragged edge zero-filled and masked; under causal the
+// loops skip the tiles past the diagonal.  Bound at the fp32 parity shape
+// (B 2, H 4, T 256, D 64, causal): 3 and 4 products, 0.10 and 0.13 GFLOP
+// over 67 TFLOP/s (1.5 and 2.0 us).
 //
 // Plain C interface (bound with ctypes), like the other kernels: each
 // launcher returns cudaGetLastError(), launches on the caller's stream and
 // allocates nothing.  Strides are in elements; the last dimension must be
 // dense and every row 16-byte aligned (the Python wrapper checks).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -317,14 +300,10 @@ cudaError_t launch(const Params& prm, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 only for the dq pass: the bf16 dk/dv pass is flash_bwd_sm90.cu's
+// fp32 only: the bf16 passes are the Hopper kernels
 template <bool kDq>
 int dispatch(const Params& prm, int dtype, int B, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kDq && dtype == 0 && D == 64)
-    return launch<__nv_bfloat16, 64, true>(prm, B, s);
-  if (kDq && dtype == 0 && D == 128)
-    return launch<__nv_bfloat16, 128, true>(prm, B, s);
   if (dtype == 1 && D == 64) return launch<float, 64, kDq>(prm, B, s);
   if (dtype == 1 && D == 128) return launch<float, 128, kDq>(prm, B, s);
   return cudaErrorInvalidValue;
@@ -333,7 +312,8 @@ int dispatch(const Params& prm, int dtype, int B, int D, void* stream) {
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float32.  dq: [B*H, Tq, D] in the input dtype,
-// written whole (scaled).  Returns a cudaError_t (0 = success);
+// written whole (scaled).  bf16 runs the Hopper kernel of
+// flash_bwd_dq_sm90.cu.  Returns a cudaError_t (0 = success);
 // cudaErrorInvalidValue for a dtype or head dim without an instantiation.
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* g,
@@ -342,6 +322,14 @@ extern "C" int flash_attention_bwd_dq(
     long long skb, long long skh, long long skt, long long svb,
     long long svh, long long svt, long long sgb, long long sgh,
     long long sgt, int causal, float scale, void* stream) {
+  if (dtype == 0) {
+    const flash::BwdParams prm{q,   k,   v,   g,       lse,     delta,
+                               dq,  nullptr, nullptr, B,   H,   Tq,
+                               Tk,  sqb, sqh, sqt,     skb,     skh,
+                               skt, svb, svh, svt,     sgb,     sgh,
+                               sgt, causal, scale};
+    return flash::bwd_dq_bf16_sm90(prm, D, static_cast<cudaStream_t>(stream));
+  }
   Params prm{q,   k,   v,   g,   lse, delta, dq,  nullptr, H,   Tq,
              Tk,  sqb, sqh, sqt, skb, skh,   skt, svb,     svh, svt,
              sgb, sgh, sgt, causal, scale};

@@ -364,7 +364,8 @@ __global__ void __launch_bounds__(kThreads, Cfg<D, kDq>::kMinBlocks)
       bar_sync(1, 128);  // the dQ tile is staged
       if (leader) {
         const int rows = min(kBQ, prm.Tq - q_start);  // cut at Tq's end
-        bulk_reduce_add_f32(prm.dq + ((long long)bh * prm.Tq + q_start) * D,
+        bulk_reduce_add_f32(static_cast<float*>(prm.dq) +
+                                ((long long)bh * prm.Tq + q_start) * D,
                             stage, rows * D * 4);
         bulk_commit();
       }

@@ -1,7 +1,7 @@
 // Pieces shared by the flash attention kernels (forward and backward):
-// padded shared-memory tiles, bf16 packing, the m16n8k16 tensor-core
-// product, the transposing shared-memory fragment load and the backward
-// kernels' tile products (BwdOps).
+// bf16 packing (the Hopper kernels), and for the fp32 kernels on CUDA cores
+// padded shared-memory tiles, paired stores and the backward kernels' tile
+// products (BwdOps).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,52 +40,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a * b for one m16n8k16 tile: A row-major 16x16 bf16, B 16x8 bf16
-// ("col"), C/D 16x8 fp32.  Fragment layout of C (and of the outputs built
-// from it): lane = 4 * g + t holds, for n-tile j, columns 8j + 2t and
-// 8j + 2t + 1 of rows g (entries 0, 1) and g + 8 (entries 2, 3).
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory, each transposed: lane l
-// gives the address of row l % 8 of matrix l / 8 (16 contiguous bytes,
-// 16-byte aligned) and receives in r[i] the pair (M_i[2t][g],
-// M_i[2t + 1][g]), g = l / 4, t = l % 4.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* row) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
 // Two adjacent elements at flat index idx (even), from fp32 values.
 template <typename T>
 __device__ __forceinline__ void store2(T* out, long long idx, float a,
                                        float b);
-
-template <>
-__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* out,
-                                                      long long idx, float a,
-                                                      float b) {
-  *reinterpret_cast<uint32_t*>(out + idx) = pack_bf16(a, b);
-}
 
 template <>
 __device__ __forceinline__ void store2<float>(float* out, long long idx,
@@ -93,87 +51,18 @@ __device__ __forceinline__ void store2<float>(float* out, long long idx,
   *reinterpret_cast<float2*>(out + idx) = make_float2(a, b);
 }
 
-// The backward kernels' tile products (the split dq pass, and the fp32
-// fused and dk/dv kernels; bf16 B2 and dk/dv are flash_bwd_sm90.cu's),
-// over 64-row tiles.  A warp owns 16 rows of one operand
-// (keys in B2 and the dk/dv pass, q rows in the dq pass) and meets the 64
-// rows of a shared-memory tile of the other.  Fragments follow the mma C
-// layout above: a warp's [16, 64] tile is float x[8][4], its [16, D]
-// accumulators float x[D / 8][4].
+// The fp32 backward kernels' tile products (the fused kernel and the split
+// dq and dk/dv passes; in bf16 all three are Hopper kernels), over 64-row
+// tiles.  A warp owns 16 rows of one operand (keys in the fused kernel and
+// the dk/dv pass, q rows in the dq pass) and meets the 64 rows of a
+// shared-memory tile of the other.  Fragments follow the mma C layout:
+// lane = 4 * g + t holds, for n-tile j, columns 8j + 2t and 8j + 2t + 1 of
+// rows g (entries 0, 1) and g + 8 (entries 2, 3); a warp's [16, 64] tile
+// is float x[8][4], its [16, D] accumulators float x[D / 8][4].
 constexpr int kBwdTile = 64;
 
 template <typename T, int D>
 struct BwdOps;
-
-template <int D>
-struct BwdOps<__nv_bfloat16, D> {
-  using T = __nv_bfloat16;
-  static constexpr int kLd = D + Pad<T>::value;        // tile rows
-  static constexpr int kLdS = kBwdTile + Pad<T>::value;  // staged [16, 64]
-
-  // acc[j] = A . B^T over D: A = the warp's 16 rows at a, B = the 64 rows
-  // of the tile at b.
-  __device__ static void nt(float (*acc)[4], const T* a, const T* b, int g,
-                            int t) {
-    uint32_t af[D / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const T* r0 = a + g * kLd + kk * 16 + 2 * t;
-      const T* r1 = r0 + 8 * kLd;
-      af[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
-      af[kk][1] = *reinterpret_cast<const uint32_t*>(r1);
-      af[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-      af[kk][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
-    }
-#pragma unroll
-    for (int j = 0; j < kBwdTile / 8; ++j) {
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      const T* br = b + (8 * j + g) * kLd + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b0 = *reinterpret_cast<const uint32_t*>(br + kk * 16);
-        uint32_t b1 = *reinterpret_cast<const uint32_t*>(br + kk * 16 + 8);
-        mma_bf16(acc[j], af[kk], b0, b1);
-      }
-    }
-  }
-
-  // out += bf16(x) . B over the tile's 64 rows: x is the warp's [16, 64]
-  // tile (reused in place as the A operand), B = the tile's [64, D] rows at
-  // b, read transposed by ldmatrix.
-  __device__ static void nn(float (*out)[4], float (*x)[4], const T* b, T*,
-                            int lane) {
-#pragma unroll
-    for (int kk = 0; kk < kBwdTile / 16; ++kk) {
-      uint32_t xa[4];
-      xa[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-      xa[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-      xa[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-      xa[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-      const T* row =
-          b + (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLd +
-          (lane >> 4) * 8;
-#pragma unroll
-      for (int nd = 0; nd < D / 8; nd += 2) {
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, row + 8 * nd);
-        mma_bf16(out[nd], xa, bf[0], bf[1]);
-        mma_bf16(out[nd + 1], xa, bf[2], bf[3]);
-      }
-    }
-  }
-
-  // Write the warp's [16, 64] tile x, cast to bf16, to its rows at s.
-  __device__ static void stage(T* s, float (*x)[4], int g, int t) {
-#pragma unroll
-    for (int j = 0; j < kBwdTile / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(s + g * kLdS + 8 * j + 2 * t) =
-          pack_bf16(x[j][0], x[j][1]);
-      *reinterpret_cast<uint32_t*>(s + (g + 8) * kLdS + 8 * j + 2 * t) =
-          pack_bf16(x[j][2], x[j][3]);
-    }
-  }
-};
 
 template <int D>
 struct BwdOps<float, D> {

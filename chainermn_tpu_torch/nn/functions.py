@@ -10,8 +10,17 @@ __all__ = ["linear", "embed_id", "layer_normalization", "gelu", "softmax",
            "log_softmax", "softmax_cross_entropy", "accuracy"]
 
 
-def linear(x, W, b=None):
-    """``x @ W.T + b`` with ``W`` shaped ``(out, in)``."""
+def linear(x, W, b=None, n_batch_axes=1):
+    """``x @ W.T + b`` with ``W`` shaped ``(out, in)``, Chainer's rule for
+    ``x`` of more than two axes: the first ``n_batch_axes`` axes are the
+    batch, every later axis is flattened into ``in``, and the batch shape
+    comes back on the output (a single batch axis stays flat)."""
+    if n_batch_axes > 1:
+        batch_shape = x.shape[:n_batch_axes]
+        y = TF.linear(x.reshape(batch_shape.numel(), -1), W, b)
+        return y.reshape(*batch_shape, W.shape[0])
+    if x.dim() > 2:
+        x = x.reshape(x.shape[0], -1)
     return TF.linear(x, W, b)
 
 

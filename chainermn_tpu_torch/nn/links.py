@@ -47,12 +47,12 @@ class Linear(Link):
         self.b = None if nobias else _param(
             initb((out_size,), np.float32, rng), device)
 
-    def forward(self, x):
+    def forward(self, x, n_batch_axes=1):
         W, b = self.W, self.b
         if x.dtype in (torch.bfloat16, torch.float16) and W.dtype != x.dtype:
             W = W.to(x.dtype)
             b = None if b is None else b.to(x.dtype)
-        return F.linear(x, W, b)
+        return F.linear(x, W, b, n_batch_axes=n_batch_axes)
 
 
 class LayerNormalization(Link):

@@ -15,9 +15,10 @@ Five CUDA kernels, each the counterpart of a Pallas kernel of
   its dq epilogue; fp32 on CUDA cores, ``csrc/flash_attention_bwd.cu``;
 * :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv` --
   ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``, the split
-  backward (a dq pass, then a dk/dv pass),
-  ``csrc/flash_attention_bwd_split.cu``; the bf16 dk/dv pass is the fused
-  Hopper kernel with its dq part switched off.
+  backward (a dq pass, then a dk/dv pass): bf16 on TMA and ``wgmma``, the
+  dq pass ``csrc/flash_bwd_dq_sm90.cu`` and the dk/dv pass the fused
+  Hopper kernel with its dq part switched off; fp32 on CUDA cores,
+  ``csrc/flash_attention_bwd_split.cu``.
 
 Both backward lowerings start with :func:`flash_attention_bwd_delta`, one
 pass for the JAX wrapper's XLA reduce ``delta = rowsum(g * out) - g_lse``

@@ -42,9 +42,11 @@ Phases, each printing one JSON line:
 6. kernel check, split backward (``kernel_check_split``): the dq and dk/dv
    kernels against their plain versions, against torch autograd through
    ``xla_attention`` and against the fused kernel, on the cases of phase
-   5; then their times, the device time of the whole split backward call
-   (delta pass and both passes), their plain versions' times, SDPA's
-   backward (the pair's yardstick) and their bounds at the training shape;
+   5 and at scales 0, -0.125 and 0.0625; then their times, the device
+   time of the whole split backward call (delta pass and both passes) and
+   each of its device ops by name (``ops_us``), their plain versions'
+   times, SDPA's backward (the pair's yardstick) and their bounds at the
+   training shape;
 7. train: the same model (bf16, Adam alpha 3e-4) trained through
    ``Trainer`` -> ``StandardUpdater`` -> ``Adam.update`` on a
    ``SerialIterator`` of 16 random token rows (batch 8 x T 1024): step
@@ -140,9 +142,10 @@ def kernel_label(mangled):
     ``flash_fwd_sm90_kernel<bf16,D64,BK128,lse>`` (D and key tile of the
     bf16 forward), ``flash_bwd_sm90_kernel<bf16,D64,dq>`` (the bf16
     backward, fused with dq or the dk/dv pass ``dkv``),
+    ``flash_bwd_dq_sm90_kernel<bf16,D64>`` (the bf16 dq pass),
     ``flash_bwd_kernel<fp32,D64>``; other names as they are."""
-    k = re.search(r"(flash_(?:fwd_sm90|fwd|bwd_sm90|bwd_dq|bwd_dkv|bwd)"
-                  r"_kernel)I", mangled)
+    k = re.search(r"(flash_(?:fwd_sm90|fwd|bwd_sm90|bwd_dq_sm90|bwd_dq|"
+                  r"bwd_dkv|bwd)_kernel)I", mangled)
     if not k:
         return mangled
     args = mangled[k.end():]
@@ -153,6 +156,8 @@ def kernel_label(mangled):
     if k.group(1) == "flash_bwd_sm90_kernel" and ints:
         part = "dq" if "Lb1E" in args else "dkv"
         return f"{k.group(1)}<bf16,D{ints[0]},{part}>"
+    if k.group(1) == "flash_bwd_dq_sm90_kernel" and ints:
+        return f"{k.group(1)}<bf16,D{ints[0]}>"
     dtype = "bf16" if "bfloat16" in args else "fp32"
     return f"{k.group(1)}<{dtype},D{ints[0] if ints else '?'}{lse}>"
 
@@ -179,7 +184,8 @@ def ptxas_report(log):
 
 
 #: the kernels whose bf16 instantiations must run on wgmma and TMA
-SM90_KERNELS = ("flash_fwd_sm90_kernel<bf16", "flash_bwd_sm90_kernel<bf16")
+SM90_KERNELS = ("flash_fwd_sm90_kernel<bf16", "flash_bwd_sm90_kernel<bf16",
+                "flash_bwd_dq_sm90_kernel<bf16")
 
 
 def sass_counts(lib):
@@ -281,7 +287,7 @@ def bound(T, dtype, causal, H=12, D=64):
 FWD_KERNEL = "(anonymous namespace)::flash_fwd_sm90_kernel"
 # one bf16 body for B2 (its dq flag on) and B4's dk/dv pass (off)
 BWD_KERNEL = "(anonymous namespace)::flash_bwd_sm90_kernel"
-SPLIT_KERNELS = {"dq": "(anonymous namespace)::flash_bwd_dq_kernel",
+SPLIT_KERNELS = {"dq": "(anonymous namespace)::flash_bwd_dq_sm90_kernel",
                  "dkv": BWD_KERNEL}
 
 
@@ -302,15 +308,23 @@ def kernel_device_ms(fn, kernel, iters=20):
     return us / iters * 1e-3 if us else None
 
 
-def library_device_ms(fn, iters=20):
-    """Mean device time of one library call (a yardstick): every kernel
-    and memset it puts on the card, summed over the same kind of window
-    as ``kernel_device_ms``; None when the profiler recorded no device
-    event (not measured)."""
+def device_ops_us(fn, iters=20):
+    """Every kernel and memset that one call of ``fn`` puts on the card:
+    ``[name, device microseconds per call]`` (the mean over ``iters``
+    calls, the same kind of window as ``kernel_device_ms``; names cut to
+    80 characters), largest first."""
     fn()
     _, _, by_name = device_profile(lambda: [fn() for _ in range(iters)])
-    us = sum(by_name.values())
-    return us / iters * 1e-3 if us else None
+    return sorted(([n[:80], us / iters] for n, us in by_name.items()),
+                  key=lambda kv: -kv[1])
+
+
+def library_device_ms(fn, iters=20):
+    """Mean device time of one library call (a yardstick): the sum of
+    ``device_ops_us``; None when the profiler recorded no device event
+    (not measured)."""
+    us = sum(t for _, t in device_ops_us(fn, iters))
+    return us * 1e-3 if us else None
 
 
 def phase_kernel():
@@ -647,27 +661,27 @@ def phase_kernel_train():
     return times
 
 
-def check_split_kernels(q, k, v, g, causal, g_lse=None):
+def check_split_kernels(q, k, v, g, causal, g_lse=None, scale=None):
     """The dq and dk/dv kernels against their plain versions, against
     torch autograd through xla_attention and against the fused kernel,
     each of dq, dk, dv in BWD_TOL's measure."""
     fa = flash_module()
     dtype = q.dtype
-    out, lse = fa._flash_fwd_lse_plain(q, k, v, causal=causal)
+    kw = {"causal": causal, "scale": scale}
+    out, lse = fa._flash_fwd_lse_plain(q, k, v, **kw)
     delta = (g.float() * out.float()).sum(-1)
     if g_lse is not None:
         delta = delta - g_lse
-    got = (fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal=causal),
-           *fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta,
-                                       causal=causal))
+    got = (fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw),
+           *fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw))
     torch.cuda.synchronize()
-    ref = (fa._flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal),
-           *fa._flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal))
-    fused = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
-                                   g_lse=g_lse)
+    ref = (fa._flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw),
+           *fa._flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw))
+    fused = fa.flash_attention_bwd(q, k, v, out, lse, g, g_lse=g_lse, **kw)
     row = {"B": q.shape[0], "Tq": q.shape[2], "Tk": k.shape[2],
            "D": q.shape[3], "causal": causal, "dtype": str(dtype),
            "strided": not q.is_contiguous(), "g_lse": g_lse is not None,
+           "scale": fa._scale(scale, q.shape[3]),
            "err_dq_dk_dv": bwd_errs(got, ref, dtype),
            "abs_err_dq_dk_dv": [(a.float() - b.float()).abs().max().item()
                                 for a, b in zip(got, ref)],
@@ -676,8 +690,7 @@ def check_split_kernels(q, k, v, g, causal, g_lse=None):
                          for x in got)}
     if g_lse is None:
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-        torch.autograd.backward(
-            fa.xla_attention(*leaves, causal=causal), g)
+        torch.autograd.backward(fa.xla_attention(*leaves, **kw), g)
         row["autograd_err_dq_dk_dv"] = bwd_errs(
             got, [x.grad for x in leaves], dtype)
     row["ok"] = (row["finite"]
@@ -694,6 +707,10 @@ def phase_kernel_split():
     checks = [check_split_kernels(q, k, v, g, causal, g_lse=g_lse)
               for q, k, v, g, causal, g_lse in cases]
     main = checks[-1]
+    # any finite scale (0, below 0, above 0) at D 128 and on the strided
+    # T 300 case
+    checks += [check_split_kernels(*cases[i][:4], True, scale=scale)
+               for i in (5, -2) for scale in (0.0, -0.125, 0.0625)]
     emit({"phase": "kernel_check_split", "checks": checks})
     bad = [c for c in checks if not c["ok"]]
     if bad:
@@ -710,14 +727,15 @@ def phase_kernel_split():
     saved = fa._FLASH_BWD
     fa._FLASH_BWD = "split"
     try:   # one split flash_attention_bwd call: delta pass, dq, dk/dv
-        call_dev_ms = library_device_ms(lambda: fa.flash_attention_bwd(
+        ops = device_ops_us(lambda: fa.flash_attention_bwd(
             q, k, v, out, lse, g, causal=True))
     finally:
         fa._FLASH_BWD = saved
+    call_dev_ms = sum(us for _, us in ops) * 1e-3 or None
     times = {"B": B, "H": H, "T": T, "D": D, "dtype": "bfloat16",
              "causal": True, "strided": True,
              "library": "SDPA backward (dq, dk and dv: the pair's work)",
-             "call_device_ms": call_dev_ms}
+             "call_device_ms": call_dev_ms, "ops_us": ops}
     for part, kernel, plain, i in (
             ("dq", fa.flash_attention_bwd_dq, fa._flash_bwd_dq_plain, [0]),
             ("dkv", fa.flash_attention_bwd_dkv, fa._flash_bwd_dkv_plain,
@@ -1152,7 +1170,7 @@ def main():
         "launches": dp_launches[f"bwd_{part}"],
         **{f: split_times[part][f] for f in fields},
     } for part, source, replaces in [
-        ("dq", "chainermn_tpu_torch/csrc/flash_attention_bwd_split.cu",
+        ("dq", "chainermn_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
          "chainermn_tpu/ops/flash_attention.py:146"),
         ("dkv", "chainermn_tpu_torch/csrc/flash_bwd_sm90.cu",
          "chainermn_tpu/ops/flash_attention.py:187")]]})

@@ -34,41 +34,51 @@ def _jfa():
     return importlib.import_module("chainermn_tpu.ops.flash_attention")
 
 
-def _jax_split(monkeypatch, q, k, v, g, causal, g_lse=None, dtype=None):
+def _jax_split(monkeypatch, q, k, v, g, causal, g_lse=None, dtype=None,
+               scale=None):
     """The JAX split backward, interpreted: ``(out, lse, (dq, dk, dv))``."""
     import jax.numpy as jnp
     jfa = _jfa()
     dtype = dtype or jnp.float32
     jq, jk, jv, jg = (_j(x, dtype) for x in (q, k, v, g))
     out, lse = jfa.flash_attention_fwd(jq, jk, jv, causal=causal,
-                                       block_q=TILE, block_k=TILE,
-                                       interpret=True)
+                                       scale=scale, block_q=TILE,
+                                       block_k=TILE, interpret=True)
     monkeypatch.setattr(jfa, "_FLASH_BWD", "split")
     grads = jfa.flash_attention_bwd(
-        jq, jk, jv, out, lse, jg, causal=causal, block_q=TILE, block_k=TILE,
-        interpret=True, g_lse=None if g_lse is None else _j(g_lse))
+        jq, jk, jv, out, lse, jg, causal=causal, scale=scale, block_q=TILE,
+        block_k=TILE, interpret=True,
+        g_lse=None if g_lse is None else _j(g_lse))
     return out, lse, grads
 
 
 @pytest.mark.parametrize("with_g_lse", [False, True])
-@pytest.mark.parametrize("Tq,Tk,D,causal", SHAPES)
+@pytest.mark.parametrize("Tq,Tk,D,causal,scale", [
+    pytest.param(*shape, None, id="-".join(map(str, shape)))
+    for shape in SHAPES] + [
+    # a scale of 0 (uniform attention over the live keys) and a negative
+    # one; D 128 with Tq != Tk both ways
+    (64, 64, 32, True, 0.0), (64, 128, 16, False, 0.0),
+    (64, 64, 32, True, -0.125), (64, 128, 16, False, -0.125),
+    (96, 64, 128, True, None), (64, 96, 128, False, None)])
 def test_split_plain_versions_match_pallas(monkeypatch, Tq, Tk, D, causal,
-                                           with_g_lse):
+                                           scale, with_g_lse):
     q, k, v, g, g_lse = _arrays([(2, 2, Tq, D), (2, 2, Tk, D), (2, 2, Tk, D),
                                  (2, 2, Tq, D), (2, 2, Tq)], Tq + Tk + D)
     out, lse, ref = _jax_split(monkeypatch, q, k, v, g, causal,
-                               g_lse if with_g_lse else None)
+                               g_lse if with_g_lse else None, scale=scale)
     delta = (_t(g) * _t(out)).sum(-1)
     if with_g_lse:
         delta = delta - _t(g_lse)
     args = (_t(q), _t(k), _t(v), _t(g), _t(lse), delta)
-    dq = fa._flash_bwd_dq_plain(*args, causal=causal)
-    dk, dv = fa._flash_bwd_dkv_plain(*args, causal=causal)
+    kw = {"causal": causal, "scale": scale}
+    dq = fa._flash_bwd_dq_plain(*args, **kw)
+    dk, dv = fa._flash_bwd_dkv_plain(*args, **kw)
     for a, b, name in zip((dq, dk, dv), ref, ("dq", "dk", "dv")):
         _close(a, b, what=name)
     # the counted entry points take the plain versions on CPU tensors
-    assert torch.equal(fa.flash_attention_bwd_dq(*args, causal=causal), dq)
-    got_k, got_v = fa.flash_attention_bwd_dkv(*args, causal=causal)
+    assert torch.equal(fa.flash_attention_bwd_dq(*args, **kw), dq)
+    got_k, got_v = fa.flash_attention_bwd_dkv(*args, **kw)
     assert torch.equal(got_k, dk) and torch.equal(got_v, dv)
 
 

@@ -37,7 +37,9 @@ BWD_TOL = {torch.bfloat16: 5e-3, torch.float32: 2e-4}
 # dk and dq dots
 AUTOGRAD_TOL = 2e-2
 
-# the shapes chip_smoke.py's kernel_check_train covers:
+# the shapes chip_smoke.py's kernel_check_train covers, then the tile
+# edges of the backward kernels (64-row q tiles and 64-key tiles: ragged
+# ends on both sides, Tq != Tk both ways, causal and not, D 128):
 # (B, H, Tq, Tk, D, causal, dtype)
 TRAIN_CASES = [
     (2, 12, 1, 1, 64, True, torch.bfloat16),
@@ -47,6 +49,15 @@ TRAIN_CASES = [
     (2, 12, 128, 200, 64, False, torch.bfloat16),
     (2, 12, 200, 200, 128, True, torch.bfloat16),
     (2, 12, 200, 200, 64, True, torch.float32),
+] + [(2, 3, T, T, 64, True, torch.bfloat16) for T in (63, 64, 65, 127, 129)
+     ] + [
+    (2, 3, 100, 300, 64, True, torch.bfloat16),
+    (2, 3, 300, 100, 64, True, torch.bfloat16),
+    (2, 3, 130, 70, 64, False, torch.bfloat16),
+    (2, 3, 1, 65, 64, False, torch.bfloat16),
+    (2, 3, 65, 1, 64, True, torch.bfloat16),
+    (2, 3, 130, 70, 128, False, torch.bfloat16),
+    (2, 3, 1024, 1024, 128, True, torch.bfloat16),
 ]
 
 # the forward's cases: the training cases and the Hopper kernel's tile
@@ -293,7 +304,8 @@ def test_split_backward_kernels_match_plain_and_fused(cuda_device, B, H, Tq,
                                                       Tk, D, causal, dtype):
     """The dq pass and the dk/dv pass against their plain versions and
     against the fused kernel B2 (the same math; B2's dq sums in another
-    order), in BWD_TOL's measure."""
+    order), in BWD_TOL's measure; a second dq pass is bitwise the first
+    (no atomics, a fixed order of sums)."""
     q, k, v, g = _train_inputs(B, H, Tq, Tk, D, dtype, cuda_device, Tq + 3)
     out, lse = fa._flash_fwd_lse_plain(q, k, v, causal=causal)
     delta = (g.float() * out.float()).sum(-1)
@@ -313,15 +325,23 @@ def test_split_backward_kernels_match_plain_and_fused(cuda_device, B, H, Tq,
     assert _bwd_err((dq, dk, dv), ref, dtype) < BWD_TOL[dtype]
     fused = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
     assert _bwd_err((dq, dk, dv), fused, dtype) < BWD_TOL[dtype]
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(q, k, v, g, lse, delta,
+                                                     causal=causal))
 
 
 @pytest.mark.gpu
+# the positive scale is below the default 1 / sqrt(D), as in the forward's
+# scale test
+@pytest.mark.parametrize("scale", [None, 0.0, -0.125, 0.0625])
+@pytest.mark.parametrize("D", [64, 128])
 def test_split_mode_backward_is_deterministic_and_reads_strides(
-        cuda_device, monkeypatch):
+        cuda_device, monkeypatch, D, scale):
     """``_FLASH_BWD = "split"`` sends the autograd backward through the
     two kernels (strided q/k/v and a transposed cotangent, as the model
-    hands them over); its dq has no atomics, so two runs agree bitwise."""
-    B, T, H, D = 2, 300, 12, 64
+    hands them over) at any finite scale; neither pass has atomics, so two
+    runs agree bitwise.  Then a non-zero lse cotangent through the split
+    ``flash_attention_bwd``, twice, bitwise, against the plain versions."""
+    B, T, H = 2, 300, 12
     rng = np.random.RandomState(5)
     qkv = torch.from_numpy(rng.normal(0, 1, (B, T, 3, H, D)).astype(
         np.float32)).to(cuda_device, torch.bfloat16)
@@ -335,7 +355,7 @@ def test_split_mode_backward_is_deterministic_and_reads_strides(
         before = (fa.flash_attention_bwd.launches,
                   fa.flash_attention_bwd_dq.launches,
                   fa.flash_attention_bwd_dkv.launches)
-        attention(*leaves, causal=True).backward(g)
+        attention(*leaves, causal=True, scale=scale).backward(g)
         torch.cuda.synchronize()
         assert (fa.flash_attention_bwd.launches,
                 fa.flash_attention_bwd_dq.launches,
@@ -345,9 +365,22 @@ def test_split_mode_backward_is_deterministic_and_reads_strides(
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     leaves = [qkv[:, :, i].transpose(1, 2).detach().requires_grad_()
               for i in range(3)]
-    xla_attention(*leaves, causal=True).backward(g)
+    xla_attention(*leaves, causal=True, scale=scale).backward(g)
     assert _bwd_err(runs[0], [x.grad for x in leaves],
                     torch.bfloat16) < AUTOGRAD_TOL
+
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    g_lse = torch.from_numpy(rng.normal(0, 1, (B, H, T)).astype(
+        np.float32)).to(cuda_device)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    got = [fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True,
+                                  scale=scale, g_lse=g_lse)
+           for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+    ref = fa._flash_bwd_plain(q, k, v, g, lse,
+                              fa._bwd_delta_plain(g, out, g_lse),
+                              causal=True, scale=scale)
+    assert _bwd_err(got[0], ref, torch.bfloat16) < BWD_TOL[torch.bfloat16]
 
 
 @pytest.mark.gpu
@@ -384,8 +417,8 @@ def test_nccl_world_of_one_mean_grad_leaves_fp32_gradients(cuda_device):
     assert not dist.is_initialized()
 
 
-# the Hopper backward's tile edges (64-row q tiles, 64-key warpgroups,
-# 128-key blocks at D 64), Tq != Tk both ways, D 128:
+# the Hopper backward's tile edges (64-row q tiles, 64-key tiles), Tq !=
+# Tk both ways, D 128:
 # (B, H, Tq, Tk, D, causal)
 HOPPER_BWD_CASES = [
     (2, 3, T, T, 64, True) for T in (1, 63, 64, 65, 127, 129, 1024)] + [
@@ -410,19 +443,21 @@ def _strided_train_inputs(B, H, T, D, device, seed):
 @pytest.mark.parametrize("B,H,Tq,Tk,D,causal", HOPPER_BWD_CASES)
 def test_hopper_backward_matches_plain(cuda_device, B, H, Tq, Tk, D,
                                        causal):
-    """The bf16 Hopper kernel in both modes -- fused (dq, dk, dv) and the
-    split backward's dk/dv pass -- against their plain versions."""
+    """The bf16 Hopper kernels -- the backward in both modes, fused (dq,
+    dk, dv) and the split backward's dk/dv pass, and the split backward's
+    dq pass -- against their plain versions."""
     q, k, v, g = _train_inputs(B, H, Tq, Tk, D, torch.bfloat16, cuda_device,
                                Tq + 7 * Tk + D)
     out, lse = fa._flash_fwd_lse_plain(q, k, v, causal=causal)
     delta = fa._bwd_delta_plain(g, out)
     ref = fa._flash_bwd_plain(q, k, v, g, lse, delta, causal=causal)
     got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal=causal)
     dkv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal=causal)
     torch.cuda.synchronize()
-    assert all(torch.isfinite(x.float()).all() for x in (*got, *dkv))
+    assert all(torch.isfinite(x.float()).all() for x in (*got, dq, *dkv))
     assert _bwd_err(got, ref, torch.bfloat16) < BWD_TOL[torch.bfloat16]
-    assert _bwd_err((ref[0], *dkv), ref, torch.bfloat16) \
+    assert _bwd_err((dq, *dkv), ref, torch.bfloat16) \
         < BWD_TOL[torch.bfloat16]
 
 
@@ -432,7 +467,7 @@ def test_hopper_backward_matches_plain(cuda_device, B, H, Tq, Tk, D,
 def test_hopper_backward_strided_any_scale_and_lse_cotangent(cuda_device,
                                                              scale, D):
     """Strided q/k/v with a transposed g, a non-zero lse cotangent, and
-    scales of 0, below 0 and above 0, in both modes."""
+    scales of 0, below 0 and above 0, in both modes and the dq pass."""
     B, H, T = 2, 12, 300
     q, k, v, g = _strided_train_inputs(B, H, T, D, cuda_device, D)
     assert not q.is_contiguous() and not g.is_contiguous()
@@ -444,10 +479,12 @@ def test_hopper_backward_strided_any_scale_and_lse_cotangent(cuda_device,
                               scale=scale)
     got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True,
                                  scale=scale, g_lse=g_lse)
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal=True,
+                                   scale=scale)
     dkv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal=True,
                                      scale=scale)
     assert _bwd_err(got, ref, torch.bfloat16) < BWD_TOL[torch.bfloat16]
-    assert _bwd_err((ref[0], *dkv), ref, torch.bfloat16) \
+    assert _bwd_err((dq, *dkv), ref, torch.bfloat16) \
         < BWD_TOL[torch.bfloat16]
 
 
