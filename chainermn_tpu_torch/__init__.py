@@ -13,9 +13,13 @@ through ``Trainer`` -> ``StandardUpdater`` -> an optimizer; and
 ChainerMN's data-parallel step, one process per device over
 ``torch.distributed``: :func:`create_communicator`,
 :func:`create_multi_node_optimizer` and :func:`scatter_dataset`.
-Attention runs on the flash kernels (:mod:`.ops.flash_attention`).
+Attention runs on the flash kernels (:mod:`.ops.flash_attention`).  The
+same step trains :class:`~.models.ResNet50` (convolutions on cuDNN,
+pooling and batch norm in plain PyTorch) and ``Classifier(MLP)``, with
+sync batch norm from :mod:`.links`.
 """
 
+from . import links
 from ._device import resolve_device
 from .communicators import create_communicator
 from .datasets import (create_empty_dataset, get_n_iterations_for_one_epoch,
@@ -23,7 +27,7 @@ from .datasets import (create_empty_dataset, get_n_iterations_for_one_epoch,
 from .iterators import create_multi_node_iterator, create_synchronized_iterator
 from .optimizers import create_multi_node_optimizer
 
-__all__ = ["resolve_device", "create_communicator",
+__all__ = ["links", "resolve_device", "create_communicator",
            "create_multi_node_optimizer", "scatter_dataset",
            "create_empty_dataset", "scatter_index",
            "get_n_iterations_for_one_epoch", "create_multi_node_iterator",

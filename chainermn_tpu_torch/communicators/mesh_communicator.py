@@ -31,6 +31,7 @@ import os
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.nn.parameter import is_lazy
 
 from .._device import resolve_device
 from ._communication_utility import (backend_for, init_ranks,
@@ -281,10 +282,14 @@ class MeshCommunicator(CommunicatorBase):
     # -- model ops ------------------------------------------------------------------
     def bcast_data(self, model):
         """Copy rank 0's parameters and buffers into every rank's model, in
-        place (the JAX package places them replicated on its mesh)."""
+        place (the JAX package places them replicated on its mesh).  Lazy
+        parameters not yet created are skipped, as the JAX package skips
+        them."""
         src = self._global(0)
         with torch.no_grad():
             for x in (*model.parameters(), *model.buffers()):
+                if is_lazy(x):
+                    continue
                 dist.broadcast(x.detach(), src=src, group=self.group)
                 self.calls["bcast"] += 1
         return model

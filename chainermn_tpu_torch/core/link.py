@@ -4,29 +4,72 @@ The JAX package's ``Link`` / ``Chain`` / ``ChainList`` keep Chainer's
 shape (named parameters and child links, ``namedparams``) over pytrees
 for ``jit``.  Here a link is an ``nn.Module`` and a chain list an
 ``nn.ModuleList``; what stays is the Chainer vocabulary, and in
-particular the parameter paths: ``namedparams()`` yields the JAX paths
-(``/blocks/0/attn/qkv/W``) so that weights map one to one between the two
+particular the paths: ``namedparams()`` and ``namedpersistent()`` yield
+the JAX paths (``/blocks/0/attn/qkv/W``, ``/res2/0/a/bn/avg_mean``) so
+that weights and running statistics map one to one between the two
 packages (``serializers.npz``).  A parameter is a ``torch.nn.Parameter``
-and its gradient is its ``.grad``.
+and its gradient is its ``.grad``; a lazy parameter (its shape known at
+the first call) is an ``UninitializedParameter`` until then.  A
+persistent value (``add_persistent``) is a registered buffer.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.parameter import is_lazy
 
 __all__ = ["Link", "Chain", "ChainList"]
 
 
+def _copy_array(dst, data, name):
+    """Copy host ``data`` into the tensor ``dst`` in place, in ``dst``'s
+    dtype; a lazy parameter takes ``data``'s shape first."""
+    data = np.asarray(data)
+    if is_lazy(dst):
+        dst.materialize(data.shape)
+    if data.shape != tuple(dst.shape):
+        raise ValueError(f"{name}: shape {data.shape} does not match "
+                         f"the model's {tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(torch.from_numpy(np.array(data)).to(dst.dtype))
+
+
 class Link(nn.Module):
     """Base parameter container (``chainer.Link`` on ``nn.Module``)."""
+
+    @contextlib.contextmanager
+    def init_scope(self):
+        """Chainer's registration scope.  ``nn.Module`` registers the
+        parameters and child links assigned to it anywhere, so this only
+        keeps model code written for the JAX package unchanged."""
+        yield
+
+    def add_persistent(self, name, value):
+        """Register ``value`` (a tensor or a number) as the persistent
+        value ``name``: a buffer, serialized with the parameters."""
+        self.register_buffer(name, torch.as_tensor(value))
+        return getattr(self, name)
 
     def namedparams(self, prefix=""):
         """``(path, parameter)`` pairs, the path in the JAX package's form:
         ``/`` + the module path with ``/`` separators."""
         for name, p in self.named_parameters():
             yield prefix + "/" + name.replace(".", "/"), p
+
+    def namedpersistent(self, prefix=""):
+        """``(path, tensor)`` pairs of the persistent values, in the JAX
+        form (``/res2/0/a/bn/avg_mean``)."""
+        for path, link in self.named_modules():
+            base = prefix + "/" + (path.replace(".", "/") + "/" if path
+                                   else "")
+            for name, buf in link._buffers.items():
+                if buf is not None \
+                        and name not in link._non_persistent_buffers_set:
+                    yield base + name, buf
 
     def params(self):
         for _, p in self.namedparams():
@@ -41,6 +84,9 @@ class Link(nn.Module):
             elif not skipself:
                 yield "/", module
 
+    def count_params(self):
+        return sum(p.numel() for p in self.params() if not is_lazy(p))
+
     def cleargrads(self):
         for p in self.params():
             p.grad = None
@@ -50,21 +96,18 @@ class Link(nn.Module):
             p.grad = torch.zeros_like(p)
 
     def serialize(self, serializer):
-        """The Chainer serializer protocol over the parameters
-        (``serializer(name, value)`` and ``serializer[child]``): a writer
-        receives host arrays, a reader's arrays are copied in place."""
-        for name, p in self._parameters.items():
-            if p is None:
-                continue
-            data = serializer(name, p.detach().cpu().numpy())
+        """The Chainer serializer protocol over the parameters and the
+        persistent values (``serializer(name, value)`` and
+        ``serializer[child]``): a writer receives host arrays, a reader's
+        arrays are copied in place."""
+        own = [(n, p) for n, p in self._parameters.items() if p is not None]
+        own += [(n, b) for n, b in self._buffers.items()
+                if b is not None and n not in self._non_persistent_buffers_set]
+        for name, value in own:
+            data = serializer(name, None if is_lazy(value)
+                              else value.detach().cpu().numpy())
             if data is not None and not serializer.is_writer:
-                data = np.asarray(data)
-                if data.shape != tuple(p.shape):
-                    raise ValueError(f"{name}: shape {data.shape} does not "
-                                     f"match the parameter's "
-                                     f"{tuple(p.shape)}")
-                with torch.no_grad():
-                    p.copy_(torch.from_numpy(np.array(data, np.float32)))
+                _copy_array(value, data, name)
         for cname, child in self._modules.items():
             if isinstance(child, Link):
                 child.serialize(serializer[cname])

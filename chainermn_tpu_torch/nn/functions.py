@@ -1,13 +1,30 @@
 """Functions on tensors (the subset of the Chainer ``F`` surface the
-serving and training slices run), with the JAX package's numerics."""
+ported slices run), with the JAX package's numerics.
+
+Convolutions and pooling take the JAX package's ``layout=`` ("NCHW" or
+"NHWC"); kernels are OIHW in both.  An NHWC activation reaches
+``torch.nn.functional`` as the NCHW view ``x.permute(0, 3, 1, 2)``, which
+is channels-last in memory, so cuDNN runs its NHWC kernels on it and the
+result is permuted back without a copy.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as TF
 
-__all__ = ["linear", "embed_id", "layer_normalization", "gelu", "softmax",
-           "log_softmax", "softmax_cross_entropy", "accuracy"]
+__all__ = ["relu", "linear", "embed_id", "layer_normalization", "gelu",
+           "softmax", "log_softmax", "softmax_cross_entropy", "accuracy",
+           "convolution_2d", "max_pooling_2d", "average_pooling_2d",
+           "global_average_pooling_2d", "batch_moments",
+           "batch_normalization", "fixed_batch_normalization"]
+
+
+def relu(x):
+    """``max(x, 0)`` as the JAX function computes it: the gradient at
+    exactly 0 is 1/2, as ``torch.maximum`` splits a tie."""
+    return torch.maximum(x, x.new_zeros(()))
 
 
 def linear(x, W, b=None, n_batch_axes=1):
@@ -84,3 +101,148 @@ def accuracy(y, t, ignore_label=None):
         correct = (pred == t) & mask
         return correct.sum() / mask.sum().clamp_min(1)
     return (pred == t).float().mean()
+
+
+# -- convolutions and pooling --------------------------------------------
+
+def _pair(v):
+    return (v, v) if np.isscalar(v) else tuple(v)
+
+
+def _spatial_dims(layout):
+    """(h_dim, w_dim, channel_dim) for a 4-D activation layout string."""
+    if layout == "NCHW":
+        return 2, 3, 1
+    if layout == "NHWC":
+        return 1, 2, 3
+    raise ValueError(f"unsupported activation layout {layout!r}")
+
+
+def _to_nchw(x, layout):
+    """The logical NCHW view torch's functions take (channels-last in
+    memory for an NHWC tensor)."""
+    _spatial_dims(layout)
+    return x.permute(0, 3, 1, 2) if layout == "NHWC" else x
+
+
+def _from_nchw(y, layout):
+    return y.permute(0, 2, 3, 1) if layout == "NHWC" else y
+
+
+def convolution_2d(x, W, b=None, stride=1, pad=0, dilate=1, groups=1,
+                   layout="NCHW"):
+    """2-D convolution, ``W`` shaped ``(out, in / groups, kh, kw)`` in
+    either activation layout.  For NHWC give ``W`` in channels-last memory
+    (``W.to(memory_format=torch.channels_last)``), or cuDNN converts it on
+    every call."""
+    y = TF.conv2d(_to_nchw(x, layout), W, b, stride=_pair(stride),
+                  padding=_pair(pad), dilation=_pair(dilate), groups=groups)
+    return _from_nchw(y, layout)
+
+
+def _pool_input(x, layout, k, pads, fill):
+    """``x`` as NCHW and the symmetric padding to hand torch's pooling.
+    Padding torch cannot express (more than half the window, or the
+    extra high-side rows of ``cover_all``) is applied here with
+    ``fill``."""
+    (kh, kw), ((ph, ph_hi), (pw, pw_hi)) = k, pads
+    xc = _to_nchw(x, layout)
+    if ph_hi != ph or pw_hi != pw or 2 * ph > kh or 2 * pw > kw:
+        return TF.pad(xc, (pw, pw_hi, ph, ph_hi), value=fill), (0, 0)
+    return xc, (ph, pw)
+
+
+def max_pooling_2d(x, ksize, stride=None, pad=0, cover_all=True,
+                   layout="NCHW"):
+    """Max pooling; ``cover_all`` pads the high side until every element
+    is covered (Chainer's output size).  The gradient goes to the first
+    maximum of each window in row-major tap order, as the JAX package's
+    ``_max_pool_argmax`` routes it (torch's kernels keep the first
+    maximum by a strict ``>``)."""
+    kh, kw = _pair(ksize)
+    sy, sx = _pair(stride if stride is not None else ksize)
+    ph, pw = _pair(pad)
+    hd, wd, _ = _spatial_dims(layout)
+    eh = ew = 0
+    if cover_all:
+        h, w = x.shape[hd], x.shape[wd]
+        eh = -(h + 2 * ph - kh) % sy if sy > 1 else 0
+        ew = -(w + 2 * pw - kw) % sx if sx > 1 else 0
+    xc, padding = _pool_input(x, layout, (kh, kw),
+                              ((ph, ph + eh), (pw, pw + ew)), float("-inf"))
+    return _from_nchw(TF.max_pool2d(xc, (kh, kw), (sy, sx), padding),
+                      layout)
+
+
+def average_pooling_2d(x, ksize, stride=None, pad=0, layout="NCHW"):
+    """Average pooling divided by the full window (padding included), in
+    ``x.dtype``."""
+    kh, kw = _pair(ksize)
+    sy, sx = _pair(stride if stride is not None else ksize)
+    ph, pw = _pair(pad)
+    xc, padding = _pool_input(x, layout, (kh, kw), ((ph, ph), (pw, pw)),
+                              0.0)
+    return _from_nchw(TF.avg_pool2d(xc, (kh, kw), (sy, sx), padding,
+                                    count_include_pad=True,
+                                    divisor_override=kh * kw), layout)
+
+
+def global_average_pooling_2d(x, layout="NCHW"):
+    """The mean over H and W, reduced in ``x.dtype`` (torch accumulates
+    a bf16 mean in fp32 and rounds once)."""
+    hd, wd, _ = _spatial_dims(layout)
+    return x.mean(dim=(hd, wd))
+
+
+# -- batch normalization -------------------------------------------------
+
+def _raw_moments(x, axis):
+    """``(E[x], E[x^2])`` over ``axis`` in fp32, in one pass over an fp32
+    copy of ``x``."""
+    x32 = x.float()
+    return x32.mean(dim=axis), (x32 * x32).mean(dim=axis)
+
+
+def _variance(mean, sq_mean):
+    """``max(E[x^2] - mean^2, 0)``: the clamp guards fp32 cancellation."""
+    return torch.maximum(sq_mean - torch.square(mean),
+                         sq_mean.new_zeros(()))
+
+
+def batch_moments(x, axis):
+    """Single-pass batch moments: fp32 mean and E[x^2] side by side,
+    ``var = max(E[x^2] - mean^2, 0)``.  Returns ``(mean, var)``."""
+    mean, sq_mean = _raw_moments(x, axis)
+    return mean, _variance(mean, sq_mean)
+
+
+def _default_axis(x, axis):
+    return (0,) + tuple(range(2, x.dim())) if axis is None else tuple(axis)
+
+
+def batch_normalization(x, gamma, beta, eps=2e-5, axis=None):
+    axis = _default_axis(x, axis)
+    mean, var = batch_moments(x, axis)
+    return _apply_bn(x, gamma, beta, mean, var, eps, axis)
+
+
+def fixed_batch_normalization(x, gamma, beta, mean, var, eps=2e-5,
+                              axis=None):
+    return _apply_bn(x, gamma, beta, mean, var, eps, _default_axis(x, axis))
+
+
+def _apply_bn(x, gamma, beta, mean, var, eps, axis):
+    """``gamma (x - mean) / sqrt(var + eps) + beta`` with the per-channel
+    scale ``a`` in fp32.  fp32 activations keep the unfolded ``(x - m) a
+    + b``, which does not cancel when ``|mean| >> std``; other dtypes fold
+    to ``x a + (beta - mean a)`` with ``a`` and the shift cast to
+    ``x.dtype``: one multiply-add over the activation, rounded once."""
+    f32 = torch.float32
+    a = gamma.to(f32) * torch.rsqrt(var.to(f32) + eps)
+    shape = [1 if d in axis else n for d, n in enumerate(x.shape)]
+    if x.dtype == f32:
+        return ((x - mean.to(f32).reshape(shape)) * a.reshape(shape)
+                + beta.to(f32).reshape(shape))
+    b = beta.to(f32) - mean.to(f32) * a
+    return torch.addcmul(b.reshape(shape).to(x.dtype), x,
+                         a.reshape(shape).to(x.dtype))

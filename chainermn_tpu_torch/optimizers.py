@@ -12,7 +12,16 @@ reference's step, one process per device:
 4. the wrapped optimizer's update rule;
 5. the loss, and every scalar the model reported during the forward,
    replaced by its mean over the ranks (one allreduce, as the JAX step
-   ``pmean``s them), without a host sync.
+   ``pmean``s them), without a host sync;
+6. the model's floating persistent values (BatchNormalization's running
+   statistics) replaced by their mean over the ranks, in one allreduce
+   of the flattened values (the JAX step ``pmean``s its persistent
+   state); integer ones (BN's ``N``) stay per rank.
+
+A model with lazy parameters (``Linear(None, out)``) gets one forward
+before its first step, whose persistent updates and reports are dropped
+(as the JAX step's), and then ``bcast_data``, so that every rank holds
+rank 0's parameters before the exchange and the rule see them.
 
 ``update()`` with no arguments is the eager path: the gradients already
 on ``Parameter.grad`` are averaged, then the rule runs.
@@ -25,6 +34,7 @@ A5), ``autotune`` (A10).
 from __future__ import annotations
 
 import torch
+from torch.nn.parameter import is_lazy
 
 from .core import reporter as reporter_module
 
@@ -107,14 +117,45 @@ class _MultiNodeOptimizer:
         if hasattr(comm, "verify_step_signature"):
             # debug communicator: agree on the batch's shapes first
             comm.verify_step_signature((args, kwargs))
-        actual.target.cleargrads()
+        target = actual.target
+        if any(is_lazy(p) for p in target.parameters()):
+            self._init_lazy(lambda: lossfun(*args, **kwargs))
+        target.cleargrads()
         loss, observation = _observed(lambda: lossfun(*args, **kwargs))
         if isinstance(loss, tuple):
             loss = loss[0]
         loss.backward()
-        comm.multi_node_mean_grad(actual.target, zero_fill=self.zero_fill)
+        comm.multi_node_mean_grad(target, zero_fill=self.zero_fill)
         actual.update()
+        self._mean_persistent()
         return self._global_means(loss, observation)
+
+    def _init_lazy(self, forward):
+        """One forward without a gradient creates the lazy parameters; the
+        persistent values it moved are put back."""
+        target = self.actual_optimizer.target
+        saved = [(b, b.clone()) for _, b in target.namedpersistent()]
+        with torch.no_grad():
+            _observed(forward)
+            for b, value in saved:
+                b.copy_(value)
+        self.communicator.bcast_data(target)
+
+    def _mean_persistent(self):
+        """Every floating persistent value replaced by its mean over the
+        ranks, in one allreduce."""
+        if self.communicator.size == 1:
+            return
+        values = [b for _, b in self.actual_optimizer.target.namedpersistent()
+                  if b.is_floating_point()]
+        if not values:
+            return
+        means = self.communicator.allreduce(
+            torch.cat([b.reshape(-1) for b in values]), op="mean")
+        with torch.no_grad():
+            torch._foreach_copy_(values, [
+                m.view_as(b) for m, b in zip(
+                    means.split([b.numel() for b in values]), values)])
 
     def _global_means(self, loss, observation):
         """The loss and the scalars reported in ``observation``, each

@@ -4,7 +4,10 @@ Both loaders are strict: a missing key, an extra key or a shape mismatch
 raises, so a partially loaded model can never run.
 
 * :func:`load_params` takes ``{path: array}`` keyed by the JAX
-  package's ``namedparams`` paths (``/blocks/0/attn/qkv/W``).
+  package's ``namedparams`` and ``namedpersistent`` paths
+  (``/blocks/0/attn/qkv/W``, ``/res2/0/a/bn/avg_mean``): parameters and
+  persistent values (BatchNormalization's running statistics and its
+  count ``N``) alike.
 * :func:`load_npz` reads the file the JAX package's ``save_npz`` writes:
   keys are the serializer paths without the leading ``/``
   (``blocks/0/attn/qkv/W``).
@@ -17,28 +20,31 @@ raises, so a partially loaded model can never run.
 from __future__ import annotations
 
 import numpy as np
-import torch
+from torch.nn.parameter import is_lazy
+
+from ..core.link import _copy_array
 
 __all__ = ["load_params", "load_npz", "load_optimizer_state"]
 
 
 def load_params(model, params):
-    """Copy ``{namedparams path: array}`` into ``model``'s parameters."""
+    """Copy ``{path: array}`` into ``model``'s parameters and persistent
+    values, each in its own dtype (a lazy parameter takes the array's
+    shape)."""
     own = dict(model.namedparams())
+    own.update(model.namedpersistent())
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:
         raise KeyError(f"parameter paths differ: missing {missing}, "
                        f"unexpected {extra}")
     for path, p in own.items():
-        arr = np.asarray(params[path])
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(f"{path}: shape {arr.shape} does not match "
+        shape = np.shape(params[path])
+        if not is_lazy(p) and shape != tuple(p.shape):
+            raise ValueError(f"{path}: shape {shape} does not match "
                              f"the model's {tuple(p.shape)}")
-    with torch.no_grad():
-        for path, p in own.items():
-            p.copy_(torch.from_numpy(np.array(params[path],
-                                              dtype=np.float32)))
+    for path, p in own.items():
+        _copy_array(p, params[path], path)
     return model
 
 

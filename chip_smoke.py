@@ -75,6 +75,28 @@ Phases, each printing one JSON line:
     through the split kernels matches the step through ``xla_attention``
     within the parity tolerance.
 
+11. train_resnet: bench.py's flagship, ``Classifier(ResNet50(n_classes=
+    1000, compute_dtype=torch.bfloat16, seed=0, layout="NHWC"))`` trained
+    data-parallel through ``Trainer`` -> ``StandardUpdater`` ->
+    ``create_multi_node_optimizer(MomentumSGD(lr=0.1, momentum=0.9))``
+    over ``create_communicator("pure_nccl", allreduce_grad_dtype=
+    "bfloat16")`` (a world of one NCCL process, one flat bucket), batch
+    64 of 224 x 224 x 3 NHWC fp32 N(0, 1) images and random labels from
+    numpy seed 0 (bench.py's data, two batches repeated), 12 steps of
+    which 2 warm up: images/s per card, MFU (bench.py's 12.3 GFLOP per
+    image), losses (finite), peak memory, the gradient allreduces (one
+    per step) and the bucket's bytes, and the cuDNN autotuner flag it ran
+    with (the package sets none); the flash kernels' counts stay 0; then
+    the same steps with ``cudnn.benchmark`` on (``train_resnet_cudnn_
+    benchmark``), and 3 profiled steps (``train_resnet_profile``: device
+    busy and idle share, the top device ops, their time by class --
+    convolution, elementwise, reduction, host copies, optimizer -- and
+    any cuDNN layout conversion);
+12. resnet_parity: the CPU tests' small fp32 ResNet (one block per stage,
+    16 x 16, batch 8, NHWC) with TF32 off: (a) a world-of-one DP step is
+    bitwise the single-card step (``cudnn.deterministic`` on for this
+    check), (b) 3 DP steps on the card match the same steps on the CPU.
+
 Then the kernels line (launches, error, times, the whole call's device
 time and bound of all five kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before the last line.  Needs one CUDA card; fails without
@@ -127,6 +149,18 @@ N_REQUESTS, N_TENANTS, SYS_PROMPT, MAX_NEW = 16, 4, 64, 32
 # training: bench.py's transformer configuration (batch 8 x T 1024, Adam
 # alpha 3e-4); 2 warm-up steps, then the timed ones
 TRAIN_BATCH, TRAIN_ROWS, TRAIN_STEPS, TRAIN_WARMUP = 8, 16, 10, 2
+# ResNet-50: bench.py's flagship (BENCH_MODEL=resnet50: bs 64 per chip,
+# 224^2, NHWC, bf16, MomentumSGD lr 0.1 momentum 0.9), cut to 12 steps (2
+# warm-up) over 2 batches
+RESNET = dict(n_classes=1000, seed=0, layout="NHWC")
+RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS, RESNET_WARMUP = 64, 224, 12, 2
+# resnet_parity: the CPU tests' small fp32 ResNet.  The card and the CPU
+# sum convolutions and batch moments in other orders; a ReLU kink crossed
+# on one side only moves a few weights (tests/test_torch_resnet.py), so
+# lr 1e-3 and: losses 1e-4 relative, parameters and statistics 1e-3
+RESNET_PARITY = dict(blocks=[1, 1, 1, 1], n_classes=10, batch=8, size=16,
+                     lr=1e-3)
+RESNET_PARITY_TOL = {"loss_rel": 1e-4, "state_abs": 1e-3}
 
 
 def fail(msg):
@@ -800,17 +834,16 @@ def train_rows():
     return rows, [(x, np.roll(x, -1)) for x in rows]
 
 
-def run_training(opt, dataset, out):
-    """``Trainer`` -> ``StandardUpdater`` -> ``opt`` for TRAIN_STEPS
-    steps of TRAIN_BATCH rows, the launch counts read around this run
-    alone: ``(updater, row)`` with the step times, tokens/s, MFU, losses,
-    peak memory and launches."""
+def timed_trainer_run(opt, dataset, batch, steps, out):
+    """``Trainer`` -> ``StandardUpdater`` -> ``opt`` for ``steps`` steps
+    of ``batch`` examples, the launch counts read around this run alone:
+    ``(updater, step_ms, losses, peak_bytes, launches)``, each step's
+    time from CUDA events recorded after it (no host sync in the loop)."""
     from chainermn_tpu_torch.dataset import SerialIterator
     from chainermn_tpu_torch.training import StandardUpdater, Trainer
-    T = MODEL["max_len"]
     updater = StandardUpdater(
-        SerialIterator(dataset, TRAIN_BATCH, shuffle=False), opt)
-    trainer = Trainer(updater, (TRAIN_STEPS, "iteration"),
+        SerialIterator(dataset, batch, shuffle=False), opt)
+    trainer = Trainer(updater, (steps, "iteration"),
                       out=os.path.join("build", out))
     losses, marks = [], []
 
@@ -831,6 +864,18 @@ def run_training(opt, dataset, out):
     launches = read_launches()
     step_ms = [start.elapsed_time(marks[0])] + [
         a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return (updater, step_ms, [float(x) for x in losses],
+            torch.cuda.max_memory_allocated(), launches)
+
+
+def run_training(opt, dataset, out):
+    """``Trainer`` -> ``StandardUpdater`` -> ``opt`` for TRAIN_STEPS
+    steps of TRAIN_BATCH rows, the launch counts read around this run
+    alone: ``(updater, row)`` with the step times, tokens/s, MFU, losses,
+    peak memory and launches."""
+    T = MODEL["max_len"]
+    updater, step_ms, losses, peak, launches = timed_trainer_run(
+        opt, dataset, TRAIN_BATCH, TRAIN_STEPS, out)
     median_ms = float(np.median(step_ms[TRAIN_WARMUP:]))
     tokens_per_s = TRAIN_BATCH * T / (median_ms * 1e-3)
     flops_tok = transformer_flops_per_token(
@@ -840,9 +885,7 @@ def run_training(opt, dataset, out):
         "step_ms": step_ms, "median_step_ms": median_ms,
         "tokens_per_s": tokens_per_s, "flops_per_token": flops_tok,
         "mfu": flops_tok * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
-        "losses": [float(x) for x in losses],
-        "peak_bytes": torch.cuda.max_memory_allocated(),
-        "launches": launches}
+        "losses": losses, "peak_bytes": peak, "launches": launches}
 
 
 def check_losses(name, losses):
@@ -852,17 +895,21 @@ def check_losses(name, losses):
         fail(f"{name}: the loss did not fall on repeated data: {losses}")
 
 
-def profile_steps(name, updater):
+def profile_steps(name, updater, top_n=12, **extra):
     """3 more steps under the profiler: wall, device busy and idle share,
-    and the top kernels by device time."""
+    and the top kernels by device time; each ``extra`` is a function of
+    the per-kernel times whose value joins the row.  Returns the row."""
     wall, busy, by_name = device_profile(
         lambda: [updater.update() for _ in range(3)])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    emit({"phase": name, "steps": 3, "wall_s": wall, "device_busy_s": busy,
-          "device_idle_share": 1.0 - busy / wall,
-          "nccl_us": sum(us for n, us in by_name.items()
-                         if "nccl" in n.lower()),
-          "top_kernels_us": [[n[:80], us] for n, us in top[:12]]})
+    row = {"phase": name, "steps": 3, "wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": 1.0 - busy / wall,
+           "nccl_us": sum(us for n, us in by_name.items()
+                          if "nccl" in n.lower()),
+           "top_kernels_us": [[n[:80], us] for n, us in top[:top_n]],
+           **{k: fn(by_name) for k, fn in extra.items()}}
+    emit(row)
+    return row
 
 
 def phase_train():
@@ -1089,6 +1136,208 @@ def phase_train_dp_parity():
         fail("the process group outlived the DP parity phase")
 
 
+def resnet50_train_flops_per_image(image_size):
+    """bench.py's analytic model: forward ~4.1 GFLOP at 224^2 (scaling
+    with the area), train = 3x forward."""
+    return 3.0 * 4.1e9 * (image_size / 224.0) ** 2
+
+
+def resnet_data():
+    """bench.py's ResNet data, cut to 2 batches: NHWC fp32 N(0, 1) images
+    and labels in [0, 1000) from numpy seed 0."""
+    from chainermn_tpu_torch.dataset import TupleDataset
+    rng = np.random.RandomState(0)
+    n = 2 * RESNET_BATCH
+    x = rng.normal(0, 1, (n, RESNET_IMAGE, RESNET_IMAGE, 3)).astype(
+        np.float32)
+    return TupleDataset(x, rng.randint(0, 1000, n).astype(np.int32))
+
+
+#: cuDNN's layout-conversion kernels: none may run on the NHWC path
+LAYOUT_CONVERSIONS = ("nchwToNhwc", "nhwcToNchw")
+#: classes of the ResNet step's device ops, by the first pattern its
+#: name matches (case-insensitive); the rest is "other"
+OP_CLASSES = [("optimizer", r"multi_tensor_apply"),
+              ("host_copy", r"^memcpy|^memset"),
+              ("reduction", r"reduce_kernel"),
+              ("elementwise", r"elementwise|copy_kern|direct_copy"),
+              ("nccl", r"nccl"),
+              ("convolution", r"conv|xmma|cudnn|sm\d\d_|implicit|gemm|"
+                              r"nvjet|cutlass|wgrad|dgrad|fprop")]
+
+
+def op_class(name):
+    return next((c for c, pat in OP_CLASSES
+                 if re.search(pat, name, re.IGNORECASE)), "other")
+
+
+def op_classes_us(by_name):
+    """Device microseconds per OP_CLASSES class (sums over the run)."""
+    out = {name: 0.0 for name, _ in OP_CLASSES}
+    out["other"] = 0.0
+    for n, us in by_name.items():
+        out[op_class(n)] += us
+    return out
+
+
+def phase_train_resnet():
+    """bench.py's ResNet-50 step, data-parallel over a world of one NCCL
+    process with the bf16 flat bucket, through Trainer/StandardUpdater."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     scatter_dataset)
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import Classifier, ResNet50
+    comm = create_communicator("pure_nccl", allreduce_grad_dtype="bfloat16")
+    benchmark = torch.backends.cudnn.benchmark
+    try:
+        model = Classifier(ResNet50(compute_dtype=torch.bfloat16,
+                                    device="cuda", **RESNET))
+        comm.bcast_data(model)
+        opt = create_multi_node_optimizer(
+            MomentumSGD(lr=0.1, momentum=0.9), comm).setup(model)
+        shard = scatter_dataset(resnet_data(), comm)
+        buckets = comm.grad_buckets_for(model)
+        n_params = sum(p.numel() for p in model.parameters())
+        comm.calls.clear()
+        updater, step_ms, losses, peak, launches = timed_trainer_run(
+            opt, shard, RESNET_BATCH, RESNET_STEPS, "chip_smoke_resnet")
+        median_ms = float(np.median(step_ms[RESNET_WARMUP:]))
+        images_per_s = RESNET_BATCH / (median_ms * 1e-3)
+        flops = resnet50_train_flops_per_image(RESNET_IMAGE)
+        row = {
+            "phase": "train_resnet", "model": "ResNet50", **RESNET,
+            "compute_dtype": "bfloat16", "batch": RESNET_BATCH,
+            "image": RESNET_IMAGE, "steps": RESNET_STEPS,
+            "step_ms": step_ms, "median_step_ms": median_ms,
+            "images_per_s": images_per_s, "flops_per_image": flops,
+            "mfu": flops * images_per_s / PEAK_FLOPS[torch.bfloat16],
+            "losses": losses, "peak_bytes": peak, "launches": launches,
+            "cudnn_benchmark": benchmark,
+            "communicator": comm.name, "world": comm.size,
+            "backend": dist.get_backend(),
+            "wire_dtype": str(comm.allreduce_grad_dtype),
+            "buckets": len(buckets), "bucket_bytes": 2 * n_params,
+            "params": n_params,
+            "grad_allreduces": comm.calls["allreduce_grad"],
+            "collectives": dict(comm.calls)}
+        emit(row)
+        # the same steps with the cuDNN autotuner on (a reading, not the
+        # phase's configuration)
+        torch.backends.cudnn.benchmark = True
+        _, bench_ms, bench_losses, _, _ = timed_trainer_run(
+            opt, shard, RESNET_BATCH, RESNET_STEPS, "chip_smoke_resnet_b")
+        bench_median = float(np.median(bench_ms[RESNET_WARMUP:]))
+        emit({"phase": "train_resnet_cudnn_benchmark", "step_ms": bench_ms,
+              "median_step_ms": bench_median,
+              "images_per_s": RESNET_BATCH / (bench_median * 1e-3),
+              "losses": bench_losses})
+        torch.backends.cudnn.benchmark = benchmark
+        prof = profile_steps(
+            "train_resnet_profile", updater, top_n=15,
+            layout_conversions_us=lambda by_name: sum(
+                us for n, us in by_name.items()
+                if any(c in n for c in LAYOUT_CONVERSIONS)),
+            classes_us=op_classes_us,
+            conv_and_other_top_us=lambda by_name: sorted(
+                ([n[:80], us] for n, us in by_name.items()
+                 if op_class(n) in ("convolution", "other")),
+                key=lambda kv: -kv[1])[:8])
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+        comm.finalize()
+    if not all(np.isfinite(losses + bench_losses)) \
+            or len(losses) != RESNET_STEPS:
+        fail(f"ResNet-50 losses {losses}, {bench_losses}")
+    if launches != expected_launches():
+        fail(f"the ResNet-50 step launched flash kernels: {launches}")
+    if len(buckets) != 1 or row["grad_allreduces"] != RESNET_STEPS \
+            or comm.allreduce_grad_dtype != torch.bfloat16:
+        fail(f"expected one flat bf16 gradient allreduce per step: "
+             f"{len(buckets)} buckets, {row['grad_allreduces']} allreduces "
+             f"over {RESNET_STEPS} steps, wire {comm.allreduce_grad_dtype}")
+    if prof["device_busy_s"] <= 0 or not prof["classes_us"]["convolution"]:
+        fail(f"the profiled ResNet-50 steps ran no convolution on the card: "
+             f"{prof['classes_us']}")
+    if dist.is_initialized():
+        fail("the process group outlived the ResNet-50 phase")
+    return row
+
+
+def resnet_parity_run(device, data_parallel, comm=None):
+    """RESNET_PARITY's model for 3 MomentumSGD steps on ``device``, plain
+    or through ``create_multi_node_optimizer(.., comm)``: (losses, state
+    on the host)."""
+    from chainermn_tpu_torch import create_multi_node_optimizer
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import Classifier, ResNet
+    cfg = RESNET_PARITY
+    model = Classifier(ResNet(cfg["blocks"], n_classes=cfg["n_classes"],
+                              seed=0, layout="NHWC", device=device))
+    opt = MomentumSGD(lr=cfg["lr"], momentum=0.9)
+    if data_parallel:
+        opt = create_multi_node_optimizer(opt, comm)
+    opt.setup(model)
+    rng = np.random.RandomState(4)
+    losses = []
+    for _ in range(3):
+        x = rng.normal(0, 1, (cfg["batch"], cfg["size"], cfg["size"], 3))
+        t = rng.randint(0, cfg["n_classes"], cfg["batch"])
+        losses.append(opt.update(
+            model, torch.from_numpy(x.astype(np.float32)).to(device),
+            torch.from_numpy(t).to(device)).item())
+    state = {p: v.detach().cpu() for p, v in model.namedparams()}
+    state.update((p, v.cpu()) for p, v in model.namedpersistent())
+    return losses, state
+
+
+def phase_resnet_parity():
+    """(a) a world-of-one DP step of the small fp32 ResNet is bitwise the
+    single-card step (cudnn.deterministic on for it); (b) 3 DP steps on
+    the card match 3 steps on the CPU within RESNET_PARITY_TOL.  TF32 is
+    off for this phase and restored after it."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm = create_communicator("pure_nccl")
+    try:
+        torch.backends.cudnn.deterministic = True
+        single = resnet_parity_run("cuda", False)
+        dp = resnet_parity_run("cuda", True, comm)
+        torch.backends.cudnn.deterministic = flags[2]
+        a_equal = single[0] == dp[0] and all(
+            torch.equal(v, single[1][p]) for p, v in dp[1].items())
+        card = resnet_parity_run("cuda", True, comm)
+        cpu = resnet_parity_run("cpu", False)
+        calls = dict(comm.calls)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+        comm.finalize()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    state_err = max((card[1][p] - v).abs().max().item()
+                    for p, v in cpu[1].items())
+    row = {"phase": "resnet_parity", "a_bitwise_equal": a_equal,
+           "losses": card[0], "cpu_losses": cpu[0],
+           "b_loss_rel_err": loss_err, "b_state_abs_err": state_err,
+           "tol": RESNET_PARITY_TOL, "collectives": calls,
+           "tf32_restored": (torch.backends.cudnn.allow_tf32,
+                             torch.backends.cuda.matmul.allow_tf32)}
+    emit(row)
+    if not (a_equal and loss_err < RESNET_PARITY_TOL["loss_rel"]
+            and state_err < RESNET_PARITY_TOL["state_abs"]
+            and sorted(card[1]) == sorted(cpu[1])):
+        fail(f"the small ResNet on the card leaves its references: {row}")
+    if dist.is_initialized():
+        fail("the process group outlived the ResNet parity phase")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -1139,6 +1388,10 @@ def main():
     dp_launches, _ = phase_train_dp()
     phase_train_parity()
     phase_train_dp_parity()
+    torch.cuda.empty_cache()
+    phase_train_resnet()
+    torch.cuda.empty_cache()
+    phase_resnet_parity()
 
     main_check = next(c for c in checks
                       if c["B"] == 1 and c["T"] == 1024 and c["causal"])

@@ -2,8 +2,9 @@
 the no-grad forward (``_flash_kernel``), the lse forward
 (``_flash_kernel_lse``), the fused backward (``_flash_bwd_fused_kernel``)
 and the split backward's dq and dk/dv passes (``_flash_bwd_dq_kernel``,
-``_flash_bwd_dkv_kernel``); and the gradient exchange over NCCL in a
-world of one process.
+``_flash_bwd_dkv_kernel``); the gradient exchange over NCCL in a world of
+one process; and the ResNet path's cuDNN layout and its fp32 step against
+the CPU's.
 
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -537,3 +538,69 @@ def test_delta_pass_and_dq_epilogue_match_plain(cuda_device, dtype, D):
         acc, dq, _, _ = fa._fused_bwd(q, k, v, o, lse, g, True, s, g_lse)
         assert dq.dtype == dtype
         assert torch.equal(dq, (acc * s).to(dtype))
+
+
+@pytest.mark.gpu
+def test_nhwc_convolution_and_pooling_stay_channels_last(cuda_device):
+    """An NHWC bf16 convolution (the link casts its fp32 kernel to bf16
+    channels-last in one copy) and max pooling return NHWC-contiguous
+    tensors, and cuDNN converts no layout on the way."""
+    from torch.profiler import ProfilerActivity, profile
+    from chainermn_tpu_torch.nn import functions as F
+    from chainermn_tpu_torch.nn import links as L
+    conv = L.Convolution2D(64, 128, 3, pad=1, nobias=True, seed=0,
+                           layout="NHWC", device=cuda_device)
+    x = torch.randn(8, 28, 28, 64, device=cuda_device).bfloat16()
+    conv(x)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = conv(x)
+        z = F.max_pooling_2d(y, 3, stride=2, pad=1, cover_all=False,
+                             layout="NHWC")
+        torch.cuda.synchronize()
+    assert y.shape == (8, 28, 28, 128) and y.is_contiguous()
+    assert z.shape == (8, 14, 14, 128) and z.is_contiguous()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and not [n for n in names
+                          if "nchwToNhwc" in n or "nhwcToNchw" in n], names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["NHWC", "NCHW"])
+def test_resnet_fp32_steps_on_the_card_match_the_cpu(cuda_device, layout):
+    """The small fp32 ResNet of the CPU tests, 3 ``MomentumSGD`` steps on
+    the card with TF32 off against the same steps on the CPU.  Tolerances
+    as the data-parallel tests against the JAX package (lr 1e-3, so that
+    a ReLU kink crossed on one side only stays inside them): losses 1e-4
+    relative, parameters and running statistics 1e-3 absolute."""
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import Classifier, ResNet
+    rng = np.random.RandomState(4)
+    shape = (8, 16, 16, 3) if layout == "NHWC" else (8, 3, 16, 16)
+    batches = [(rng.normal(0, 1, shape).astype(np.float32),
+                rng.randint(0, 10, 8)) for _ in range(3)]
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = []
+        for device in (cuda_device, torch.device("cpu")):
+            model = Classifier(ResNet([1, 1, 1, 1], n_classes=10, seed=0,
+                                      layout=layout, device=device))
+            opt = MomentumSGD(lr=1e-3, momentum=0.9).setup(model)
+            losses = [opt.update(model, torch.from_numpy(x).to(device),
+                                 torch.from_numpy(t).to(device)).item()
+                      for x, t in batches]
+            state = {p: v.detach().cpu() for p, v in model.namedparams()}
+            state.update((p, v.cpu()) for p, v in model.namedpersistent())
+            runs.append((losses, state))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    (losses, state), (ref_losses, ref_state) = runs
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-4)
+    assert sorted(state) == sorted(ref_state)
+    for p, v in ref_state.items():
+        np.testing.assert_allclose(state[p].numpy(), v.numpy(), rtol=0,
+                                   atol=1e-3, err_msg=p)
