@@ -16,19 +16,25 @@ ChainerMN's data-parallel step, one process per device over
 Attention runs on the flash kernels (:mod:`.ops.flash_attention`).  The
 same step trains :class:`~.models.ResNet50` (convolutions on cuDNN,
 pooling and batch norm in plain PyTorch) and ``Classifier(MLP)``, with
-sync batch norm from :mod:`.links`.
+sync batch norm from :mod:`.links`.  The training loop has the
+reference's extensions (:mod:`.training.extensions`), the multi-node
+evaluator and observation aggregator, npz snapshots that move between
+the two packages (:mod:`.serializers`), the differentiable collectives
+(:mod:`.functions`), and the double-buffered, reduce-scatter and ZeRO-1
+exchanges of :func:`create_multi_node_optimizer`.
 """
 
-from . import links
+from . import functions, links
 from ._device import resolve_device
 from .communicators import create_communicator
 from .datasets import (create_empty_dataset, get_n_iterations_for_one_epoch,
                        scatter_dataset, scatter_index)
+from .evaluators import create_multi_node_evaluator
 from .iterators import create_multi_node_iterator, create_synchronized_iterator
 from .optimizers import create_multi_node_optimizer
 
-__all__ = ["links", "resolve_device", "create_communicator",
-           "create_multi_node_optimizer", "scatter_dataset",
+__all__ = ["functions", "links", "resolve_device", "create_communicator",
+           "create_multi_node_optimizer", "create_multi_node_evaluator", "scatter_dataset",
            "create_empty_dataset", "scatter_index",
            "get_n_iterations_for_one_epoch", "create_multi_node_iterator",
            "create_synchronized_iterator"]

@@ -2,7 +2,9 @@
 
 The port of the pure parts of ``chainermn_tpu.communicators._memory_utility``:
 :func:`tree_pack`/:func:`tree_unpack`, :func:`plan_buckets`,
-:func:`resolve_grad_dtype` and :func:`pack_params`/:func:`unpack_params`.
+:func:`resolve_grad_dtype`, :func:`pack_params`/:func:`unpack_params`
+and the sharded update's flat layout (:func:`padded_length`,
+:func:`chunk_bounds`).
 A "tree" here is a sequence of tensors (the port's gradients are
 ``Parameter.grad`` tensors, not a pytree).  The quantized and striped
 helpers wait for ROADMAP A10.
@@ -15,7 +17,7 @@ import torch
 
 __all__ = ["pack_params", "unpack_params", "tree_pack", "tree_unpack",
            "plan_buckets", "resolve_grad_dtype", "is_quantized_dtype",
-           "DEFAULT_BUCKET_MB"]
+           "padded_length", "chunk_bounds", "DEFAULT_BUCKET_MB"]
 
 #: default bucket bound (MB) for the bucketed exchange, as in the JAX
 #: package (``CHAINERMN_TPU_BUCKET_MB`` overrides)
@@ -115,3 +117,16 @@ def pack_params(params, attr="grad", dtype=None):
 def unpack_params(params, flat, spec, attr="grad"):
     for p, a in zip(params, tree_unpack(flat, spec)):
         setattr(p, attr, a)
+
+
+def padded_length(n, size):
+    """The sharded update's flat length: ``n`` rounded up to a multiple
+    of ``size`` (``n_pad = ceil(n / size) * size``, the JAX layout)."""
+    return -(-n // size) * size
+
+
+def chunk_bounds(n_pad, size, rank):
+    """``[start, stop)`` of the flat vector that ``rank`` owns:
+    ``[rank * n_pad / size, (rank + 1) * n_pad / size)``."""
+    chunk = n_pad // size
+    return rank * chunk, (rank + 1) * chunk

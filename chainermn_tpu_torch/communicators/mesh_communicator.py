@@ -18,6 +18,14 @@ JAX package flattens its params tree, so that ``batch_collectives``
 the same buckets as there.  All three give bitwise-equal gradients: the
 sum is elementwise, packing changes the schedule, not the math.
 
+The sharded update (``zero_sharding`` and ``exchange="reduce_scatter"``)
+exchanges one flat padded vector instead: :meth:`MeshCommunicator.
+reduce_scatter_grad` (``reduce_scatter_tensor``, each rank keeping its
+chunk) and :meth:`MeshCommunicator.allgather_flat`
+(``all_gather_into_tensor``); the double-buffered exchange launches its
+allreduce on the backend's stream (:meth:`MeshCommunicator.
+allreduce_grad_async`) and is waited for one step later.
+
 Not ported yet (they raise ``NotImplementedError``): the quantized wires,
 ``stripe_ratio``, the hierarchical schedule and ``autotune`` (ROADMAP
 A10), and the elastic subclass (A11).
@@ -41,7 +49,7 @@ from ._memory_utility import (DEFAULT_BUCKET_MB, is_quantized_dtype,
                               tree_unpack)
 from .communicator_base import CommunicatorBase
 
-__all__ = ["MeshCommunicator", "ElasticMeshCommunicator"]
+__all__ = ["MeshCommunicator", "ElasticMeshCommunicator", "PendingExchange"]
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
                "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
@@ -55,6 +63,21 @@ def _tree_add(a, b):
     if isinstance(a, (list, tuple)):
         return type(a)(_tree_add(x, y) for x, y in zip(a, b))
     return a + b
+
+
+class PendingExchange:
+    """A gradient exchange in flight.  :meth:`wait` makes the current
+    stream wait for the collective (a failure raises here) and returns
+    its result; it is called once."""
+
+    def __init__(self, work, finish):
+        self._work = work
+        self._finish = finish
+
+    def wait(self):
+        if self._work is not None:
+            self._work.wait()
+        return self._finish()
 
 
 class MeshCommunicator(CommunicatorBase):
@@ -366,6 +389,54 @@ class MeshCommunicator(CommunicatorBase):
             for p, g in zip(leaves, out):
                 if g is not p.grad:
                     p.grad = g.to(p.dtype)
+
+    # -- the sharded update's flat exchange ---------------------------------------
+    def reduce_scatter_grad(self, flat, async_op=False):
+        """Start the mean of every rank's flat gradient ``flat`` (fp32,
+        its length a multiple of ``size``) over the ranks, scattered:
+        this rank receives its chunk (:func:`chunk_bounds`).  The wire
+        is ``allreduce_grad_dtype`` (``flat`` is cast to it, as the
+        allreduce path casts); the chunk is summed, cast back to fp32
+        and divided by ``size``, as the JAX package's sharded update
+        does.  Returns a :class:`PendingExchange`; with ``async_op``
+        the collective runs on the backend's stream until its
+        ``wait()``."""
+        if flat.numel() % self.size:
+            raise ValueError(f"flat length {flat.numel()} is not a "
+                             f"multiple of the size {self.size}")
+        dtype = self.allreduce_grad_dtype
+        wire = flat if dtype is None else flat.to(dtype)
+        out = torch.empty(flat.numel() // self.size, dtype=wire.dtype,
+                          device=wire.device)
+        work = dist.reduce_scatter_tensor(out, wire, dist.ReduceOp.SUM,
+                                          group=self.group,
+                                          async_op=async_op)
+        self.calls["reduce_scatter_grad"] += 1
+        size = self.size
+        return PendingExchange(
+            work, lambda: out.to(flat.dtype).div_(size))
+
+    def allgather_flat(self, chunk):
+        """Every rank's ``chunk``, concatenated in rank order (the
+        sharded update's parameters, rebuilt)."""
+        out = torch.empty(chunk.numel() * self.size, dtype=chunk.dtype,
+                          device=chunk.device)
+        dist.all_gather_into_tensor(out, chunk.contiguous(),
+                                    group=self.group)
+        self.calls["allgather_flat"] += 1
+        return out
+
+    def allreduce_grad_async(self, flat):
+        """Start the mean of every rank's ``flat`` (already in the wire
+        dtype) over the ranks in place, on the backend's stream: the
+        double-buffered exchange.  ``wait()`` on the returned
+        :class:`PendingExchange` divides by ``size`` (in the wire dtype,
+        as :meth:`multi_node_mean_grad`) and returns ``flat``."""
+        work = dist.all_reduce(flat, dist.ReduceOp.SUM, group=self.group,
+                               async_op=True)
+        self.calls["allreduce_grad"] += 1
+        size = self.size
+        return PendingExchange(work, lambda: flat.div_(size))
 
     # -- topology manipulation ---------------------------------------------------
     def split(self, color, key):

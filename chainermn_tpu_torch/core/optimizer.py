@@ -43,16 +43,26 @@ __all__ = ["Optimizer", "GradientMethod", "SGD", "MomentumSGD", "Adam",
 # ---------------------------------------------------------------------------
 
 class _Hook:
-    """``hook(params, grads) -> grads`` over lists of tensors."""
+    """``hook(params, grads) -> grads`` over lists of tensors.
+
+    Under ``zero_sharding`` (and ``exchange="reduce_scatter"``) a hook
+    sees only this rank's chunk of the flat parameter and gradient
+    vectors.  An elementwise hook declares ``chunk_local = True`` and
+    runs on the chunk unchanged; a hook that needs statistics of the
+    whole gradient provides ``sharded(communicator)``, the hook to run
+    on a chunk instead (``GradientClipping``); any other hook is refused
+    there (``ValueError``)."""
 
     name = "Hook"
     timing = "pre"
+    chunk_local = False
 
 
 class WeightDecay(_Hook):
     """L2 decay added to gradients (``optax.add_decayed_weights``)."""
 
     name = "WeightDecay"
+    chunk_local = True
 
     def __init__(self, rate):
         self.rate = rate
@@ -63,6 +73,7 @@ class WeightDecay(_Hook):
 
 class Lasso(_Hook):
     name = "Lasso"
+    chunk_local = True
 
     def __init__(self, rate):
         self.rate = rate
@@ -86,9 +97,27 @@ class GradientClipping(_Hook):
         return [torch.where(keep, g, (g / norm) * self.threshold)
                 for g in grads]
 
+    def sharded(self, communicator):
+        """The hook on one rank's chunk of the flat gradient: the global
+        norm is the square root of the allreduced sum of each chunk's
+        squares (the padding is zero), and the gradients are scaled by
+        ``min(1, threshold / max(norm, 1e-16))``, as the JAX package's
+        ``to_optax_sharded``."""
+        threshold = self.threshold
+
+        def clip(params, grads):
+            sq = sum(torch.sum(g * g) for g in grads)
+            norm = torch.sqrt(communicator.allreduce(sq.reshape(1))[0])
+            scale = torch.clamp(threshold / torch.clamp(norm, min=1e-16),
+                                max=1.0)
+            return [g * scale for g in grads]
+
+        return clip
+
 
 class GradientHardClipping(_Hook):
     name = "GradientHardClipping"
+    chunk_local = True
 
     def __init__(self, lower_bound, upper_bound):
         self.lower_bound = lower_bound
@@ -100,6 +129,7 @@ class GradientHardClipping(_Hook):
 
 class GradientScaling(_Hook):
     name = "GradientScaling"
+    chunk_local = True
 
     def __init__(self, rate):
         self.rate = rate
@@ -136,6 +166,9 @@ class Optimizer:
         self.epoch = 0
         self._hooks = OrderedDict()
         self._state = {}
+        # the JAX optimizer's per-step PRNG key, kept as loaded so that a
+        # snapshot passes it on (the port has no stochastic layer yet)
+        self._rng_key = None
 
     # -- lifecycle ---------------------------------------------------------
     def setup(self, link):
@@ -188,12 +221,18 @@ class Optimizer:
                  if p.grad is not None]
         if not named:
             return
-        params = [p for _, p in named]
+        self._apply_to([path for path, _ in named], [p for _, p in named],
+                       [p.grad for _, p in named])
+
+    def _apply_to(self, paths, params, grads, hooks=None):
+        """Hooks (``hooks``, else the registered ones), the rule and the
+        move, in place on ``params`` with the state kept under
+        ``paths``."""
         with torch.no_grad():
-            grads = [p.grad for p in params]
-            for hook in self._hooks.values():
+            for hook in (self._hooks.values() if hooks is None else hooks):
                 grads = hook(params, grads)
-            states = [self._slot_state(path, p) for path, p in named]
+            states = [self._slot_state(path, p)
+                      for path, p in zip(paths, params)]
             for st in states:
                 st["count"] += 1
             upd = torch._foreach_mul(self._rule(params, grads, states),
@@ -264,26 +303,44 @@ class Optimizer:
 
     def serialize(self, serializer):
         """Chainer serializer protocol, in the JAX optimizer's keys:
-        ``target/...``, ``t``, ``epoch``, ``opt_state_len`` and
-        ``opt_state_<i>``."""
+        ``target/...``, ``t``, ``epoch``, ``rng_key`` (when a snapshot
+        brought one), ``opt_state_len`` and ``opt_state_<i>``."""
+        self.serialize_with(
+            serializer,
+            lambda: self.state_leaves() if self._state else None,
+            self.load_state_leaves)
+
+    def serialize_with(self, serializer, save_leaves, load_leaves):
+        """:meth:`serialize` with the state's leaves written from
+        ``save_leaves()`` (``None``: no state yet) and read into
+        ``load_leaves(leaves)``: the multi-node wrapper passes its flat
+        layout here."""
         if self.target is not None:
             self.target.serialize(serializer["target"])
         self.t = int(serializer("t", self.t))
         self.epoch = int(serializer("epoch", self.epoch))
         if serializer.is_writer:
-            if self._state:
-                leaves = self.state_leaves()
+            if self._rng_key is not None:
+                serializer("rng_key", self._rng_key)
+            leaves = save_leaves()
+            if leaves is not None:
                 serializer("opt_state_len", len(leaves))
                 for i, leaf in enumerate(leaves):
                     serializer(f"opt_state_{i}", leaf)
             return
         try:
+            key = serializer("rng_key", None)
+        except KeyError:  # written by the port before any load
+            key = None
+        if key is not None and np.asarray(key).size:
+            self._rng_key = np.asarray(key, np.uint32)
+        try:
             n = serializer("opt_state_len", None)
         except KeyError:  # saved before the first update
             n = None
         if n is not None and self.target is not None:
-            self.load_state_leaves([serializer(f"opt_state_{i}", None)
-                                    for i in range(int(n))])
+            load_leaves([serializer(f"opt_state_{i}", None)
+                         for i in range(int(n))])
 
 
 class GradientMethod(Optimizer):

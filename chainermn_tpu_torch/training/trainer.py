@@ -4,9 +4,11 @@ The port of ``chainermn_tpu.training.trainer``: runs the updater until
 ``stop_trigger`` fires, each iteration inside a fresh ``Reporter``
 observation scope in which the optimizer targets are registered as
 ``main`` (so the model's ``report({"loss": ...}, self)`` lands as
-``main/loss``), then calls the registered extensions by priority.
-The extensions themselves (``LogReport`` and the rest), failure recovery
-and trace export are not ported yet (ROADMAP A4, A12).
+``main/loss``), then calls the registered extensions by priority: each
+extension's ``initialize(trainer)`` once before the first iteration
+(and so again in a trainer that resumes from a snapshot), its
+``finalize()`` once at the end.  Failure recovery and trace export are
+not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -19,12 +21,53 @@ import time
 from ..core import reporter as reporter_module
 from .triggers import get_trigger
 
-__all__ = ["Trainer", "PRIORITY_WRITER", "PRIORITY_EDITOR",
-           "PRIORITY_READER"]
+__all__ = ["Trainer", "Extension", "make_extension",
+           "PRIORITY_WRITER", "PRIORITY_EDITOR", "PRIORITY_READER"]
 
 PRIORITY_WRITER = 300
 PRIORITY_EDITOR = 200
 PRIORITY_READER = 100
+
+
+class Extension:
+    """Base extension (reference: ``chainer/training/extension.py``)."""
+
+    trigger = (1, "iteration")
+    priority = PRIORITY_READER
+    name = None
+
+    @property
+    def default_name(self):
+        return type(self).__name__
+
+    def __call__(self, trainer):
+        raise NotImplementedError
+
+    def initialize(self, trainer):
+        pass
+
+    def finalize(self):
+        pass
+
+    def on_error(self, trainer, exc, tb):
+        pass
+
+    def serialize(self, serializer):
+        pass
+
+
+def make_extension(trigger=(1, "iteration"), default_name=None,
+                   priority=PRIORITY_READER, initializer=None):
+    """Decorator giving a function the extension attributes."""
+    def decorator(ext):
+        ext.trigger = trigger
+        ext.default_name = default_name or getattr(ext, "__name__",
+                                                   "extension")
+        ext.priority = priority
+        if initializer is not None:
+            ext.initialize = initializer
+        return ext
+    return decorator
 
 
 class _ExtensionEntry:
@@ -52,12 +95,17 @@ class Trainer:
                 name, optimizer.target.namedlinks(skipself=True))
         self._extensions = collections.OrderedDict()
         self._start_at = None
+        self._snapshot_elapsed_time = 0.0
         self._done = False
         updater.connect_trainer(self)
 
     @property
     def elapsed_time(self):
-        return 0.0 if self._start_at is None else time.time() - self._start_at
+        """Seconds of training, those of the run a snapshot resumed
+        included."""
+        if self._start_at is None:
+            return self._snapshot_elapsed_time
+        return time.time() - self._start_at + self._snapshot_elapsed_time
 
     def extend(self, extension, name=None, trigger=None, priority=None,
                call_before_training=False):
@@ -126,6 +174,9 @@ class Trainer:
             self._done = True
 
     def serialize(self, serializer):
+        """The JAX trainer's keys: ``updater/...``, ``stop_trigger/...``,
+        ``extensions/<name>/...``, ``extension_triggers/<name>/...`` and
+        ``_snapshot_elapsed_time``."""
         self.updater.serialize(serializer["updater"])
         if hasattr(self.stop_trigger, "serialize"):
             self.stop_trigger.serialize(serializer["stop_trigger"])
@@ -136,3 +187,8 @@ class Trainer:
                 entry.extension.serialize(s[name])
             if hasattr(entry.trigger, "serialize"):
                 entry.trigger.serialize(t[name])
+        if serializer.is_writer:
+            serializer("_snapshot_elapsed_time", self.elapsed_time)
+        else:
+            self._snapshot_elapsed_time = float(
+                serializer("_snapshot_elapsed_time", 0.0))

@@ -91,11 +91,41 @@ Phases, each printing one JSON line:
     benchmark``), and 3 profiled steps (``train_resnet_profile``: device
     busy and idle share, the top device ops, their time by class --
     convolution, elementwise, reduction, host copies, optimizer -- and
-    any cuDNN layout conversion);
+    any cuDNN layout conversion), and ``train_resnet_parts``: the device
+    time of one step's gradient exchange and of its update, each timed
+    alone by CUDA events while a spin kernel holds the queue back
+    (``queued_device_ms``);
 12. resnet_parity: the CPU tests' small fp32 ResNet (one block per stage,
     16 x 16, batch 8, NHWC) with TF32 off: (a) a world-of-one DP step is
     bitwise the single-card step (``cudnn.deterministic`` on for this
-    check), (b) 3 DP steps on the card match the same steps on the CPU.
+    check), (b) 3 DP steps on the card match the same steps on the CPU;
+13. train_resnet_db, train_resnet_rs, train_resnet_zero: ``train_resnet``'s
+    step with only the exchange changed -- ``double_buffering=True``,
+    ``exchange="reduce_scatter"``, ``zero_sharding=True`` -- each run
+    twice, in turns around a second run of the plain exchange
+    (``train_resnet_plain``), each with
+    images/s, MFU, losses, peak memory and the collectives, 3 profiled
+    steps (device idle share), the device time of the exchange and of
+    the update (the sharded ones: chunk rule, all-gather and unpack),
+    and ``train_resnet``'s numbers from this call beside them; the
+    double-buffered one also lists the streams its NCCL kernels and its
+    compute kernels ran on;
+14. exchange_parity: the small fp32 ResNet of phase 12 with each exchange:
+    (a) at a world of one the reduce-scatter and ZeRO runs are bitwise
+    the plain DP run and the double-buffered run's parameters after
+    step 2 are bitwise the plain run's after step 1
+    (``cudnn.deterministic`` on), (b) each exchange's 3 steps on the card
+    match the same exchange's 3 steps on the CPU (a gloo group beside
+    the NCCL world) within phase 12's tolerances;
+15. train_mnist: ``python -m chainermn_tpu_torch.examples.train_mnist``'s
+    trainer at its defaults (-b 100 -u 100, synthetic MNIST 6000/1000)
+    for 2 epochs with a snapshot after epoch 1; a fresh trainer loads
+    that snapshot and runs epoch 2, whose log entry must equal the
+    uninterrupted run's (bitwise); the wall time per epoch and the last
+    log entry;
+16. train_mnist_dp: the data-parallel twin's trainer (NCCL, a world of
+    one) with ``create_multi_node_evaluator`` and an
+    ``ObservationAggregator`` for 1 epoch; its last log entry.
 
 Then the kernels line (launches, error, times, the whole call's device
 time and bound of all five kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
@@ -1244,6 +1274,8 @@ def phase_train_resnet():
                 ([n[:80], us] for n, us in by_name.items()
                  if op_class(n) in ("convolution", "other")),
                 key=lambda kv: -kv[1])[:8])
+        emit({"phase": "train_resnet_parts",
+              **exchange_parts(opt, model, shard)})
     finally:
         torch.backends.cudnn.benchmark = benchmark
         comm.finalize()
@@ -1262,13 +1294,163 @@ def phase_train_resnet():
              f"{prof['classes_us']}")
     if dist.is_initialized():
         fail("the process group outlived the ResNet-50 phase")
+    return {**row, "device_idle_share": prof["device_idle_share"]}
+
+
+def queued_device_ms(fn, spin_cycles=int(1e8)):
+    """``fn``'s time on the card with its launches queued behind a spin
+    kernel (~50 ms), so that its kernels run back to back whatever the
+    host's speed: CUDA events around ``fn``, recorded while the card
+    spins.  Returns ``(ms, host_ms, fn's result)``; ``host_ms``, the
+    host's time to enqueue ``fn``, must stay below the spin for the
+    reading to hold."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), host_ms, out
+
+
+def exchange_parts(opt, model, shard):
+    """The device time of one step's gradient exchange and of its
+    update, on the gradients of one batch (each part once untimed
+    first): ``opt._exchange`` (plain: cast, pack, allreduce, divide,
+    unpack; double-buffered: pack, launch, wait for the previous step's
+    exchange and unpack it; sharded: pack, reduce-scatter, cast, divide)
+    and ``opt._apply_update`` (the rule; sharded: pack the parameters,
+    the rule on the chunk, all-gather, unpack)."""
+    from chainermn_tpu_torch.dataset import concat_examples
+    x, t = concat_examples([shard[i] for i in range(RESNET_BATCH)], "cuda")
+    model.cleargrads()
+    grads = opt._gradients(model(x, t))
+    opt._apply_update(opt._exchange(grads))
+    ex_ms, ex_host, exchanged = queued_device_ms(lambda: opt._exchange(grads))
+    up_ms, up_host, _ = queued_device_ms(lambda: opt._apply_update(exchanged))
+    if max(ex_host, up_host) > 40:
+        fail(f"enqueueing a part took {ex_host}, {up_host} ms: the spin "
+             "no longer covers it")
+    return {"exchange_device_ms": ex_ms, "update_device_ms": up_ms,
+            "exchange_host_ms": ex_host, "update_host_ms": up_host}
+
+
+def kernel_streams(fn):
+    """The CUDA streams the kernels of ``fn`` ran on, from the profiler's
+    trace: ``{"nccl": [...], "other": [...]}`` (NCCL's kernels by name)
+    and the number of NCCL kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join("build", "chip_smoke_streams.json")
+    os.makedirs("build", exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    streams = {"nccl": set(), "other": set()}
+    n_nccl = 0
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        nccl = "nccl" in e.get("name", "").lower()
+        n_nccl += nccl
+        streams["nccl" if nccl else "other"].add(
+            e.get("args", {}).get("stream"))
+    return {"nccl_kernels": n_nccl,
+            "nccl_streams": sorted(streams["nccl"], key=str),
+            "compute_streams": sorted(streams["other"], key=str)}
+
+
+#: the exchanges phase 13 runs beside train_resnet's
+RESNET_EXCHANGES = {"train_resnet_db": dict(double_buffering=True),
+                    "train_resnet_rs": dict(exchange="reduce_scatter"),
+                    "train_resnet_zero": dict(zero_sharding=True),
+                    "train_resnet_plain": {}}
+#: their order: each exchange twice, in turns around a second reading of
+#: the plain one, so that a drift of the host over the call shows
+RESNET_EXCHANGE_ORDER = ["train_resnet_db", "train_resnet_rs",
+                         "train_resnet_zero", "train_resnet_plain",
+                         "train_resnet_zero", "train_resnet_rs",
+                         "train_resnet_db"]
+
+
+def phase_train_resnet_exchange(phase, plain_row, reading=1):
+    """``train_resnet``'s step with only the exchange changed (world of
+    one NCCL process, bf16 wire), beside ``plain_row`` from this call;
+    ``reading`` numbers the runs of one exchange."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     scatter_dataset)
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import Classifier, ResNet50
+    exchange = RESNET_EXCHANGES[phase]
+    comm = create_communicator("pure_nccl", allreduce_grad_dtype="bfloat16")
+    try:
+        model = Classifier(ResNet50(compute_dtype=torch.bfloat16,
+                                    device="cuda", **RESNET))
+        comm.bcast_data(model)
+        opt = create_multi_node_optimizer(
+            MomentumSGD(lr=0.1, momentum=0.9), comm, **exchange).setup(model)
+        shard = scatter_dataset(resnet_data(), comm)
+        comm.calls.clear()
+        updater, step_ms, losses, peak, launches = timed_trainer_run(
+            opt, shard, RESNET_BATCH, RESNET_STEPS, f"chip_smoke_{phase}")
+        calls = dict(comm.calls)
+        median_ms = float(np.median(step_ms[RESNET_WARMUP:]))
+        images_per_s = RESNET_BATCH / (median_ms * 1e-3)
+        flops = resnet50_train_flops_per_image(RESNET_IMAGE)
+        prof = profile_steps(f"{phase}_profile", updater, top_n=10,
+                             classes_us=op_classes_us)
+        row = {"phase": phase, "reading": reading, "exchange": exchange,
+               "steps": RESNET_STEPS,
+               "step_ms": step_ms, "median_step_ms": median_ms,
+               "images_per_s": images_per_s,
+               "mfu": flops * images_per_s / PEAK_FLOPS[torch.bfloat16],
+               "losses": losses, "peak_bytes": peak, "launches": launches,
+               "device_idle_share": prof["device_idle_share"],
+               "collectives": calls,
+               **exchange_parts(opt, model, shard),
+               "train_resnet": {k: plain_row[k] for k in (
+                   "median_step_ms", "images_per_s", "mfu", "peak_bytes",
+                   "device_idle_share")}}
+        if exchange.get("double_buffering"):
+            row["streams"] = kernel_streams(
+                lambda: [updater.update() for _ in range(2)])
+        if opt._sharded_update:
+            n, n_pad, lo, hi = opt._flat_layout()
+            row["flat_layout"] = {"n": n, "n_pad": n_pad, "chunk": [lo, hi]}
+        opt._reset_exchange()
+        emit(row)
+    finally:
+        comm.finalize()
+    sharded = phase in ("train_resnet_rs", "train_resnet_zero")
+    want = ({"reduce_scatter_grad": RESNET_STEPS,
+             "allgather_flat": RESNET_STEPS} if sharded
+            else {"allreduce_grad": RESNET_STEPS})
+    if not all(np.isfinite(losses)) or len(losses) != RESNET_STEPS:
+        fail(f"{phase} losses {losses}")
+    if launches != expected_launches():
+        fail(f"{phase} launched flash kernels: {launches}")
+    if calls != want:
+        fail(f"{phase}: expected the collectives {want}, got {calls}")
+    if dist.is_initialized():
+        fail(f"the process group outlived {phase}")
     return row
 
 
-def resnet_parity_run(device, data_parallel, comm=None):
-    """RESNET_PARITY's model for 3 MomentumSGD steps on ``device``, plain
-    or through ``create_multi_node_optimizer(.., comm)``: (losses, state
-    on the host)."""
+def resnet_parity_run(device, data_parallel, comm=None, steps=3,
+                      **exchange):
+    """RESNET_PARITY's model for ``steps`` MomentumSGD steps on
+    ``device``, plain or through ``create_multi_node_optimizer(.., comm,
+    **exchange)``: (losses, state on the host)."""
     from chainermn_tpu_torch import create_multi_node_optimizer
     from chainermn_tpu_torch.core.optimizer import MomentumSGD
     from chainermn_tpu_torch.models import Classifier, ResNet
@@ -1277,11 +1459,11 @@ def resnet_parity_run(device, data_parallel, comm=None):
                               seed=0, layout="NHWC", device=device))
     opt = MomentumSGD(lr=cfg["lr"], momentum=0.9)
     if data_parallel:
-        opt = create_multi_node_optimizer(opt, comm)
+        opt = create_multi_node_optimizer(opt, comm, **exchange)
     opt.setup(model)
     rng = np.random.RandomState(4)
     losses = []
-    for _ in range(3):
+    for _ in range(steps):
         x = rng.normal(0, 1, (cfg["batch"], cfg["size"], cfg["size"], 3))
         t = rng.randint(0, cfg["n_classes"], cfg["batch"])
         losses.append(opt.update(
@@ -1338,6 +1520,188 @@ def phase_resnet_parity():
         fail("the process group outlived the ResNet parity phase")
 
 
+def phase_exchange_parity():
+    """The small fp32 ResNet through each exchange: (a) on the card at a
+    world of one, reduce-scatter and ZeRO bitwise the plain DP run, and
+    the double-buffered run's parameters after step 2 bitwise the plain
+    run's after step 1; (b) each exchange's 3 steps on the card against
+    its 3 steps on the CPU (a gloo group beside the NCCL world), within
+    RESNET_PARITY_TOL."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.communicators import MeshCommunicator
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    exchanges = {"plain": {}, "rs": dict(exchange="reduce_scatter"),
+                 "zero": dict(zero_sharding=True),
+                 "db": dict(double_buffering=True)}
+    comm = create_communicator("pure_nccl")
+    try:
+        cpu_comm = MeshCommunicator(device="cpu",
+                                    group=dist.new_group(backend="gloo"),
+                                    name="pure_nccl")
+        torch.backends.cudnn.deterministic = True
+        det = {k: resnet_parity_run("cuda", True, comm, **kw)
+               for k, kw in exchanges.items()}
+        plain1 = resnet_parity_run("cuda", True, comm, steps=1)
+        db2 = resnet_parity_run("cuda", True, comm, steps=2,
+                                double_buffering=True)
+        torch.backends.cudnn.deterministic = flags[2]
+        card = {k: resnet_parity_run("cuda", True, comm, **kw)
+                for k, kw in exchanges.items()}
+        cpu = {k: resnet_parity_run("cpu", True, cpu_comm, **kw)
+               for k, kw in exchanges.items()}
+        calls = dict(comm.calls)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+        comm.finalize()
+
+    def equal(a, b, params_only=False):
+        keys = [p for p in b[1] if not params_only
+                or not p.rsplit("/", 1)[1] in ("avg_mean", "avg_var", "N")]
+        return all(torch.equal(a[1][p], b[1][p]) for p in keys)
+
+    def max_diff(a, b):
+        return max((a[1][p] - v).abs().max().item() for p, v in b[1].items()
+                   if v.is_floating_point())
+
+    a = {"rs_bitwise_plain": det["rs"][0] == det["plain"][0]
+         and equal(det["rs"], det["plain"]),
+         "zero_bitwise_plain": det["zero"][0] == det["plain"][0]
+         and equal(det["zero"], det["plain"]),
+         "db_step2_bitwise_plain_step1": equal(db2, plain1,
+                                               params_only=True)}
+    a_diff = {"rs": max_diff(det["rs"], det["plain"]),
+              "zero": max_diff(det["zero"], det["plain"]),
+              "db": max((db2[1][p] - v).abs().max().item()
+                        for p, v in plain1[1].items()
+                        if not p.rsplit("/", 1)[1] in (
+                            "avg_mean", "avg_var", "N"))}
+    b = {k: {"loss_rel_err": max(abs(x - y) / abs(y) for x, y in zip(
+                 card[k][0], cpu[k][0])),
+             "state_abs_err": max_diff(card[k], cpu[k]),
+             "losses": card[k][0], "cpu_losses": cpu[k][0]}
+         for k in exchanges}
+    row = {"phase": "exchange_parity", "a": a, "a_max_abs_diff": a_diff,
+           "b": b, "tol": RESNET_PARITY_TOL, "collectives": calls}
+    emit(row)
+    if not all(a.values()):
+        fail(f"exchange parity (a), largest differences {a_diff}: the "
+             f"exchanges differ from the plain step at a world of one")
+    for k, errs in b.items():
+        if not (errs["loss_rel_err"] < RESNET_PARITY_TOL["loss_rel"]
+                and errs["state_abs_err"] < RESNET_PARITY_TOL["state_abs"]):
+            fail(f"exchange parity (b): {k} on the card leaves the CPU's "
+                 f"run: {errs}")
+    if dist.is_initialized():
+        fail("the process group outlived the exchange parity phase")
+
+
+#: what the MNIST phases compare and print
+MNIST_METRICS = ("main/loss", "main/accuracy", "validation/main/loss",
+                 "validation/main/accuracy")
+
+
+def mnist_trainer(out):
+    """The single-process twin's trainer at its defaults (seeded
+    shuffles) for 2 epochs, with a snapshot after epoch 1 too."""
+    from chainermn_tpu_torch.examples import train_mnist
+    from chainermn_tpu_torch.training import extensions
+    args = train_mnist.parse_args(
+        ["-e", "2", "-o", os.path.join("build", out), "--device", "cuda"])
+    trainer = train_mnist.make_trainer(args, seed=0)
+    trainer.extend(extensions.snapshot(), trigger=(1, "epoch"))
+    return trainer
+
+
+def phase_train_mnist():
+    from chainermn_tpu_torch.serializers import load_npz
+    reset_launches()
+    trainer = mnist_trainer("chip_smoke_mnist")
+    trainer.run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log = trainer.get_extension("LogReport").log
+    per_epoch = trainer.updater.iteration // 2
+    resumed = mnist_trainer("chip_smoke_mnist_resumed")
+    load_npz(os.path.join(trainer.out, f"snapshot_iter_{per_epoch}"),
+             resumed)
+    resumed.run()
+    rlog = resumed.get_extension("LogReport").log
+    diffs = {k: abs(rlog[-1][k] - log[-1][k]) for k in MNIST_METRICS}
+    epoch_s = [log[0]["elapsed_time"]] + [
+        b["elapsed_time"] - a["elapsed_time"] for a, b in zip(log, log[1:])]
+    emit({"phase": "train_mnist", "iterations": trainer.updater.iteration,
+          "epoch_wall_s": epoch_s, "last_log": log[-1],
+          "resumed_last_log": rlog[-1],
+          "resume_bitwise": all(d == 0 for d in diffs.values()),
+          "resume_max_abs_diff": max(diffs.values()),
+          "launches": launches})
+    if any(d != 0 for d in diffs.values()):
+        print(f"train_mnist: the resumed epoch differs from the "
+              f"uninterrupted one by up to {max(diffs.values())} {diffs}",
+              flush=True)
+    if not all(np.isfinite([e[k] for e in log + rlog
+                            for k in MNIST_METRICS])):
+        fail(f"train_mnist log {log} {rlog}")
+    if launches != expected_launches():
+        fail(f"train_mnist launched flash kernels: {launches}")
+    if not (log[1]["validation/main/loss"] < log[0]["validation/main/loss"]
+            and log[1]["validation/main/accuracy"]
+            >= log[0]["validation/main/accuracy"]
+            and log[1]["main/accuracy"] > log[0]["main/accuracy"]):
+        fail(f"train_mnist did not learn: {log}")
+    if max(diffs.values()) > 1e-6 or rlog[0] != log[0]:
+        fail(f"train_mnist: the resumed run left the uninterrupted one: "
+             f"{diffs}")
+
+
+def phase_train_mnist_dp():
+    import torch.distributed as dist
+    from chainermn_tpu_torch.examples import train_mnist_dp
+    from chainermn_tpu_torch.extensions import ObservationAggregator
+    from chainermn_tpu_torch.training import PRIORITY_WRITER
+    args = train_mnist_dp.parse_args(
+        ["-e", "1", "-o", os.path.join("build", "chip_smoke_mnist_dp"),
+         "--device", "cuda"])
+    reset_launches()
+    trainer, comm = train_mnist_dp.make_trainer(args, seed=0)
+    try:
+        # ahead of LogReport: the aggregator's own priority (EDITOR, as
+        # in the JAX package) runs it after LogReport, a WRITER there
+        trainer.extend(ObservationAggregator(comm, "main/loss",
+                                             "main/loss_aggregated"),
+                       priority=PRIORITY_WRITER + 1)
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        calls = dict(comm.calls)
+        world, backend = comm.size, dist.get_backend()
+    finally:
+        comm.finalize()
+    log = trainer.get_extension("LogReport").log
+    emit({"phase": "train_mnist_dp", "world": world, "backend": backend,
+          "iterations": trainer.updater.iteration, "wall_s": wall,
+          "last_log": log[-1], "collectives": calls, "launches": launches})
+    keys = MNIST_METRICS + ("main/loss_aggregated",)
+    if not all(np.isfinite([log[-1][k] for k in keys])):
+        fail(f"train_mnist_dp log {log}")
+    if abs(log[-1]["main/loss_aggregated"] - log[-1]["main/loss"]) > 1e-6:
+        fail(f"train_mnist_dp: the aggregated loss is not the loss at a "
+             f"world of one: {log[-1]}")
+    if launches != expected_launches():
+        fail(f"train_mnist_dp launched flash kernels: {launches}")
+    if dist.is_initialized():
+        fail("the process group outlived the MNIST data-parallel phase")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -1389,9 +1753,16 @@ def main():
     phase_train_parity()
     phase_train_dp_parity()
     torch.cuda.empty_cache()
-    phase_train_resnet()
+    resnet_row = phase_train_resnet()
+    for i, phase in enumerate(RESNET_EXCHANGE_ORDER):
+        torch.cuda.empty_cache()
+        phase_train_resnet_exchange(
+            phase, resnet_row, 1 + RESNET_EXCHANGE_ORDER[:i].count(phase))
     torch.cuda.empty_cache()
     phase_resnet_parity()
+    phase_exchange_parity()
+    phase_train_mnist()
+    phase_train_mnist_dp()
 
     main_check = next(c for c in checks
                       if c["B"] == 1 and c["T"] == 1024 and c["causal"])

@@ -3,8 +3,9 @@ the no-grad forward (``_flash_kernel``), the lse forward
 (``_flash_kernel_lse``), the fused backward (``_flash_bwd_fused_kernel``)
 and the split backward's dq and dk/dv passes (``_flash_bwd_dq_kernel``,
 ``_flash_bwd_dkv_kernel``); the gradient exchange over NCCL in a world of
-one process; and the ResNet path's cuDNN layout and its fp32 step against
-the CPU's.
+one process, the double-buffered exchange's asynchrony and the sharded
+exchanges against the plain one there; and the ResNet path's cuDNN
+layout and its fp32 step against the CPU's.
 
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -14,6 +15,8 @@ Without a card every test skips (the kernels have no CPU mode).
 """
 
 import importlib
+import json
+import os
 
 import numpy as np
 import pytest
@@ -604,3 +607,110 @@ def test_resnet_fp32_steps_on_the_card_match_the_cpu(cuda_device, layout):
     for p, v in ref_state.items():
         np.testing.assert_allclose(state[p].numpy(), v.numpy(), rtol=0,
                                    atol=1e-3, err_msg=p)
+
+
+def _mlp_step_inputs(device):
+    rng = np.random.RandomState(8)
+    return (torch.from_numpy(rng.normal(0, 1, (32, 24)).astype(np.float32))
+            .to(device), torch.from_numpy(rng.randint(0, 5, 32)).to(device))
+
+
+def _mlp_run(comm, device, steps, **exchange):
+    from chainermn_tpu_torch import create_multi_node_optimizer
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import MLP, Classifier
+    model = Classifier(MLP(n_units=64, n_out=5, seed=0, device=device))
+    opt = create_multi_node_optimizer(MomentumSGD(lr=0.1), comm,
+                                      **exchange).setup(model)
+    x, t = _mlp_step_inputs(device)
+    losses = [opt.update(model, x, t).item() for _ in range(steps)]
+    return model, opt, losses
+
+
+@pytest.mark.gpu
+def test_double_buffered_exchange_is_asynchronous(cuda_device, monkeypatch):
+    """Each step launches its gradient allreduce with ``async_op=True``
+    and waits only on the previous step's: the order of launches and
+    waits, recorded by wrapping the work handles, is launch 0, launch 1,
+    wait 0, launch 2, wait 1.  Where NCCL runs a kernel for it (a world
+    of one may copy nothing), that kernel runs on another stream than
+    the step's compute kernels."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from chainermn_tpu_torch import create_communicator
+    events = []
+    all_reduce = dist.all_reduce
+
+    class Work:
+        def __init__(self, work, i):
+            self.work, self.i = work, i
+
+        def wait(self):
+            events.append(("wait", self.i))
+            return self.work.wait()
+
+    def recording(tensor, *args, async_op=False, **kwargs):
+        work = all_reduce(tensor, *args, async_op=async_op, **kwargs)
+        if not async_op:
+            return work
+        events.append(("launch", len([e for e in events
+                                      if e[0] == "launch"])))
+        return Work(work, events[-1][1])
+
+    comm = create_communicator("pure_nccl")
+    try:
+        monkeypatch.setattr(dist, "all_reduce", recording)
+        model, opt, losses = _mlp_run(comm, cuda_device, 3,
+                                      double_buffering=True)
+        assert events == [("launch", 0), ("launch", 1), ("wait", 0),
+                          ("launch", 2), ("wait", 1)]
+        monkeypatch.setattr(dist, "all_reduce", all_reduce)
+        x, t = _mlp_step_inputs(cuda_device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                opt.update(model, x, t)
+            torch.cuda.synchronize()
+        opt._reset_exchange()
+    finally:
+        comm.finalize()
+    path = "build/test_double_buffered_streams.json"
+    os.makedirs("build", exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    nccl = {e["args"].get("stream") for e in kernels
+            if "nccl" in e["name"].lower()}
+    compute = {e["args"].get("stream") for e in kernels
+               if "nccl" not in e["name"].lower()}
+    assert compute and not (nccl & compute)
+    assert np.isfinite(losses).all()
+
+
+@pytest.mark.gpu
+def test_sharded_exchanges_equal_the_plain_step_at_a_world_of_one(
+        cuda_device):
+    """``exchange="reduce_scatter"`` and ``zero_sharding`` over NCCL with
+    one rank: the same fp32 rule on a flat view of the parameters, so
+    the losses and parameters are bitwise the plain DP step's, and the
+    gradient never lands on ``Parameter.grad``."""
+    from chainermn_tpu_torch import create_communicator
+    comm = create_communicator("pure_nccl")
+    try:
+        runs = {name: _mlp_run(comm, cuda_device, 3, **kw)
+                for name, kw in (("plain", {}),
+                                 ("rs", dict(exchange="reduce_scatter")),
+                                 ("zero", dict(zero_sharding=True)))}
+    finally:
+        comm.finalize()
+    plain_model, _, plain_losses = runs["plain"]
+    for name in ("rs", "zero"):
+        model, opt, losses = runs[name]
+        assert losses == plain_losses, name
+        for (p, a), (_, b) in zip(model.namedparams(),
+                                  plain_model.namedparams()):
+            assert torch.equal(a, b), (name, p)
+        assert all(p.grad is None for p in model.parameters())
+        assert opt.actual_optimizer._state["flat"]["trace"].numel() \
+            == opt._flat_layout()[1]
