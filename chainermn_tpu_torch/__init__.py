@@ -21,7 +21,13 @@ reference's extensions (:mod:`.training.extensions`), the multi-node
 evaluator and observation aggregator, npz snapshots that move between
 the two packages (:mod:`.serializers`), the differentiable collectives
 (:mod:`.functions`), and the double-buffered, reduce-scatter and ZeRO-1
-exchanges of :func:`create_multi_node_optimizer`.
+exchanges of :func:`create_multi_node_optimizer`.  The ImageNet example
+(``examples/train_imagenet.py``) trains AlexNet, NIN, VGG16, GoogLeNet
+(:mod:`.models.convnets`, with dropout drawn per step from
+:mod:`.core.rng`) and ResNet-50 (with per-stage remat) through its input
+pipeline: the thread, process-pool and native (C++) loaders, the
+device-feed stage and ``FusedUpdater`` (:mod:`.dataset`,
+:mod:`.training`).
 """
 
 from . import functions, links

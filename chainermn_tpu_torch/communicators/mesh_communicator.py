@@ -322,9 +322,11 @@ class MeshCommunicator(CommunicatorBase):
         """``model``'s parameters in the order the exchange plans over:
         sorted parameter path (the JAX params-tree flatten order), NOT
         registration order -- the two orders give different bucket
-        plans."""
+        plans.  Lazy parameters not yet created are not leaves, as the
+        JAX params tree lacks them."""
         return [p for _, p in sorted(model.namedparams(),
-                                     key=lambda kv: kv[0])]
+                                     key=lambda kv: kv[0])
+                if not is_lazy(p)]
 
     @classmethod
     def grad_leaf_specs(cls, model):

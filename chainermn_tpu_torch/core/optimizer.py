@@ -31,6 +31,9 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+from torch.nn.parameter import is_lazy
+
+from . import rng
 
 __all__ = ["Optimizer", "GradientMethod", "SGD", "MomentumSGD", "Adam",
            "AdamW", "RMSprop", "AdaGrad", "AdaDelta", "NesterovAG",
@@ -166,8 +169,9 @@ class Optimizer:
         self.epoch = 0
         self._hooks = OrderedDict()
         self._state = {}
-        # the JAX optimizer's per-step PRNG key, kept as loaded so that a
-        # snapshot passes it on (the port has no stochastic layer yet)
+        # the per-step key (``core.rng``, the JAX optimizer's layout):
+        # seeded from ``self.seed`` when set, split every step, saved
+        # and loaded as ``rng_key``
         self._rng_key = None
 
     # -- lifecycle ---------------------------------------------------------
@@ -196,12 +200,35 @@ class Optimizer:
             self._apply()
             return None
         self.target.cleargrads()
-        loss = lossfun(*args, **kwargs)
+        with self.step_key_scope():
+            loss = lossfun(*args, **kwargs)
         if isinstance(loss, tuple):
             loss = loss[0]
         loss.backward()
         self._apply()
         return loss
+
+    def _next_rng_key(self):
+        """This step's key: the stored key is split, the subkey returned
+        (the JAX optimizer's ``_next_rng_key``).  The first key comes
+        from ``self.seed`` when set, else from numpy's global RNG."""
+        if self._rng_key is None:
+            seed = getattr(self, "seed", None)
+            if seed is None:
+                seed = np.random.randint(0, 2**31 - 1)
+            self._rng_key = rng.make_key(seed)
+        self._rng_key, sub = rng.split(self._rng_key)
+        return sub
+
+    def step_key_scope(self, *fold):
+        """The scope of one step's stochastic draws: this step's key with
+        each of ``fold`` (a rank, a step index) folded in, its generator
+        on the target's device."""
+        key = self._next_rng_key()
+        for data in fold:
+            key = rng.fold_in(key, data)
+        device = next(self.target.parameters()).device
+        return rng.key_scope(key, device)
 
     # -- the rule ----------------------------------------------------------
     def _slot_state(self, path, p):
@@ -245,7 +272,10 @@ class Optimizer:
 
     # -- state in the JAX optimizer's layout -------------------------------
     def _sorted_params(self):
-        return sorted(self.target.namedparams(), key=lambda kv: kv[0])
+        """``(path, parameter)`` in sorted path order, lazy parameters
+        not yet created left out (the JAX params tree lacks them)."""
+        return sorted(((p, v) for p, v in self.target.namedparams()
+                       if not is_lazy(v)), key=lambda kv: kv[0])
 
     def state_leaves(self):
         """The state as the JAX optimizer's flat optax leaves (host
@@ -303,8 +333,8 @@ class Optimizer:
 
     def serialize(self, serializer):
         """Chainer serializer protocol, in the JAX optimizer's keys:
-        ``target/...``, ``t``, ``epoch``, ``rng_key`` (when a snapshot
-        brought one), ``opt_state_len`` and ``opt_state_<i>``."""
+        ``target/...``, ``t``, ``epoch``, ``rng_key`` (once a step or a
+        snapshot set it), ``opt_state_len`` and ``opt_state_<i>``."""
         self.serialize_with(
             serializer,
             lambda: self.state_leaves() if self._state else None,

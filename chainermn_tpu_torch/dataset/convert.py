@@ -1,7 +1,11 @@
 """Batch assembly (consumed-Chainer surface: ``chainer.dataset.convert``).
 
 The port of ``chainermn_tpu.dataset.convert``: batches are stacked on the
-host with numpy and go to the given device once, as tensors.
+host with numpy and go to the given device once, as tensors.  To a CUDA
+device a batch goes through pinned (page-locked) host memory with a
+non-blocking copy, so the copy is one DMA that the host does not wait
+for; PyTorch's pinned-memory allocator keeps the staging buffer until
+the copy has run.
 """
 
 from __future__ import annotations
@@ -9,7 +13,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["concat_examples", "to_device"]
+__all__ = ["concat_examples", "to_device", "identity_converter"]
+
+
+def identity_converter(batch, device=None):
+    """Pass-through converter for iterators that already emit stacked
+    arrays (``NativeBatchIterator``, ``MultiprocessIterator(as_arrays=
+    True)``) or device tensors (``DevicePrefetchIterator``); with
+    ``device``, what is not there yet is copied there."""
+    if device is not None:
+        return to_device(batch, device)
+    return batch
 
 
 def _stack(xs, padding=None):
@@ -60,6 +74,20 @@ def to_device(x, device=None):
         return tuple(to_device(a, device) for a in x)
     if isinstance(x, dict):
         return {k: to_device(a, device) for k, a in x.items()}
+    device = torch.device(device)
+    if device.type != "cuda":
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        return torch.from_numpy(np.array(x)).to(device)
+    if isinstance(x, torch.Tensor) and (x.device.type != "cpu"
+                                        or x.is_pinned()):
+        return x.to(device, non_blocking=True)
     if isinstance(x, torch.Tensor):
-        return x.to(device)
-    return torch.from_numpy(np.array(x)).to(device)
+        src = x
+    else:
+        a = np.asarray(x)
+        src = torch.from_numpy(a if a.flags.c_contiguous and
+                               a.flags.writeable else np.array(a))
+    staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    staged.copy_(src)
+    return staged.to(device, non_blocking=True)

@@ -1,20 +1,23 @@
 """Datasets (consumed-Chainer surface: ``chainer.datasets``).
 
-The port of ``DatasetMixin``, ``TupleDataset``, ``SubDataset`` and the
-synthetic ``get_mnist`` and ``get_synthetic_imagenet`` from
-``chainermn_tpu.dataset.datasets`` (pure host code, copied: the same seed
-gives the same arrays).  ``SubDataset`` is what ``scatter_dataset``
+The port of ``chainermn_tpu.dataset.datasets`` (pure host code, copied:
+the same seed gives the same arrays): ``DatasetMixin``, ``TupleDataset``,
+``DictDataset``, ``SubDataset``, ``TransformDataset``,
+``ConcatenatedDataset``, ``split_dataset`` / ``split_dataset_random`` and
+the synthetic ``get_mnist``, ``get_cifar10`` and
+``get_synthetic_imagenet``.  ``SubDataset`` is what ``scatter_dataset``
 returns: an index-remapped view, so scattering ships index specs, never
 copies, and every shard has the same length (the lock-step invariant that
-keeps collectives from deadlocking).  The other datasets wait for ROADMAP
-A4.
+keeps collectives from deadlocking).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["DatasetMixin", "TupleDataset", "SubDataset", "get_mnist",
+__all__ = ["DatasetMixin", "TupleDataset", "DictDataset", "SubDataset",
+           "TransformDataset", "ConcatenatedDataset", "split_dataset",
+           "split_dataset_random", "get_mnist", "get_cifar10",
            "get_synthetic_imagenet"]
 
 
@@ -60,6 +63,33 @@ class TupleDataset:
         return self._length
 
 
+class DictDataset:
+    """Examples ``{key: d[i]}`` from equal-length datasets."""
+
+    def __init__(self, **datasets):
+        if not datasets:
+            raise ValueError("no datasets given")
+        length = None
+        for d in datasets.values():
+            if length is None:
+                length = len(d)
+            elif len(d) != length:
+                raise ValueError("all datasets must have the same length")
+        self._datasets = datasets
+        self._length = length
+
+    def __getitem__(self, index):
+        batches = {k: d[index] for k, d in self._datasets.items()}
+        if isinstance(index, (slice, list, np.ndarray)):
+            length = len(next(iter(batches.values())))
+            return [{k: batch[i] for k, batch in batches.items()}
+                    for i in range(length)]
+        return batches
+
+    def __len__(self):
+        return self._length
+
+
 class SubDataset(DatasetMixin):
     """View of ``dataset[start:finish]`` through an optional index ``order``
     (reference: ``chainer/datasets/sub_dataset.py · SubDataset``)."""
@@ -84,6 +114,53 @@ class SubDataset(DatasetMixin):
         if self._order is not None:
             index = self._order[index]
         return self._dataset[int(index)]
+
+
+class TransformDataset(DatasetMixin):
+    """``transform(dataset[i])``, computed when example ``i`` is read."""
+
+    def __init__(self, dataset, transform):
+        self._dataset = dataset
+        self._transform = transform
+
+    def __len__(self):
+        return len(self._dataset)
+
+    def get_example(self, i):
+        return self._transform(self._dataset[i])
+
+
+class ConcatenatedDataset(DatasetMixin):
+    """The examples of each dataset in turn."""
+
+    def __init__(self, *datasets):
+        self._datasets = datasets
+        self._lengths = [len(d) for d in datasets]
+        self._total = sum(self._lengths)
+
+    def __len__(self):
+        return self._total
+
+    def get_example(self, i):
+        for d, n in zip(self._datasets, self._lengths):
+            if i < n:
+                return d[i]
+            i -= n
+        raise IndexError("dataset index out of range")
+
+
+def split_dataset(dataset, split_at, order=None):
+    """``(dataset[:split_at], dataset[split_at:])`` as views, through
+    ``order`` when given."""
+    return (SubDataset(dataset, 0, split_at, order),
+            SubDataset(dataset, split_at,
+                       len(order) if order is not None else len(dataset),
+                       order))
+
+
+def split_dataset_random(dataset, first_size, seed=None):
+    order = np.random.RandomState(seed).permutation(len(dataset))
+    return split_dataset(dataset, first_size, order)
 
 
 # -- synthetic stand-ins for the reference example datasets -----------------
@@ -111,6 +188,18 @@ def get_mnist(withlabel=True, ndim=1, n_train=6000, n_test=1000, seed=1701):
     shape = (784,) if ndim == 1 else (1, 28, 28)
     xtr, ytr = _synthetic_classification(n_train, shape, 10, seed, seed + 1)
     xte, yte = _synthetic_classification(n_test, shape, 10, seed, seed + 2)
+    if withlabel:
+        return TupleDataset(xtr, ytr), TupleDataset(xte, yte)
+    return xtr, xte
+
+
+def get_cifar10(withlabel=True, n_train=5000, n_test=1000, seed=1702):
+    """Synthetic CIFAR-10-shaped data ((3, 32, 32), 10 classes).  Returns
+    (train, test)."""
+    xtr, ytr = _synthetic_classification(n_train, (3, 32, 32), 10, seed,
+                                         seed + 1)
+    xte, yte = _synthetic_classification(n_test, (3, 32, 32), 10, seed,
+                                         seed + 2)
     if withlabel:
         return TupleDataset(xtr, ytr), TupleDataset(xte, yte)
     return xtr, xte

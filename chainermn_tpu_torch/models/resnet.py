@@ -16,15 +16,20 @@ statistics loads, see ``serializers.npz``).
   fp32 pooled vector.
 * ``input_norm="imagenet"`` standardizes raw uint8 pixels on the device:
   an fp32 multiply-add, then one cast to the compute dtype.
-* ``remat=True`` is not ported (ROADMAP A6): checkpointing a stage with
-  ``torch.utils.checkpoint`` would run its forward twice and so move the
-  running statistics twice.
+* ``remat=True`` checkpoints each stage (``torch.utils.checkpoint``):
+  the backward runs the stage's forward again instead of keeping its
+  activations.  The running statistics (``avg_mean``, ``avg_var``,
+  ``N``) move once a step: the recompute's own moves are undone
+  (:func:`checkpoint_link`), as the JAX package threads them through
+  ``jax.checkpoint`` as inputs and outputs.  Under sync batch norm the
+  recompute runs its allreduces again, on every rank in the same order.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from .._device import resolve_device
 from ..core.link import Chain, ChainList
@@ -33,7 +38,7 @@ from ..nn import links as L
 
 __all__ = ["ResNet", "ResNet50", "ResNet18", "ResNet101",
            "BottleneckBlock", "BasicBlock", "IMAGENET_MEAN", "IMAGENET_STD",
-           "input_norm_consts", "normalize_input"]
+           "input_norm_consts", "normalize_input", "checkpoint_link"]
 
 # ImageNet channel statistics in 0-1 scale
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -157,6 +162,34 @@ class _Stage(ChainList):
         return x
 
 
+def checkpoint_link(link, x):
+    """``link(x)`` under ``torch.utils.checkpoint``, with ``link``'s
+    persistent values moved once: the backward's recompute of the
+    forward puts back the values it found.  Outside autograd (no grad,
+    or an input that needs none) ``link(x)`` runs plainly."""
+    if not (torch.is_grad_enabled()
+            and (x.requires_grad or any(p.requires_grad
+                                        for p in link.parameters()))):
+        return link(x)
+    values = [b for _, b in link.namedpersistent()]
+    calls = [0]
+
+    def run(h):
+        calls[0] += 1
+        if calls[0] == 1:
+            return link(h)
+        saved = [b.clone() for b in values]
+        try:
+            return link(h)
+        finally:   # also when the recompute stops early
+            with torch.no_grad():
+                torch._foreach_copy_(values, saved)
+
+    # the stage draws no randomness: no RNG state to stash and restore
+    return _ckpt.checkpoint(run, x, use_reentrant=False,
+                            preserve_rng_state=False)
+
+
 def _input_consts(input_norm, device):
     consts = input_norm_consts(input_norm)
     return None if consts is None else tuple(
@@ -171,10 +204,6 @@ class ResNet(Chain):
                  seed=42, remat=False, layout="NCHW", input_norm=None,
                  device=None):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "remat=True is not ported yet (ROADMAP A6: the running "
-                "statistics must pass through the checkpoint once)")
         device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.remat = remat
@@ -199,7 +228,7 @@ class ResNet(Chain):
         h = F.max_pooling_2d(h, 3, stride=2, pad=1, cover_all=False,
                              layout=self.layout)
         for stage in (self.res2, self.res3, self.res4, self.res5):
-            h = stage(h)
+            h = checkpoint_link(stage, h) if self.remat else stage(h)
         h = F.global_average_pooling_2d(h, layout=self.layout)
         return self.fc(h.float())
 

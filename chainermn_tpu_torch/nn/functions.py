@@ -14,10 +14,14 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from ..core import rng as rng_module
+from ..core.config import config
+
 __all__ = ["relu", "linear", "embed_id", "layer_normalization", "gelu",
            "softmax", "log_softmax", "softmax_cross_entropy", "accuracy",
-           "convolution_2d", "max_pooling_2d", "average_pooling_2d",
-           "global_average_pooling_2d", "batch_moments",
+           "dropout", "convolution_2d", "max_pooling_2d",
+           "average_pooling_2d", "global_average_pooling_2d",
+           "local_response_normalization", "concat", "batch_moments",
            "batch_normalization", "fixed_batch_normalization"]
 
 
@@ -101,6 +105,26 @@ def accuracy(y, t, ignore_label=None):
         correct = (pred == t) & mask
         return correct.sum() / mask.sum().clamp_min(1)
     return (pred == t).float().mean()
+
+
+# -- stochastic -------------------------------------------------------------
+
+def dropout(x, ratio=0.5, key=None, train=None):
+    """Zero each element with probability ``ratio`` and scale the rest by
+    ``1 / (1 - ratio)``, in ``x.dtype``; the identity when ``train`` (by
+    default ``config.train``) is off or ``ratio`` is 0.  The mask is
+    drawn on ``x``'s device from ``key`` (a ``torch.Generator``), else
+    from the training step's generator (``core.rng.key_scope``), else
+    from torch's global RNG (the reference's hidden one)."""
+    if train is None:
+        train = config.train
+    if not train or ratio == 0.0:
+        return x
+    if key is None:
+        key = rng_module.next_key()
+    keep = 1.0 - ratio
+    mask = torch.rand(x.shape, generator=key, device=x.device) < keep
+    return torch.where(mask, x / keep, x.new_zeros(())).to(x.dtype)
 
 
 # -- convolutions and pooling --------------------------------------------
@@ -192,6 +216,24 @@ def global_average_pooling_2d(x, layout="NCHW"):
     a bf16 mean in fp32 and rounds once)."""
     hd, wd, _ = _spatial_dims(layout)
     return x.mean(dim=(hd, wd))
+
+
+def local_response_normalization(x, n=5, k=2.0, alpha=1e-4, beta=0.75):
+    """Cross-channel LRN on NCHW: ``x / (k + alpha S)^beta`` with ``S``
+    the sum of ``x^2`` over ``n`` channels around each one (zero
+    outside).  ``alpha`` multiplies the sum, as in Chainer; torch's
+    ``local_response_norm`` scales it by ``1 / n``, another function."""
+    half = n // 2
+    c = x.shape[1]
+    padded = TF.pad(x * x, (0, 0, 0, 0, half, half))
+    window = padded[:, 0:c]
+    for i in range(1, n):
+        window = window + padded[:, i:i + c]
+    return x / (k + alpha * window) ** beta
+
+
+def concat(xs, axis=1):
+    return torch.cat(list(xs), dim=axis)
 
 
 # -- batch normalization -------------------------------------------------

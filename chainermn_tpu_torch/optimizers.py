@@ -55,9 +55,18 @@ The exchanges:
   ``setup`` start again from zeros, as in the JAX package.
 
 A model with lazy parameters (``Linear(None, out)``) gets one forward
-before its first step, whose persistent updates and reports are dropped
-(as the JAX step's), and then ``bcast_data``, so that every rank holds
-rank 0's parameters before the exchange and the rule see them.
+before its first step (lazy parameters that forward does not use, such
+as GoogLeNet's auxiliary heads under a ``Classifier``, stay lazy and take
+no part in the exchange or the update), whose persistent updates and
+reports are dropped (as the JAX step's), and then ``bcast_data``, so that
+every rank holds rank 0's parameters before the exchange and the rule
+see them.
+
+Each step opens the optimizer's per-step key scope (``core.rng``) with
+this rank folded in, so every rank draws its own dropout masks.
+``update_scan(lossfun, *stacked)`` runs K steps on batches stacked along
+a leading step axis (``FusedUpdater``), step ``i``'s randomness from one
+key of the call with the rank and then ``i`` folded in.
 
 ``update()`` with no arguments is the eager path: the gradients already
 on ``Parameter.grad`` are averaged, then the rule runs (whatever the
@@ -78,6 +87,7 @@ from torch.nn.parameter import is_lazy
 from .communicators._memory_utility import (chunk_bounds, padded_length,
                                             tree_pack, tree_unpack)
 from .core import reporter as reporter_module
+from .core import rng
 
 __all__ = ["create_multi_node_optimizer"]
 
@@ -160,7 +170,7 @@ class _MultiNodeOptimizer:
             zero_fill=zero_fill, zero_sharding=zero_sharding,
             exchange=exchange, double_buffering=double_buffering,
             _pending=None, _stale=None, _layout=None,
-            _buffers=[None, None], _slot=0)
+            _buffers=[None, None], _slot=0, _lazy_done=False)
 
     # -- reference-style delegation ---------------------------------------
     def __getattr__(self, name):
@@ -195,6 +205,7 @@ class _MultiNodeOptimizer:
     def setup(self, link):
         self.actual_optimizer.setup(link)
         self._reset_exchange()
+        self.__dict__["_lazy_done"] = False
         return self
 
     def add_hook(self, hook, name=None, timing="pre"):
@@ -215,16 +226,84 @@ class _MultiNodeOptimizer:
             # the reference's flow: backward, allreduce_grad, update
             comm.multi_node_mean_grad(actual.target, zero_fill=self.zero_fill)
             return actual.update()
+        self._prepare(lossfun, args, kwargs)
+        loss, observation = self._step(lossfun, args, kwargs,
+                                       actual.step_key_scope(comm.rank))
+        reporter_module.report(observation)
+        return loss
+
+    def update_scan(self, lossfun, *args, **kwargs):
+        """K training steps in one call: every tensor in ``args`` and
+        ``kwargs`` carries a leading step axis of length K on top of its
+        batch axis (``(K, batch, ...)``), and step ``i`` runs the step of
+        :meth:`update` on slice ``i``.  The steps draw their randomness
+        from one key of the call with this rank and then ``i`` folded in
+        (the JAX ``update_scan``'s keys), so a stochastic model's masks
+        differ from K :meth:`update` calls'; a deterministic model's K
+        steps equal them.  Reports the mean of the K steps'
+        observations; returns the K losses.  Double buffering is refused,
+        as in the JAX package."""
+        if self.double_buffering:
+            raise RuntimeError("update_scan does not support double "
+                               "buffering; use update()")
+        actual = self.actual_optimizer
+        if actual.target is None:
+            raise RuntimeError("setup(link) was not called")
+        leaves = list(args) + list(kwargs.values())
+        if not leaves or any(not isinstance(a, torch.Tensor) or a.dim() < 2
+                             for a in leaves):
+            raise ValueError("update_scan arguments must be tensors with a "
+                             "leading (n_steps, batch, ...) axis")
+        n_steps = leaves[0].shape[0]
+        if any(a.shape[0] != n_steps for a in leaves):
+            raise ValueError("all update_scan arguments must share the "
+                             "same leading step-axis length")
+        comm = self.communicator
+        key = rng.fold_in(actual._next_rng_key(), comm.rank)
+        device = next(actual.target.parameters()).device
+        losses, observations = [], []
+        for i in range(n_steps):
+            a_i = tuple(a[i] for a in args)
+            kw_i = {k: v[i] for k, v in kwargs.items()}
+            if i == 0:
+                self._prepare(lossfun, a_i, kw_i)
+            loss, observation = self._step(
+                lossfun, a_i, kw_i,
+                rng.key_scope(rng.fold_in(key, i), device))
+            losses.append(loss)
+            observations.append(observation)
+        reporter_module.report({
+            k: torch.stack([torch.as_tensor(o[k], dtype=torch.float32)
+                            .reshape(()) for o in observations]).mean()
+            for k in observations[0]
+            if all(k in o for o in observations)})
+        return torch.stack(losses)
+
+    def _prepare(self, lossfun, args, kwargs):
+        """Checks and one-time work before a step on ``args``: the debug
+        communicator's signature check, the sharded update's hooks, the
+        lazy parameters."""
+        comm = self.communicator
         if hasattr(comm, "verify_step_signature"):
             # debug communicator: agree on the batch's shapes first
             comm.verify_step_signature((args, kwargs))
-        target = actual.target
         if self._sharded_update:
             self._chunk_hooks()   # refuse a hook before any work is done
-        if any(is_lazy(p) for p in target.parameters()):
-            self._init_lazy(lambda: lossfun(*args, **kwargs))
-        target.cleargrads()
-        loss, observation = _observed(lambda: lossfun(*args, **kwargs))
+        if not self._lazy_done:
+            # once: what the forward leaves lazy it does not use (say
+            # GoogLeNet's auxiliary heads under a Classifier)
+            if any(is_lazy(p)
+                   for p in self.actual_optimizer.target.parameters()):
+                self._init_lazy(lambda: lossfun(*args, **kwargs))
+            self.__dict__["_lazy_done"] = True
+
+    def _step(self, lossfun, args, kwargs, key_scope):
+        """One data-parallel step, its draws from ``key_scope``: forward,
+        backward, exchange, rule, the persistent values' mean.  Returns
+        the mean loss and the mean observation (not yet reported)."""
+        self.actual_optimizer.target.cleargrads()
+        with key_scope:
+            loss, observation = _observed(lambda: lossfun(*args, **kwargs))
         if isinstance(loss, tuple):
             loss = loss[0]
         self._apply_update(self._exchange(self._gradients(loss)))
@@ -235,8 +314,9 @@ class _MultiNodeOptimizer:
         """``(paths, parameters)`` in sorted path order: the order of the
         JAX params tree, which the flat layouts and the stale buffer
         follow."""
-        named = sorted(self.actual_optimizer.target.namedparams(),
-                       key=lambda kv: kv[0])
+        named = sorted(((p, v) for p, v in
+                        self.actual_optimizer.target.namedparams()
+                        if not is_lazy(v)), key=lambda kv: kv[0])
         return [p for p, _ in named], [v for _, v in named]
 
     def _gradients(self, loss):
@@ -409,8 +489,8 @@ class _MultiNodeOptimizer:
 
     def _global_means(self, loss, observation):
         """The loss and the scalars reported in ``observation``, each
-        replaced by its mean over the ranks in one allreduce; the means
-        are reported to the active reporter.  Returns the mean loss."""
+        replaced by its mean over the ranks in one allreduce: ``(mean
+        loss, observation)``."""
         keys = [k for k, v in observation.items()
                 if isinstance(v, (int, float))
                 or (isinstance(v, torch.Tensor) and v.numel() == 1)]
@@ -426,8 +506,7 @@ class _MultiNodeOptimizer:
             loss = means[0].to(loss.dtype)
             for k, m in zip(keys, means[1:]):
                 observation[k] = m
-        reporter_module.report(observation)
-        return loss
+        return loss, observation
 
     # -- serialization --------------------------------------------------------
     def serialize(self, serializer):

@@ -4,8 +4,9 @@
 from . import extensions, triggers
 from .trainer import (PRIORITY_EDITOR, PRIORITY_READER, PRIORITY_WRITER,
                       Extension, Trainer, make_extension)
-from .updaters import StandardUpdater, Updater
+from .updaters import FusedUpdater, StandardUpdater, Updater
 
 __all__ = ["Trainer", "Extension", "make_extension", "Updater",
-           "StandardUpdater", "extensions", "triggers", "PRIORITY_WRITER",
+           "StandardUpdater", "FusedUpdater", "extensions", "triggers",
+           "PRIORITY_WRITER",
            "PRIORITY_EDITOR", "PRIORITY_READER"]

@@ -4,15 +4,18 @@ The port of ``StandardUpdater`` from ``chainermn_tpu.training.updaters``:
 ``update()`` pulls a batch from the iterator, converts it onto the
 device and hands it to ``optimizer.update(loss_func, *batch)`` (forward,
 backward, rule).  The batch goes to the optimizer target's device unless
-``device`` names another.  Not ported yet: the input-stall and update
-spans (ROADMAP A12) and ``FusedUpdater`` (A4).
+``device`` names another.  ``FusedUpdater`` pulls K batches per update
+and hands them, stacked, to the multi-node optimizer's ``update_scan``.
+Not ported yet: the input-stall and update spans (ROADMAP A12).
 """
 
 from __future__ import annotations
 
+import torch
+
 from ..dataset.convert import concat_examples
 
-__all__ = ["Updater", "StandardUpdater"]
+__all__ = ["Updater", "StandardUpdater", "FusedUpdater"]
 
 
 class Updater:
@@ -107,3 +110,56 @@ class StandardUpdater(Updater):
             iterator.serialize(serializer["iterator:" + name])
         for name, optimizer in self._optimizers.items():
             optimizer.serialize(serializer["optimizer:" + name])
+
+
+class FusedUpdater(StandardUpdater):
+    """``n_fused`` optimizer steps per ``update()``: pulls ``n_fused``
+    batches, stacks them along a new leading step axis on the device and
+    hands the stack to the multi-node optimizer's ``update_scan`` (the
+    JAX package runs it as one compiled ``lax.scan``; here it is a loop
+    of the plain step).
+
+    ``iteration`` advances by ``n_fused`` per ``update()``, so interval
+    triggers fire at that granularity and a stop trigger of ``(N,
+    "iteration")`` stops at the first multiple of ``n_fused`` at or past
+    N.  ``new_epoch`` fires once for every epoch boundary crossed inside
+    the K pulls.  Requires a multi-node optimizer
+    (``create_multi_node_optimizer``)."""
+
+    def __init__(self, iterator, optimizer, n_fused=4,
+                 converter=concat_examples, device=None, loss_func=None):
+        super().__init__(iterator, optimizer, converter=converter,
+                         device=device, loss_func=loss_func)
+        if n_fused < 1:
+            raise ValueError("n_fused must be >= 1")
+        self.n_fused = n_fused
+
+    def update(self):
+        self.update_core()
+        self.iteration += self.n_fused
+
+    def update_core(self):
+        iterator = self._iterators["main"]
+        optimizer = self._optimizers["main"]
+        if not hasattr(optimizer, "update_scan"):
+            raise TypeError("FusedUpdater requires a multi-node optimizer "
+                            "(create_multi_node_optimizer)")
+        epoch_before = iterator.epoch
+        device = self._device(optimizer)
+        batches = [self.converter(iterator.next(), device)
+                   for _ in range(self.n_fused)]
+        loss_func = self.loss_func or optimizer.target
+        first = batches[0]
+        if isinstance(first, tuple):
+            optimizer.update_scan(loss_func, *(
+                torch.stack([b[i] for b in batches])
+                for i in range(len(first))))
+        elif isinstance(first, dict):
+            optimizer.update_scan(loss_func, **{
+                k: torch.stack([b[k] for b in batches]) for k in first})
+        else:
+            optimizer.update_scan(loss_func, torch.stack(batches))
+        # a boundary may fall on any of the K pulls (is_new_epoch tells
+        # only of the last): one new_epoch per boundary crossed
+        for _ in range(iterator.epoch - epoch_before):
+            optimizer.new_epoch()

@@ -125,7 +125,31 @@ Phases, each printing one JSON line:
     log entry;
 16. train_mnist_dp: the data-parallel twin's trainer (NCCL, a world of
     one) with ``create_multi_node_evaluator`` and an
-    ``ObservationAggregator`` for 1 epoch; its last log entry.
+    ``ObservationAggregator`` for 1 epoch; its last log entry;
+17. train_imagenet: the ImageNet twin's trainer (``chainermn_tpu_torch.
+    examples.train_imagenet.make_trainer``) for AlexNet, NIN, VGG16 and
+    GoogLeNet at the example's defaults (224 x 224, 1000 classes, batch
+    32 per card, lr 0.01, thread loader and device prefetch, pure_nccl
+    with the bf16 wire in a world of one), fp32 under PyTorch's TF32
+    defaults (printed), 12 timed iterations (2 warm up) and 3 profiled
+    over 512 images: images/s, MFU against the TF32 peak with the
+    training flops per image counted from the layer shapes, device idle
+    share, peak memory, device time by op class, losses (finite);
+18. train_imagenet_pipeline: ``train_resnet``'s model through the twin
+    (batch 64, NHWC bf16) with ``--uint8-input --device-prefetch 2``
+    under each of ``--loader thread``, ``native`` and ``multiprocess``,
+    then ``--fused 4``: images/s, idle share, the bytes copied to the
+    card a step and whether a pageable copy is left in the profile,
+    beside ``train_resnet``'s reading from this call;
+19. resnet_remat: ``train_resnet``'s model with ``remat`` off and on in
+    turns (step time, peak memory, device busy per step); then the small
+    fp32 ResNet with and without remat, losses, parameters and running
+    statistics within 1e-5 relative, and a finetune batch norm's ``N``
+    moved once a step;
+20. convnet_parity: each convnet small (10 classes, batch 2) on the card
+    against the CPU under ``train=False``, TF32 off; then 3 training
+    steps on the card twice from one seed (bitwise equal losses, dropout
+    live).
 
 Then the kernels line (launches, error, times, the whole call's device
 time and bound of all five kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
@@ -314,6 +338,13 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    busy, by_name = profile_summary(prof)
+    return wall, busy, by_name
+
+
+def profile_summary(prof):
+    """Device busy seconds (union of kernel intervals) and per-op device
+    microseconds by name, from a finished profiler."""
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -326,7 +357,7 @@ def device_profile(fn):
         if b > end:
             busy += b - max(a, end)
             end = b
-    return wall, busy * 1e-6, by_name
+    return busy * 1e-6, by_name
 
 
 def qkv(T, dtype, seed, H=12, D=64, B=1):
@@ -1702,6 +1733,489 @@ def phase_train_mnist_dp():
         fail("the process group outlived the MNIST data-parallel phase")
 
 
+# -- the ImageNet example's path (the twin's trainer) -------------------------
+
+#: the twin's convnets at the example's defaults: per-card batch 32 at
+#: 224^2, 1000 classes, lr 0.01, cut to 12 timed iterations (2 warm up)
+#: and 3 profiled ones over --n-train 512
+IMAGENET_ARCHS = ("alex", "nin", "vgg16", "googlenet")
+IMAGENET_BATCH, IMAGENET_STEPS, IMAGENET_WARMUP, IMAGENET_PROFILED = \
+    32, 12, 2, 3
+IMAGENET_N_TRAIN = 512
+#: the input pipeline: train_resnet's model through the twin (batch 64)
+PIPELINE_BATCH = 64
+PIPELINE_RUNS = [("thread", []), ("native", []), ("multiprocess", []),
+                 ("fused", ["--fused", "4"])]
+#: H100 SXM dense TF32 tensor-core peak: cuDNN runs fp32 convolutions on
+#: TF32 by PyTorch's default (cudnn.allow_tf32), which the port keeps
+PEAK_TF32_FLOPS = 495e12
+#: remat: train_resnet's model, each setting twice in turns
+REMAT_STEPS, REMAT_ORDER = 8, (False, True, True, False)
+#: remat against no remat, the small fp32 model on the card (TF32 off,
+#: deterministic cuDNN): the same kernels on the same inputs
+REMAT_TOL = 1e-5
+#: the convnets on the card against the CPU, TF32 off: fp32 logits and
+#: loss, fp64 gradients (phase_convnet_parity says why); summation order
+CONVNET_PARITY = {"alex": 67, "nin": 67, "vgg16": 64, "googlenet": 64}
+CONVNET_TOL = 1e-4
+
+
+def tf32_flags():
+    return {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def set_tf32(cudnn, matmul):
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def twin_args(*flags):
+    from chainermn_tpu_torch.examples import train_imagenet
+    return train_imagenet.parse_args(
+        ["--device", "cuda", "--communicator", "pure_nccl",
+         "--grad-dtype", "bfloat16", "-o",
+         os.path.join("build", "chip_smoke_imagenet"), *flags])
+
+
+def forward_flops(model, x):
+    """2 x the multiply-adds of the convolutions and linears of one
+    forward of ``x``, from their shapes (hooks on a no-grad forward)."""
+    from chainermn_tpu_torch.nn import links as L
+    total = [0]
+
+    def conv(link, inputs, y):
+        w = link.W
+        total[0] += 2 * y.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+
+    def linear(link, inputs, y):
+        total[0] += 2 * y.numel() * link.W.shape[1]
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, L.Convolution2D)
+                                     else linear)
+             for m in model.modules()
+             if isinstance(m, (L.Convolution2D, L.Linear))]
+    from chainermn_tpu_torch.core.config import using_config
+    try:
+        with torch.no_grad(), using_config("train", False):
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def run_twin(trainer, n_fused=1):
+    """Run the twin's trainer (its stop trigger at IMAGENET_STEPS +
+    IMAGENET_PROFILED updates' iterations), the launch counts read
+    around the run: the first IMAGENET_STEPS updates timed by CUDA
+    events (per step: an update's time / n_fused), the last
+    IMAGENET_PROFILED under the profiler; one loss per update (a fused
+    update reports the mean of its K steps).  Returns a dict."""
+    from torch.profiler import ProfilerActivity, profile
+    losses, marks, out = [], [], {}
+    timed = IMAGENET_STEPS // n_fused
+
+    def record(tr):
+        losses.append(tr.observation["main/loss"])
+        k = len(losses)
+        if k <= timed:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        if k == timed:
+            torch.cuda.synchronize()
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+            out["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+            out["prof"].__enter__()
+            out["t0"] = time.perf_counter()
+        elif k == timed + IMAGENET_PROFILED:
+            torch.cuda.synchronize()
+            out["wall_s"] = time.perf_counter() - out["t0"]
+            out["prof"].__exit__(None, None, None)
+
+    trainer.extend(record, name="record")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    trainer.run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    update_ms = [start.elapsed_time(marks[0])] + [
+        a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    busy, by_name = profile_summary(out.pop("prof"))
+    step_ms = [u / n_fused for u in update_ms]
+    median = float(np.median(step_ms[max(1, IMAGENET_WARMUP // n_fused):]))
+    return {"step_ms": step_ms, "median_step_ms": median,
+            "losses": [float(x) for x in losses],
+            "peak_bytes": out["peak_bytes"], "launches": launches,
+            "profiled_steps": IMAGENET_PROFILED * n_fused,
+            "wall_s": out["wall_s"], "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / out["wall_s"],
+            "classes_us": op_classes_us(by_name),
+            "pageable_h2d_us": sum(us for n, us in by_name.items()
+                                   if "Pageable" in n and "HtoD" in n),
+            "pinned_h2d_us": sum(us for n, us in by_name.items()
+                                 if "Pinned" in n and "HtoD" in n),
+            "top_kernels_us": [[n[:80], us] for n, us in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:8]]}
+
+
+def check_twin_row(name, row, n_losses):
+    if not (all(np.isfinite(row["losses"]))
+            and len(row["losses"]) == n_losses):
+        fail(f"{name} losses {row['losses']}")
+    if row["launches"] != expected_launches():
+        fail(f"{name} launched flash kernels: {row['launches']}")
+    if row["device_busy_s"] <= 0 or not row["classes_us"]["convolution"]:
+        fail(f"{name}: the profiled steps ran no convolution on the card: "
+             f"{row['classes_us']}")
+
+
+def phase_train_imagenet():
+    """The twin's trainer for each convnet arch at the example's
+    defaults, under PyTorch's TF32 defaults (the port sets none)."""
+    import torch.distributed as dist
+    from torch.nn.parameter import is_lazy
+
+    from chainermn_tpu_torch import create_communicator, scatter_dataset
+    from chainermn_tpu_torch.dataset import get_synthetic_imagenet
+    from chainermn_tpu_torch.examples import train_imagenet
+    flags = tf32_flags()
+    set_tf32(True, False)
+    comm = create_communicator("pure_nccl", allreduce_grad_dtype="bfloat16")
+    rows = []
+    try:
+        shard = scatter_dataset(get_synthetic_imagenet(n=IMAGENET_N_TRAIN),
+                                comm, shuffle=True, seed=0)
+        for arch in IMAGENET_ARCHS:
+            torch.cuda.empty_cache()
+            args = twin_args(
+                "--arch", arch, "-b", str(IMAGENET_BATCH), "--lr", "0.01",
+                "--n-train", str(IMAGENET_N_TRAIN), "--iterations",
+                str(IMAGENET_STEPS + IMAGENET_PROFILED))
+            model = train_imagenet.Classifier(train_imagenet.make_model(args))
+            flops = 3 * forward_flops(
+                model.predictor, torch.zeros(1, 3, 224, 224, device="cuda"))
+            trainer, _ = train_imagenet.make_trainer(args, comm=comm,
+                                                     data=shard, model=model)
+            row = run_twin(trainer)
+            images_per_s = IMAGENET_BATCH / (row["median_step_ms"] * 1e-3)
+            row = {"phase": "train_imagenet", "arch": arch,
+                   "batch": IMAGENET_BATCH, "image": 224,
+                   "params": sum(p.numel() for p in model.parameters()
+                                 if not is_lazy(p)),
+                   "images_per_s": images_per_s,
+                   "train_flops_per_image": flops,
+                   "mfu_tf32_peak": flops * images_per_s / PEAK_TF32_FLOPS,
+                   "tf32": tf32_flags(), **row}
+            del trainer, model
+            emit(row)
+            check_twin_row(f"train_imagenet {arch}", row,
+                           IMAGENET_STEPS + IMAGENET_PROFILED)
+            rows.append(row)
+    finally:
+        set_tf32(*flags.values())
+        comm.finalize()
+    if dist.is_initialized():
+        fail("the process group outlived the train_imagenet phase")
+    return rows
+
+
+def phase_train_imagenet_pipeline(resnet_row):
+    """train_resnet's model through the twin with --uint8-input
+    --device-prefetch 2 under each loader, then --fused 4, beside
+    train_resnet's reading from this call."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.examples import train_imagenet
+    comm = create_communicator("pure_nccl", allreduce_grad_dtype="bfloat16")
+    rows = []
+    x_bytes = PIPELINE_BATCH * 3 * RESNET_IMAGE ** 2   # uint8 images
+    try:
+        for label, extra in PIPELINE_RUNS:
+            torch.cuda.empty_cache()
+            n_fused = int(extra[1]) if extra else 1
+            loader = "thread" if label == "fused" else label
+            args = twin_args(
+                "--arch", "resnet50", "-b", str(PIPELINE_BATCH),
+                "--uint8-input", "--device-prefetch", "2", "--loader",
+                loader, "--n-train", str(IMAGENET_N_TRAIN), "--iterations",
+                str(IMAGENET_STEPS + IMAGENET_PROFILED * n_fused), *extra)
+            trainer, _ = train_imagenet.make_trainer(args, comm=comm,
+                                                     seed=0)
+            it = trainer.updater.get_iterator()
+            row = run_twin(trainer, n_fused)
+            if hasattr(it, "h2d_bytes"):
+                h2d = it.h2d_bytes / it.h2d_batches
+            else:   # the fused updater's converter copies each batch
+                h2d = x_bytes + PIPELINE_BATCH * 4
+            row = {"phase": "train_imagenet_pipeline", "run": label,
+                   "loader": loader, "fused": n_fused,
+                   "device_prefetch": 0 if n_fused > 1 else 2,
+                   "iterator": type(it).__name__,
+                   "images_per_s": PIPELINE_BATCH
+                   / (row["median_step_ms"] * 1e-3),
+                   "h2d_bytes_per_step": h2d,
+                   "fp32_h2d_bytes_per_step": 4 * x_bytes,
+                   "pageable_h2d_in_profile": row["pageable_h2d_us"] > 0,
+                   "train_resnet": {k: resnet_row[k] for k in (
+                       "images_per_s", "device_idle_share", "peak_bytes")},
+                   **row}
+            del trainer, it
+            emit(row)
+            check_twin_row(f"train_imagenet_pipeline {label}", row,
+                           IMAGENET_STEPS // n_fused + IMAGENET_PROFILED)
+            rows.append(row)
+    finally:
+        comm.finalize()
+    if dist.is_initialized():
+        fail("the process group outlived the pipeline phase")
+    return rows
+
+
+def finetune_bn(device):
+    """A convolution and a batch norm called with ``finetune=True``,
+    whose ``N`` counts the training forwards."""
+    from chainermn_tpu_torch.core.link import Chain
+    from chainermn_tpu_torch.nn import links as L
+
+    class FinetuneBN(Chain):
+        # two pairs: a recompute may stop after the last saved tensor,
+        # before the last batch norm's update, but not before the first's
+        def __init__(self):
+            super().__init__()
+            self.conv = L.Convolution2D(3, 8, 3, pad=1, seed=1,
+                                        device=device)
+            self.bn = L.BatchNormalization(8, device=device)
+            self.conv2 = L.Convolution2D(8, 8, 3, pad=1, seed=2,
+                                         device=device)
+            self.bn2 = L.BatchNormalization(8, device=device)
+
+        def forward(self, x):
+            h = torch.relu(self.bn(self.conv(x), finetune=True))
+            return self.bn2(self.conv2(h), finetune=True)
+
+    return FinetuneBN()
+
+
+def remat_small_run(device, remat, steps=3):
+    """RESNET_PARITY's model (fp32, MomentumSGD) with or without remat
+    for ``steps`` steps, and a batch norm with finetune checkpointed the
+    same way: (losses, state, N of the finetune batch norm)."""
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import Classifier, ResNet
+    from chainermn_tpu_torch.models.resnet import checkpoint_link
+    cfg = RESNET_PARITY
+    model = Classifier(ResNet(cfg["blocks"], n_classes=cfg["n_classes"],
+                              seed=0, layout="NHWC", remat=remat,
+                              device=device))
+    opt = MomentumSGD(lr=cfg["lr"], momentum=0.9).setup(model)
+    ft = finetune_bn(device)
+    rng = np.random.RandomState(4)
+    losses = []
+    for _ in range(steps):
+        x = rng.normal(0, 1, (cfg["batch"], cfg["size"], cfg["size"], 3))
+        t = rng.randint(0, cfg["n_classes"], cfg["batch"])
+        losses.append(opt.update(
+            model, torch.from_numpy(x.astype(np.float32)).to(device),
+            torch.from_numpy(t).to(device)).item())
+        xf = torch.from_numpy(x.astype(np.float32)).to(device) \
+            .permute(0, 3, 1, 2).contiguous()
+        y = checkpoint_link(ft, xf) if remat else ft(xf)
+        y.sum().backward()
+    state = {p: v.detach().cpu() for p, v in model.namedparams()}
+    state.update((p, v.cpu()) for p, v in model.namedpersistent())
+    return losses, state, int(ft.bn.N)
+
+
+def phase_resnet_remat():
+    """ResNet-50 (train_resnet's model and data) with remat off and on in
+    turns: step time and peak memory; then the small fp32 ResNet with
+    and without remat, held equal (TF32 off, cudnn.deterministic on)."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     scatter_dataset)
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import Classifier, ResNet50
+    comm = create_communicator("pure_nccl", allreduce_grad_dtype="bfloat16")
+    runs = []
+    try:
+        shard = scatter_dataset(resnet_data(), comm)
+        for remat in REMAT_ORDER:
+            torch.cuda.empty_cache()
+            model = Classifier(ResNet50(compute_dtype=torch.bfloat16,
+                                        device="cuda", remat=remat,
+                                        **RESNET))
+            opt = create_multi_node_optimizer(
+                MomentumSGD(lr=0.1, momentum=0.9), comm).setup(model)
+            updater, step_ms, losses, peak, launches = timed_trainer_run(
+                opt, shard, RESNET_BATCH, REMAT_STEPS, "chip_smoke_remat")
+            wall, busy, _ = device_profile(
+                lambda: [updater.update() for _ in range(3)])
+            runs.append({"remat": remat, "step_ms": step_ms,
+                         "median_step_ms": float(np.median(
+                             step_ms[RESNET_WARMUP:])),
+                         "peak_bytes": peak, "losses": losses,
+                         "device_busy_ms_per_step": busy / 3 * 1e3,
+                         "device_idle_share": 1.0 - busy / wall,
+                         "launches": launches})
+            del model, opt
+    finally:
+        comm.finalize()
+    flags = tf32_flags()
+    deterministic = torch.backends.cudnn.deterministic
+    set_tf32(False, False)
+    torch.backends.cudnn.deterministic = True
+    try:
+        off = remat_small_run("cuda", False)
+        on = remat_small_run("cuda", True)
+    finally:
+        set_tf32(*flags.values())
+        torch.backends.cudnn.deterministic = deterministic
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(on[0], off[0]))
+    state_err = max(((on[1][p] - v).abs().max()
+                     / max(v.abs().max(), 1e-30)).item()
+                    for p, v in off[1].items() if v.is_floating_point())
+    ints_equal = all(torch.equal(on[1][p], v) for p, v in off[1].items()
+                     if not v.is_floating_point())
+    row = {"phase": "resnet_remat", "batch": RESNET_BATCH, "runs": runs,
+           "small": {"losses": on[0], "no_remat_losses": off[0],
+                     "loss_rel_err": loss_err, "state_rel_err": state_err,
+                     "int_state_equal": ints_equal,
+                     "finetune_N": [on[2], off[2]], "tol": REMAT_TOL}}
+    emit(row)
+    for r in runs:
+        if not all(np.isfinite(r["losses"])) \
+                or r["launches"] != expected_launches():
+            fail(f"resnet_remat run {r}")
+    if not (loss_err < REMAT_TOL and state_err < REMAT_TOL and ints_equal
+            and on[2] == off[2] == 3):
+        fail(f"remat leaves the plain step: {row['small']}")
+    if dist.is_initialized():
+        fail("the process group outlived the remat phase")
+    return row
+
+
+def small_convnet(arch, device):
+    """The arch at 10 classes, weights from seed 0, in a Classifier."""
+    from chainermn_tpu_torch import models
+    cls = {"alex": models.AlexNet, "nin": models.NIN, "vgg16": models.VGG16,
+           "googlenet": models.GoogLeNet}[arch]
+    return models.Classifier(cls(n_classes=10, seed=0, device=device))
+
+
+def convnet_eval_grads(arch, device, x, t, dtype=torch.float32):
+    """The small arch's logits, loss and parameter gradients under
+    train=False on ``device``, in ``dtype`` (the lazy layers made in
+    fp32 first, from the seed)."""
+    from chainermn_tpu_torch.core.config import using_config
+    model = small_convnet(arch, device)
+    x, t = torch.from_numpy(x).to(device), torch.from_numpy(t).to(device)
+    with torch.no_grad(), using_config("train", False):
+        model.predictor(x)
+    model = model.to(dtype)
+    with using_config("train", False):
+        logits = model.predictor(x.to(dtype))
+        loss = model(x.to(dtype), t)
+    loss.backward()
+    grads = {p: v.grad.detach().cpu() for p, v in model.namedparams()
+             if v.grad is not None}
+    return logits.detach().cpu(), loss.item(), grads
+
+
+def grad_errs(grads, ref):
+    """The worst gradient error relative to each parameter's largest
+    |reference|, and how many elements are off by more than CONVNET_TOL
+    of it."""
+    worst, n_off = 0.0, 0
+    for p, g in ref.items():
+        scale = max(g.abs().max().item(), 1e-30)
+        diff = (grads[p] - g).abs()
+        worst = max(worst, diff.max().item() / scale)
+        n_off += int((diff > CONVNET_TOL * scale).sum())
+    return worst, n_off
+
+
+def convnet_train_losses(arch, x, t, steps=3):
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    model = small_convnet(arch, "cuda")
+    opt = MomentumSGD(lr=0.01, momentum=0.9)
+    opt.seed = 0
+    opt.setup(model)
+    x, t = torch.from_numpy(x).cuda(), torch.from_numpy(t).cuda()
+    return [opt.update(model, x, t).item() for _ in range(steps)]
+
+
+def phase_convnet_parity():
+    """Each convnet, small (10 classes, batch 2): the card against the
+    CPU under train=False (dropout the identity), TF32 off: the fp32
+    logits and loss, and the parameter gradients in fp64.  An fp32
+    whole-model gradient of a ReLU and max-pool network moves a channel
+    by a share of its largest value wherever a pre-activation or a
+    window's runner-up lies within the rounding of 0 or of the maximum,
+    which either side crosses at its own places (PERF.md, Findings); fp64
+    leaves no such element, so it holds the card's gradient to the
+    CPU's.  The fp32 gradients' distance is printed beside it.  Then 3
+    fp32 training steps on the card, twice from one seed."""
+    flags = tf32_flags()
+    deterministic = torch.backends.cudnn.deterministic
+    set_tf32(False, False)
+    torch.backends.cudnn.deterministic = True
+    rows = {}
+    try:
+        for arch, size in CONVNET_PARITY.items():
+            rng = np.random.RandomState(3)
+            x = rng.normal(0, 1, (2, 3, size, size)).astype(np.float32)
+            t = rng.randint(0, 10, 2).astype(np.int64)
+            reset_launches()
+            lc, loss_c, gc = convnet_eval_grads(arch, "cuda", x, t)
+            lh, loss_h, gh = convnet_eval_grads(arch, "cpu", x, t)
+            _, _, gc64 = convnet_eval_grads(arch, "cuda", x, t,
+                                            torch.float64)
+            _, _, gh64 = convnet_eval_grads(arch, "cpu", x, t,
+                                            torch.float64)
+            first = convnet_train_losses(arch, x, t)
+            again = convnet_train_losses(arch, x, t)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            dropout = arch != "nin"
+            rows[arch] = {
+                "size": size,
+                "logit_rel_err": ((lc - lh).abs().max()
+                                  / max(lh.abs().max(), 1e-30)).item(),
+                "loss_rel_err": abs(loss_c - loss_h) / abs(loss_h),
+                "grad64_rel_err": grad_errs(gc64, gh64)[0],
+                "grad32_rel_err_and_elements_off": grad_errs(gc, gh),
+                "card32_vs_64": grad_errs(
+                    gc, {p: g.float() for p, g in gc64.items()}),
+                "cpu32_vs_64": grad_errs(
+                    gh, {p: g.float() for p, g in gh64.items()}),
+                "grads": len(gh),
+                "same_grad_paths": sorted(gc) == sorted(gh),
+                "eval_loss": loss_c, "cpu_eval_loss": loss_h,
+                "train_losses": first, "again_bitwise": first == again,
+                "dropout_live": first[0] != loss_c if dropout
+                else first[0] == loss_c, "launches": launches}
+    finally:
+        set_tf32(*flags.values())
+        torch.backends.cudnn.deterministic = deterministic
+    emit({"phase": "convnet_parity", "tol": CONVNET_TOL, **rows})
+    for arch, r in rows.items():
+        if not (r["logit_rel_err"] < CONVNET_TOL
+                and r["loss_rel_err"] < CONVNET_TOL
+                and r["grad64_rel_err"] < CONVNET_TOL
+                and r["same_grad_paths"]
+                and all(np.isfinite(r["train_losses"]))
+                and r["again_bitwise"] and r["dropout_live"]
+                and r["launches"] == expected_launches()):
+            fail(f"convnet_parity {arch}: {r}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -1763,6 +2277,11 @@ def main():
     phase_exchange_parity()
     phase_train_mnist()
     phase_train_mnist_dp()
+    torch.cuda.empty_cache()
+    phase_train_imagenet()
+    phase_train_imagenet_pipeline(resnet_row)
+    phase_resnet_remat()
+    phase_convnet_parity()
 
     main_check = next(c for c in checks
                       if c["B"] == 1 and c["T"] == 1024 and c["causal"])

@@ -384,15 +384,12 @@ def test_a_port_snapshot_resumes_in_jax(trainers):
 
 
 def test_the_port_snapshot_has_the_jax_keys(trainers):
-    """The same keys, shapes and dtypes; the one key the port does not
-    write is the JAX optimizer's PRNG key (the port has no stochastic
-    layer yet; a key loaded from a JAX snapshot is written back)."""
+    """The same keys, shapes and dtypes, the optimizer's per-step PRNG
+    key (``core.rng``, two uint32 words) included."""
     tmp, _, _ = trainers
     with np.load(str(tmp / "jax" / "snapshot_iter_4")) as j, \
             np.load(str(tmp / "port" / "snapshot_iter_4")) as t:
-        assert sorted(set(j.files) - set(t.files)) == [
-            "updater/optimizer:main/rng_key"]
-        assert set(t.files) <= set(j.files)
+        assert set(t.files) == set(j.files)
         for key in t.files:
             assert t[key].dtype == j[key].dtype, key
             if not key.endswith("log_json"):   # the log's JSON bytes

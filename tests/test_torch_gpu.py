@@ -4,8 +4,11 @@ the no-grad forward (``_flash_kernel``), the lse forward
 and the split backward's dq and dk/dv passes (``_flash_bwd_dq_kernel``,
 ``_flash_bwd_dkv_kernel``); the gradient exchange over NCCL in a world of
 one process, the double-buffered exchange's asynchrony and the sharded
-exchanges against the plain one there; and the ResNet path's cuDNN
-layout and its fp32 step against the CPU's.
+exchanges against the plain one there; the ResNet path's cuDNN layout,
+its fp32 step against the CPU's and its remat step against the plain
+one; and the ImageNet example's input pipeline and dropout on the card:
+the device-feed stage's batches and copy stream, masks per step and per
+seed, and the native loader's build.
 
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -714,3 +717,149 @@ def test_sharded_exchanges_equal_the_plain_step_at_a_world_of_one(
         assert all(p.grad is None for p in model.parameters())
         assert opt.actual_optimizer._state["flat"]["trace"].numel() \
             == opt._flat_layout()[1]
+
+
+@pytest.mark.gpu
+def test_prefetched_batches_equal_the_base_and_copy_on_a_side_stream(
+        cuda_device, tmp_path):
+    """The device-feed stage's batches, byte for byte the base iterator's
+    stacked batches, copied from pinned memory on a stream other than the
+    one the step's kernels run on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chainermn_tpu_torch.dataset import (DevicePrefetchIterator,
+                                             SerialIterator, concat_examples)
+    rng = np.random.RandomState(0)
+    data = [(rng.randint(0, 256, (3, 32, 32)).astype(np.uint8),
+             np.int32(i)) for i in range(24)]
+    ref = SerialIterator(data, 4, shuffle=True, seed=5)
+    pref = DevicePrefetchIterator(SerialIterator(data, 4, shuffle=True,
+                                                 seed=5),
+                                  size=2, converter=concat_examples)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            x, t = pref.next()
+            (x.float() * 2).sum()   # a kernel on the consumer's stream
+            want = concat_examples(ref.next())
+            assert x.device.type == "cuda" and x.dtype == torch.uint8
+            assert np.array_equal(x.cpu().numpy(), want[0])
+            assert np.array_equal(t.cpu().numpy(), want[1])
+        torch.cuda.synchronize()
+    pref.finalize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    copies = [e for e in events if "HtoD" in e.get("name", "")]
+    kernels = {e["args"].get("stream") for e in events
+               if e.get("cat") == "kernel"}
+    assert copies and all("Pinned" in e["name"] for e in copies)
+    assert not {e["args"].get("stream") for e in copies} & kernels
+    assert pref.h2d_bytes == pref.h2d_batches * 4 * (3 * 32 * 32 + 4)
+
+
+@pytest.mark.gpu
+def test_dropout_on_the_card_per_seed_and_per_step(cuda_device):
+    from chainermn_tpu_torch.core import rng
+    from chainermn_tpu_torch.core.link import Chain
+    from chainermn_tpu_torch.core.optimizer import SGD
+    from chainermn_tpu_torch.nn import functions as F
+    from chainermn_tpu_torch.nn import links as L
+
+    x = torch.ones(4096, device=cuda_device)
+    key = rng.make_key(3)
+    masks = []
+    for _ in range(2):
+        with rng.key_scope(key, cuda_device):
+            assert rng.next_key().device.type == "cuda"
+            masks.append(F.dropout(x, 0.5) != 0)
+    assert torch.equal(masks[0], masks[1])
+
+    class Dropper(Chain):
+        def __init__(self):
+            super().__init__()
+            self.l1 = L.Linear(8, 64, seed=0, device=cuda_device)
+
+        def forward(self, x, t):
+            return F.softmax_cross_entropy(F.dropout(self.l1(x)), t)
+
+    r = np.random.RandomState(2)
+    xb = torch.from_numpy(r.normal(0, 1, (16, 8)).astype(np.float32)) \
+        .to(cuda_device)
+    tb = torch.from_numpy(r.randint(0, 64, 16)).to(cuda_device)
+    runs = []
+    for seed in (0, 0, 1):
+        model = Dropper()
+        opt = SGD(lr=0.0)
+        opt.seed = seed
+        opt.setup(model)
+        runs.append([opt.update(model, xb, tb).item() for _ in range(3)])
+    assert runs[0] == runs[1]             # the same seed: the same masks
+    assert len(set(runs[0])) == 3         # new masks every step
+    assert runs[2] != runs[0]
+
+
+@pytest.mark.gpu
+def test_resnet_remat_equals_no_remat_on_the_card(cuda_device):
+    """The small fp32 ResNet with and without remat, 3 MomentumSGD steps
+    (TF32 off, deterministic cuDNN): losses, parameters and running
+    statistics within 1e-5 relative."""
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import Classifier, ResNet
+    rng = np.random.RandomState(4)
+    batches = [(torch.from_numpy(rng.normal(0, 1, (8, 16, 16, 3)).astype(
+        np.float32)).to(cuda_device),
+        torch.from_numpy(rng.randint(0, 10, 8)).to(cuda_device))
+        for _ in range(3)]
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for remat in (False, True):
+            model = Classifier(ResNet([1, 1, 1, 1], n_classes=10, seed=0,
+                                      layout="NHWC", remat=remat,
+                                      device=cuda_device))
+            opt = MomentumSGD(lr=1e-3, momentum=0.9).setup(model)
+            losses = [opt.update(model, x, t).item() for x, t in batches]
+            state = {p: v.detach().cpu() for p, v in model.namedparams()}
+            state.update((p, v.cpu()) for p, v in model.namedpersistent())
+            runs[remat] = (losses, state)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+    np.testing.assert_allclose(runs[True][0], runs[False][0], rtol=1e-5)
+    for p, v in runs[False][1].items():
+        got = runs[True][1][p]
+        if v.is_floating_point():
+            scale = max(v.abs().max().item(), 1e-30)
+            assert (got - v).abs().max().item() <= 1e-5 * scale, p
+        else:
+            assert torch.equal(got, v), p
+
+
+@pytest.mark.gpu
+def test_native_loader_builds_from_the_repo_and_raises_when_broken(
+        cuda_device, tmp_path):
+    """With a card present, the C++ gather engine builds from the repo's
+    copy; a broken source raises, and the iterator runs no other loader
+    in its place."""
+    from chainermn_tpu_torch.dataset import NativeBatchIterator, TupleDataset
+    from chainermn_tpu_torch.utils import native
+    lib = native.load_library()
+    assert lib is not None and native.library_path().exists()
+    x = np.arange(64, dtype=np.float32).reshape(32, 2)
+    y = np.arange(32, dtype=np.int32)
+    it = NativeBatchIterator(TupleDataset(x, y), 8, shuffle=False)
+    bx, by = it.next()
+    it.finalize()
+    assert np.array_equal(bx, x[:8]) and np.array_equal(by, y[:8])
+    bad = tmp_path / "dataloader.cpp"
+    bad.write_text("int broken(\n")
+    with pytest.raises(native.NativeBuildFailed):
+        native.load_library(bad)

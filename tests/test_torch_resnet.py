@@ -290,8 +290,11 @@ def test_resnet50_has_the_jax_paths_shapes_and_weights():
 
 
 def test_remat_is_refused():
-    with pytest.raises(NotImplementedError, match="A6"):
-        ResNet50(remat=True, device="cpu")
+    """No longer refused: ``remat=True`` checkpoints each stage, its
+    running statistics moved once a step (the comparisons with
+    ``remat=False`` are in ``tests/test_torch_resnet_remat.py``)."""
+    model = ResNet50(remat=True, device="cpu")
+    assert model.remat is True
 
 
 def test_classifier_mlp_with_lazy_links_matches_jax():
