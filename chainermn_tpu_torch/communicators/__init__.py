@@ -11,21 +11,37 @@ name                 port realization
 ``naive``            one allreduce per gradient leaf
 ``non_cuda_aware``   alias of ``naive``
 ``flat``             one flat-bucket allreduce of all gradients
-``pure_nccl``        flat bucket, optional ``allreduce_grad_dtype`` (e.g.
-                     bf16) on the wire; ``batch_collectives="bucketed"``
-                     gives ``bucket_mb``-bounded buckets
+``pure_nccl``        flat bucket, optional ``allreduce_grad_dtype`` on the
+                     wire (a cast such as bf16, or an int8/fp8 quantized
+                     wire with error feedback); ``batch_collectives=
+                     "bucketed"`` gives ``bucket_mb``-bounded buckets
 ``jax_ici``          the JAX package's canonical name (= ``pure_nccl``)
 ``single_node``      checks that every rank is on one host, else
                      ``pure_nccl``
 ``dummy``            no-op loopback
 ``debug``            cross-rank signature checks before each exchange
-``hierarchical``,    raise ``NotImplementedError`` (two-level exchange,
-``two_dimensional``  ROADMAP A10)
+``hierarchical``     the two-level exchange: reduce-scatter over the
+                     intra-node group, the ``1/intra`` chunk's exchange
+                     over the inter-node group, all-gather over the
+                     intra-node group.  The split comes from the hosts of
+                     the ranks, or from ``intra_size=``/``inter_size=``
+                     (which make any fused name hierarchical); a
+                     ``{"ici": .., "dcn": ..}`` dtype sets each hop's wire
+                     (a scalar quantized dtype compresses the inter-node
+                     hop only, a scalar cast both).
+                     ``CHAINERMN_TPU_HIERARCHY=flat`` falls back to the
+                     flat exchange
+``two_dimensional``  the same two-level exchange (the reference's
+                     leader-staged and chunked variants collapse onto the
+                     chunked one, as in the JAX package)
 ``fault``            raises ``NotImplementedError`` (fault injection, A11)
 ===================  ========================================================
 """
 
 from __future__ import annotations
+
+import os
+import warnings
 
 from ._communication_utility import init_ranks, initialize_distributed
 from .communicator_base import CommunicatorBase
@@ -50,9 +66,8 @@ EXCHANGES = ("per_leaf", "flat", "bucketed", "reduce_scatter",
 def exchange_knobs(exchange):
     """``(communicator name, batch_collectives, optimizer exchange=)``
     for a named gradient-exchange structure, the JAX package's mapping
-    (the port runs ``per_leaf``, ``flat`` and ``bucketed``; the others
-    name communicators or optimizer exchanges that raise until ROADMAP
-    A5/A10 port them)."""
+    (the striped ones also need a ``stripe_ratio``, which raises until
+    ROADMAP A10's second half ports it)."""
     try:
         name, bc = {
             "per_leaf": ("jax_ici", False),
@@ -76,7 +91,8 @@ def exchange_knobs(exchange):
 def create_communicator(communicator_name="jax_ici", device=None,
                         allreduce_grad_dtype=None, batch_collectives=None,
                         bucket_mb=None, intra_size=None, inter_size=None,
-                        stripe_ratio=None, autotune=None, group=None):
+                        error_feedback=True, stripe_ratio=None,
+                        autotune=None, group=None):
     """Create a communicator by reference name.
 
     ``device``: where this rank's tensors live, as every entry point of
@@ -85,25 +101,53 @@ def create_communicator(communicator_name="jax_ici", device=None,
     use from ``torchrun``'s environment, or as a world of one process
     (:func:`initialize_distributed`); ``group`` takes an existing group
     instead.  ``allreduce_grad_dtype``: the gradient's wire dtype on the
-    fused-bucket communicators (``"bfloat16"``: cast, allreduce, cast
-    back).  ``batch_collectives``: ``False`` (per leaf), ``True`` (one
-    flat bucket, the default of the fused names) or ``"bucketed"``
-    (``bucket_mb``-bounded buckets, ``CHAINERMN_TPU_BUCKET_MB``).
+    fused-bucket communicators: a cast (``"bfloat16"``: cast, allreduce,
+    cast back) or a quantized wire (``"int8"``, ``"float8_e4m3"``,
+    ``"float8_e5m2"``: a per-bucket symmetric scale, with
+    ``error_feedback`` carrying the quantization residual); on a
+    hierarchical communicator also a per-hop ``{"ici": .., "dcn": ..}``
+    dict.  ``CHAINERMN_TPU_COMPRESS=off`` turns the quantized wires back
+    into lossless ones.  ``batch_collectives``: ``False`` (per leaf),
+    ``True`` (one flat bucket, the default of the fused names) or
+    ``"bucketed"`` (``bucket_mb``-bounded buckets,
+    ``CHAINERMN_TPU_BUCKET_MB``).  ``intra_size``/``inter_size`` force the
+    two-level split (ranks per node x nodes) and make any fused name
+    hierarchical.  ``CHAINERMN_TPU_HIERARCHY=flat`` turns
+    ``hierarchical``/``two_dimensional`` into the flat exchange (sizes
+    dropped; a per-hop dict keeps its ``dcn`` entry, else its ``ici``
+    one, with a warning once per dict).
 
-    ``intra_size``/``inter_size`` (the hierarchical split),
     ``stripe_ratio`` and ``autotune`` raise ``NotImplementedError``: the
-    two-level exchange and self-tuning are ROADMAP A10."""
+    striped exchange and self-tuning are ROADMAP A10's second half."""
     name = communicator_name
     if name not in _NAMES:
         raise ValueError(
             f"unknown communicator {name!r}; choose from {_NAMES}")
     if name in ("hierarchical", "two_dimensional") \
-            or intra_size is not None or inter_size is not None:
-        raise NotImplementedError(
-            f"communicator {name!r} with intra_size={intra_size}, "
-            f"inter_size={inter_size}: the two-level (intra-node x "
-            "inter-node) exchange is not ported yet (ROADMAP A10)")
-    if stripe_ratio:
+            and os.environ.get("CHAINERMN_TPU_HIERARCHY", "") \
+            .strip().lower() in ("flat", "off", "0"):
+        # the escape hatch: the flat one-hop exchange, split dropped
+        intra_size = inter_size = None
+        if isinstance(allreduce_grad_dtype, dict):
+            chosen = "dcn" if allreduce_grad_dtype.get("dcn") is not None \
+                else "ici"
+            _warn_hierarchy_flat_dict_degraded(allreduce_grad_dtype, chosen)
+            allreduce_grad_dtype = allreduce_grad_dtype.get(chosen)
+        try:
+            stripe = stripe_ratio if stripe_ratio is not None else float(
+                os.environ.get("CHAINERMN_TPU_STRIPE_RATIO", "") or 0)
+        except ValueError:
+            stripe = 0
+        if stripe:
+            _warn_hierarchy_flat_stripe_dropped(stripe)
+        stripe_ratio = None
+        name = "jax_ici"
+    if stripe_ratio is None and (
+            name in ("hierarchical", "two_dimensional")
+            or intra_size is not None or inter_size is not None):
+        stripe_ratio = os.environ.get("CHAINERMN_TPU_STRIPE_RATIO",
+                                      "").strip() or None
+    if stripe_ratio and float(stripe_ratio):
         raise NotImplementedError(
             "stripe_ratio: the striped multi-path exchange is not ported "
             "yet (ROADMAP A10)")
@@ -122,19 +166,68 @@ def create_communicator(communicator_name="jax_ici", device=None,
                                  allreduce_grad_dtype=allreduce_grad_dtype,
                                  batch_collectives=batch_collectives or False,
                                  bucket_mb=bucket_mb)
-    if allreduce_grad_dtype is not None and name not in ("pure_nccl",
-                                                         "jax_ici"):
+    if allreduce_grad_dtype is not None and name not in (
+            "pure_nccl", "jax_ici", "hierarchical", "two_dimensional"):
         raise ValueError(
             f"allreduce_grad_dtype is supported by the fused-bucket "
             f"communicators, not {name!r} (reference: pure_nccl-only)")
+    if isinstance(allreduce_grad_dtype, dict) \
+            and name not in ("hierarchical", "two_dimensional") \
+            and intra_size is None and inter_size is None:
+        raise ValueError(
+            f"per-hop allreduce_grad_dtype dicts are a hierarchical-"
+            f"communicator knob, not {name!r} without an intra_size/"
+            f"inter_size split (a flat exchange has one hop)")
     if batch_collectives is None:
         batch_collectives = name in ("flat", "pure_nccl", "jax_ici",
+                                     "hierarchical", "two_dimensional",
                                      "single_node")
     comm = MeshCommunicator(device=device, group=group,
                             allreduce_grad_dtype=allreduce_grad_dtype,
                             batch_collectives=batch_collectives,
-                            bucket_mb=bucket_mb, name=name)
+                            bucket_mb=bucket_mb, name=name,
+                            intra_size=intra_size, inter_size=inter_size,
+                            error_feedback=error_feedback)
     if name == "single_node" and comm.inter_size != 1:
         raise ValueError("single_node communicator requires one host "
                          f"(the ranks span {comm.inter_size} hosts)")
     return comm
+
+
+#: per-hop dicts and stripe ratios already warned about under the flat
+#: escape hatch (once each: a loop that builds communicators must not
+#: repeat it)
+_WARNED_FLAT_DICTS = set()
+_WARNED_FLAT_STRIPES = set()
+
+
+def _warn_hierarchy_flat_stripe_dropped(stripe_ratio):
+    if stripe_ratio in _WARNED_FLAT_STRIPES:
+        return
+    _WARNED_FLAT_STRIPES.add(stripe_ratio)
+    warnings.warn(
+        f"CHAINERMN_TPU_HIERARCHY=flat drops stripe_ratio="
+        f"{stripe_ratio}: the flat one-axis alias has a single fabric, "
+        f"so the multi-path striped exchange degrades to the flat "
+        f"single-path allreduce.  Unset CHAINERMN_TPU_HIERARCHY to "
+        f"restore the striped two-fabric schedule.",
+        UserWarning, stacklevel=3)
+
+
+def _warn_hierarchy_flat_dict_degraded(dtype_dict, chosen_key):
+    key = tuple(sorted((k, str(v)) for k, v in dtype_dict.items()))
+    if key in _WARNED_FLAT_DICTS:
+        return
+    _WARNED_FLAT_DICTS.add(key)
+    dropped = sorted(k for k, v in dtype_dict.items()
+                     if k != chosen_key and v is not None)
+    detail = (f"dropped per-hop entries {dropped} "
+              if dropped else "per-hop structure dropped ")
+    warnings.warn(
+        f"CHAINERMN_TPU_HIERARCHY=flat degrades per-hop "
+        f"allreduce_grad_dtype={dtype_dict!r} to its {chosen_key!r} "
+        f"entry ({dtype_dict.get(chosen_key)!r}) on the ONE flat hop: "
+        f"{detail}— the full gradient now rides the {chosen_key} "
+        f"compression instead of only that hop's chunk.  Unset "
+        f"CHAINERMN_TPU_HIERARCHY to restore the two-level exchange.",
+        UserWarning, stacklevel=3)

@@ -2,32 +2,55 @@
 
 The port of the pure parts of ``chainermn_tpu.communicators._memory_utility``:
 :func:`tree_pack`/:func:`tree_unpack`, :func:`plan_buckets`,
-:func:`resolve_grad_dtype`, :func:`pack_params`/:func:`unpack_params`
-and the sharded update's flat layout (:func:`padded_length`,
-:func:`chunk_bounds`).
+:func:`hop_schedule` (its ``"hierarchical"`` mode), :func:`pad_to_multiple`,
+:func:`resolve_grad_dtype`, :func:`pack_params`/:func:`unpack_params`,
+the sharded update's flat layout (:func:`padded_length`,
+:func:`chunk_bounds`, :func:`chain_chunk_index`), the quantized wire
+(:func:`quantize_symmetric` and its inverse, the error-feedback residual,
+:func:`dequantize_sum`) and the wire-byte accounting
+(:func:`exchanged_bytes`, :func:`hierarchical_exchanged_bytes`,
+:func:`quantized_hop_bytes`).
 A "tree" here is a sequence of tensors (the port's gradients are
-``Parameter.grad`` tensors, not a pytree).  The quantized and striped
-helpers wait for ROADMAP A10.
+``Parameter.grad`` tensors, not a pytree).  The striped helpers wait for
+ROADMAP A10.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 __all__ = ["pack_params", "unpack_params", "tree_pack", "tree_unpack",
-           "plan_buckets", "resolve_grad_dtype", "is_quantized_dtype",
-           "padded_length", "chunk_bounds", "DEFAULT_BUCKET_MB"]
+           "plan_buckets", "hop_schedule", "pad_to_multiple",
+           "resolve_grad_dtype", "is_quantized_dtype", "QUANTIZED_DTYPES",
+           "quantize_symmetric", "dequantize_symmetric",
+           "quantization_residual", "quantize_with_feedback",
+           "dequantize_sum", "exchanged_bytes",
+           "hierarchical_exchanged_bytes", "quantized_hop_bytes",
+           "padded_length", "chunk_bounds", "chain_chunk_index",
+           "DEFAULT_BUCKET_MB"]
 
 #: default bucket bound (MB) for the bucketed exchange, as in the JAX
 #: package (``CHAINERMN_TPU_BUCKET_MB`` overrides)
 DEFAULT_BUCKET_MB = 4.0
 
-#: the quantized wire names (their exchange waits for ROADMAP A10)
+#: the quantized wire names, mapped to the largest magnitude each can
+#: represent (the symmetric scale's target).  int8 uses +-127 (-128 is
+#: never emitted: a symmetric codebook keeps Q(-v) == -Q(v)); e4m3 is the
+#: OCP finite-only ``e4m3fn`` variant (max 448), e5m2 has max 57344.
+QUANTIZED_DTYPES = {"int8": 127.0, "float8_e4m3": 448.0,
+                    "float8_e5m2": 57344.0}
+
+#: the names :func:`resolve_grad_dtype` maps onto the quantized torch
+#: dtypes
 _QUANTIZED_TORCH = {"int8": torch.int8,
                     "float8_e4m3": torch.float8_e4m3fn,
                     "float8_e4m3fn": torch.float8_e4m3fn,
                     "float8_e5m2": torch.float8_e5m2}
+_QUANT_KEY = {torch.int8: "int8", torch.float8_e4m3fn: "float8_e4m3",
+              torch.float8_e5m2: "float8_e5m2"}
 
 
 def tree_pack(tensors, dtype=None):
@@ -87,13 +110,50 @@ def plan_buckets(shapes, dtypes, bucket_bytes):
     return buckets
 
 
+def hop_schedule(n_buckets, mode="hierarchical"):
+    """The emission order of the two-level exchange: ``(op, bucket)``
+    pairs that the hierarchical exchange follows literally.  Per bucket
+    ``"ici_reduce_scatter"`` (fast hop, the whole bucket), then
+    ``"dcn_exchange"`` (slow hop, the ``1/intra`` chunk); after every
+    bucket's slow hop, the ``"ici_all_gather"``s.  Buckets in plan
+    order.  Every rank emits the same order, which keeps the collectives
+    of the two groups from deadlocking each other.  Only the
+    ``"hierarchical"`` mode is ported (the striped and MoE schedules come
+    with their callers)."""
+    if n_buckets < 0:
+        raise ValueError(f"n_buckets must be >= 0, got {n_buckets}")
+    if mode != "hierarchical":
+        raise ValueError(f"unknown hop_schedule mode {mode!r}")
+    schedule = []
+    for b in range(n_buckets):
+        schedule.append(("ici_reduce_scatter", b))
+        schedule.append(("dcn_exchange", b))
+    for b in range(n_buckets):
+        schedule.append(("ici_all_gather", b))
+    return schedule
+
+
+def pad_to_multiple(flat, multiple):
+    """Zero-pad a 1-D vector up to the next multiple of ``multiple`` (a
+    reduce-scatter needs its length divisible by the group's size).
+    Returns ``(padded, true_length)``."""
+    n = flat.shape[0]
+    n_pad = -(-n // multiple) * multiple
+    if n_pad == n:
+        return flat, n
+    return torch.nn.functional.pad(flat, (0, n_pad - n)), n
+
+
 def resolve_grad_dtype(dtype):
     """``allreduce_grad_dtype`` entry as a ``torch.dtype``: a torch dtype,
     or a name (``"bfloat16"``, ``"float16"``, ``"float32"``, the quantized
-    wire names).  ``None`` passes through (lossless)."""
+    wire names: ``"int8"``, ``"float8_e4m3"`` and ``"float8_e4m3fn"`` give
+    ``torch.float8_e4m3fn``, ``"float8_e5m2"`` gives
+    ``torch.float8_e5m2``).  ``None`` passes through (lossless)."""
     if dtype is None or isinstance(dtype, torch.dtype):
         return dtype
     name = str(np.dtype(dtype)) if not isinstance(dtype, str) else dtype
+    name = name.removeprefix("torch.")
     if name in _QUANTIZED_TORCH:
         return _QUANTIZED_TORCH[name]
     resolved = getattr(torch, name, None)
@@ -102,10 +162,157 @@ def resolve_grad_dtype(dtype):
     return resolved
 
 
+def _quant_key(dtype):
+    """The :data:`QUANTIZED_DTYPES` key of a dtype or dtype name, or
+    ``None`` (unknown names included)."""
+    if dtype is None:
+        return None
+    if isinstance(dtype, torch.dtype):
+        return _QUANT_KEY.get(dtype)
+    name = str(dtype).removeprefix("torch.")
+    name = {"float8_e4m3fn": "float8_e4m3"}.get(name, name)
+    return name if name in QUANTIZED_DTYPES else None
+
+
 def is_quantized_dtype(dtype):
-    """True for the int8/fp8 wire dtypes (bf16/fp16 are plain casts)."""
-    return dtype is not None and resolve_grad_dtype(dtype) in (
-        torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
+    """True for the int8/fp8 wire dtypes the quantized exchange owns
+    (bf16/fp16 are plain casts: they ride the cast path, not the scale
+    and residual machinery)."""
+    return _quant_key(dtype) is not None
+
+
+def quantize_symmetric(v, wire_dtype):
+    """Per-bucket symmetric quantization: ``(q, scale)`` with ``q ~ v /
+    scale`` in ``wire_dtype`` and ``scale = absmax(v) / qmax`` (a 0-d
+    fp32 tensor on ``v``'s device).
+
+    The JAX function's contract, operation for operation, so that both
+    give the same bits on the same fp32 input: deterministic (every rank
+    quantizing the same buffer gets the same codebook); an all-zero or
+    empty buffer gives zeros with scale 1; the scale is taken over the
+    finite values only, ``+-inf`` saturates to ``+-qmax`` and NaN encodes
+    as 0.  The clip comes before the cast: ``.to(float8_e4m3fn)`` does
+    not saturate.  int8 rounds half to even, as ``jnp.round``.  ``qmax``
+    divides as a tensor on ``v``'s device: a CUDA division by a Python
+    number multiplies by its reciprocal, which rounds otherwise than the
+    CPU's (and XLA's) division for 448 and 57344."""
+    wire = resolve_grad_dtype(wire_dtype)
+    v = v.float()
+    qmax = torch.full((), QUANTIZED_DTYPES[_quant_key(wire)],
+                      dtype=torch.float32, device=v.device)
+    zero = torch.zeros((), dtype=torch.float32, device=v.device)
+    absmax = torch.where(torch.isfinite(v), v, zero).abs().max() \
+        if v.numel() else zero
+    scale = torch.where(absmax > 0, absmax / qmax, 1.0)
+    scaled = torch.clamp(torch.where(torch.isnan(v), zero, v) / scale,
+                         -qmax, qmax)
+    if wire == torch.int8:
+        return torch.round(scaled).to(wire), scale
+    return scaled.to(wire), scale
+
+
+def dequantize_symmetric(q, scale):
+    """The inverse of :func:`quantize_symmetric`: ``q * scale`` in fp32."""
+    return q.float() * scale
+
+
+def quantization_residual(v, q, scale):
+    """The error-feedback residual ``v - Q(v)``, 0 wherever ``v`` (or the
+    difference) is not finite: carrying inf or NaN forward would poison
+    every later step."""
+    v = v.float()
+    r = v - dequantize_symmetric(q, scale)
+    return torch.where(torch.isfinite(v) & torch.isfinite(r), r,
+                       torch.zeros((), dtype=torch.float32,
+                                   device=r.device))
+
+
+def quantize_with_feedback(v, residual, wire_dtype):
+    """The quantization prologue of every compressed hop: ``v`` in fp32
+    plus the carried ``residual`` (``None`` without error feedback),
+    quantized; returns ``(q, scale, new_residual)``, the last ``v -
+    Q(v)`` (``None`` without feedback)."""
+    v = v.float()
+    if residual is not None:
+        v = v + residual
+    q, scale = quantize_symmetric(v, wire_dtype)
+    new_residual = quantization_residual(v, q, scale) \
+        if residual is not None else None
+    return q, scale, new_residual
+
+
+def dequantize_sum(q_stacked, scales):
+    """The sum of per-rank dequantized buffers: ``q_stacked`` the
+    gathered ``(size, n)`` codewords, ``scales`` the ``(size,)`` scales;
+    each rank's codewords decode with its own scale before the fp32
+    accumulation.  The rows are added one after another, in rank order,
+    on every device (a reduction kernel may order its additions
+    otherwise on the card than on the CPU)."""
+    rows = dequantize_symmetric(q_stacked, scales[:, None]).unbind(0)
+    return functools.reduce(torch.add, rows)
+
+
+def exchanged_bytes(n_bytes, size, collective):
+    """Per-replica wire bytes of one collective on an ``n_bytes`` full
+    buffer over ``size`` ranks, ring decomposition: ``psum`` (allreduce)
+    ``2 n (size-1)/size``; ``reduce_scatter``, ``all_gather`` and
+    ``all_to_all`` ``n (size-1)/size``."""
+    if size <= 1:
+        return 0
+    frac = (size - 1) / size
+    if collective == "psum":
+        return int(2 * n_bytes * frac)
+    if collective in ("reduce_scatter", "all_gather", "all_to_all"):
+        return int(n_bytes * frac)
+    raise ValueError(f"unknown collective {collective!r}")
+
+
+def hierarchical_exchanged_bytes(n_bytes, intra_size, inter_size,
+                                 collective="psum", dcn_n_bytes=None):
+    """Per-replica wire bytes of the two-level exchange on an ``n_bytes``
+    full buffer, by hop: ``{"ici": ..., "dcn": ...}`` (ICI is the
+    intra-node hop, DCN the inter-node one).  The slow hop sees only the
+    ``1/intra`` chunk the fast reduce-scatter leaves (``dcn_n_bytes``
+    overrides the chunk's bytes for a per-hop wire dtype).  ``"psum"``:
+    reduce-scatter and all-gather over ICI, a chunk allreduce over DCN;
+    ``"reduce_scatter"``/``"all_gather"``: one crossing per hop.  With
+    one dtype the hops sum to the flat ring figure over ``intra *
+    inter`` ranks: the hierarchy moves bytes onto the fast wire, it adds
+    none."""
+    if intra_size < 1 or inter_size < 1:
+        raise ValueError(
+            f"intra_size/inter_size must be >= 1, got "
+            f"{intra_size}/{inter_size}")
+    if n_bytes % intra_size:
+        raise ValueError(
+            f"n_bytes={n_bytes} not divisible by intra_size={intra_size} "
+            f"(pad_to_multiple the bucket first: the accounting must "
+            f"match the buffer on the wire)")
+    chunk = n_bytes // intra_size if dcn_n_bytes is None else dcn_n_bytes
+    ici = exchanged_bytes(n_bytes, intra_size, "reduce_scatter")
+    dcn = exchanged_bytes(chunk, inter_size, "reduce_scatter")
+    if collective == "psum":
+        return {"ici": 2 * ici, "dcn": 2 * dcn}
+    if collective in ("reduce_scatter", "all_gather"):
+        return {"ici": ici, "dcn": dcn}
+    raise ValueError(f"unknown collective {collective!r}")
+
+
+def quantized_hop_bytes(chunk_elems, size, collective, wire_dtype):
+    """Per-replica wire bytes of the quantized slow hop on a
+    ``chunk_elems`` chunk over ``size`` ranks at the wire's itemsize:
+    ``"psum"`` (the allreduce's hop, an all-gather of the codewords and a
+    dequantize-sum) ``chunk (size-1)``; ``"reduce_scatter"`` (the sharded
+    update's hop, an all-to-all of the codeword segments) ``chunk
+    (size-1)/size``.  The per-bucket scales are not counted."""
+    if size <= 1:
+        return 0
+    n_bytes = chunk_elems * resolve_grad_dtype(wire_dtype).itemsize
+    if collective == "psum":
+        return int(n_bytes * (size - 1))
+    if collective == "reduce_scatter":
+        return int(n_bytes * (size - 1) / size)
+    raise ValueError(f"unknown quantized collective {collective!r}")
 
 
 def pack_params(params, attr="grad", dtype=None):
@@ -130,3 +337,13 @@ def chunk_bounds(n_pad, size, rank):
     ``[rank * n_pad / size, (rank + 1) * n_pad / size)``."""
     chunk = n_pad // size
     return rank * chunk, (rank + 1) * chunk
+
+
+def chain_chunk_index(ici_index, dcn_index, dcn_size):
+    """The chunk of the flat vector that the hop chain leaves on the rank
+    at ``(dcn_index, ici_index)``: the intra-node reduce-scatter keeps
+    chunk ``ici_index`` of ``intra``, the inter-node one sub-chunk
+    ``dcn_index`` of that, so the chunks are fast-hop-major: ``ici_index *
+    dcn_size + dcn_index``.  At a 2 x 2 split ranks 0, 1, 2, 3 own chunks
+    0, 2, 1, 3."""
+    return ici_index * dcn_size + dcn_index

@@ -115,13 +115,15 @@ class CommunicatorBase:
         training so that every rank starts from the same weights."""
         raise NotImplementedError
 
-    def multi_node_mean_grad(self, model, zero_fill=False):
-        """Average ``param.grad`` across ranks in place."""
+    def multi_node_mean_grad(self, model, zero_fill=False, residual=None):
+        """Average ``param.grad`` across ranks in place.  A quantized
+        wire takes the error-feedback ``residual`` and returns the new
+        one."""
         raise NotImplementedError
 
     # historical alias (the reference kept both names through the rename)
-    def allreduce_grad(self, model, zero_fill=False):
-        return self.multi_node_mean_grad(model, zero_fill)
+    def allreduce_grad(self, model, zero_fill=False, residual=None):
+        return self.multi_node_mean_grad(model, zero_fill, residual)
 
     # -- topology manipulation ---------------------------------------------------
     def split(self, color, key):

@@ -65,11 +65,12 @@ class DebugCommunicator(MeshCommunicator):
                 f"divergence).  Per-rank signatures:\n" + "\n".join(lines))
         self._verified_signatures.add(sig)
 
-    def multi_node_mean_grad(self, model, zero_fill=False):
+    def multi_node_mean_grad(self, model, zero_fill=False, residual=None):
         # the leaves the exchange will reduce (a gradient has its
         # parameter's shape and dtype)
         self.verify_step_signature(
             {path: p for path, p in model.namedparams()
              if p.grad is not None or zero_fill},
             what="gradient exchange")
-        super().multi_node_mean_grad(model, zero_fill=zero_fill)
+        return super().multi_node_mean_grad(model, zero_fill=zero_fill,
+                                            residual=residual)

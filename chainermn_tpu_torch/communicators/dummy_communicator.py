@@ -77,8 +77,8 @@ class DummyCommunicator(CommunicatorBase):
     def bcast_data(self, model):
         return model
 
-    def multi_node_mean_grad(self, model, zero_fill=False):
-        pass
+    def multi_node_mean_grad(self, model, zero_fill=False, residual=None):
+        return residual
 
     def split(self, color, key):
         return self

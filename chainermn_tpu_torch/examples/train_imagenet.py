@@ -4,6 +4,7 @@ train_imagenet.py``; BASELINE config #2).
 
     python -m chainermn_tpu_torch.examples.train_imagenet --device cpu --size 64 --iterations 4
     torchrun --nproc_per_node=2 -m chainermn_tpu_torch.examples.train_imagenet --arch nin
+    torchrun --nnodes=2 --nproc_per_node=8 --rdzv-backend=c10d --rdzv-endpoint=HOST:29500 -m chainermn_tpu_torch.examples.train_imagenet -c hierarchical
 
 The reference's flow, one process per device: ``create_communicator`` ->
 ``Classifier`` -> (``--mnbn``) ``create_mnbn_model`` -> ``bcast_data`` ->
@@ -50,7 +51,12 @@ def parse_args(argv=None):
     parser.add_argument("--size", type=int, default=224)
     parser.add_argument("--n-train", type=int, default=512)
     parser.add_argument("--communicator", "-c", default="pure_nccl")
-    parser.add_argument("--grad-dtype", default="bfloat16")
+    parser.add_argument("--grad-dtype", default="bfloat16",
+                        help="gradient wire dtype: a cast (bfloat16, which "
+                             "on -c hierarchical compresses both hops) or "
+                             "int8/float8_e4m3/float8_e5m2 (quantized with "
+                             "error feedback; on -c hierarchical the "
+                             "inter-node hop only)")
     parser.add_argument("--remat", action="store_true",
                         help="recompute each ResNet stage in the backward "
                              "instead of keeping its activations")

@@ -4,6 +4,7 @@ train_mnist.py`` under ``mpiexec``; BASELINE config #1).
 
     python -m chainermn_tpu_torch.examples.train_mnist_dp --device cpu
     torchrun --nproc_per_node=2 -m chainermn_tpu_torch.examples.train_mnist_dp --device cpu
+    torchrun --nproc_per_node=4 -m chainermn_tpu_torch.examples.train_mnist_dp -c hierarchical --grad-dtype int8
 
 The reference's flow, one process per device: ``create_communicator`` ->
 ``scatter_dataset`` -> ``bcast_data`` -> ``create_multi_node_optimizer``
@@ -43,8 +44,13 @@ def parse_args(argv=None):
                              "gradient, whose allreduce ran under this "
                              "step's forward and backward")
     parser.add_argument("--grad-dtype", default=None,
-                        help="gradient wire dtype: bfloat16 (cast); the "
-                             "quantized wires wait for ROADMAP A10")
+                        help="gradient wire dtype: bfloat16 (cast) or "
+                             "int8/float8_e4m3/float8_e5m2 (quantized; "
+                             "on -c hierarchical compresses the "
+                             "inter-node hop only)")
+    parser.add_argument("--no-error-feedback", action="store_true",
+                        help="ablation: drop the quantization residual "
+                             "instead of carrying it")
     parser.add_argument("--device", default="cuda",
                         help="where this rank's model runs: cuda (the "
                              "default; NCCL, fails without a card) or cpu "
@@ -61,8 +67,10 @@ def make_trainer(args, comm=None, data=None, model=None, seed=None,
     ``seed`` and ``shuffle``: the training iterator's.  Returns
     ``(trainer, comm)``."""
     if comm is None:
-        comm = create_communicator(args.communicator, device=args.device,
-                                   allreduce_grad_dtype=args.grad_dtype)
+        comm = create_communicator(
+            args.communicator, device=args.device,
+            allreduce_grad_dtype=args.grad_dtype,
+            error_feedback=not args.no_error_feedback)
     if model is None:
         model = Classifier(MLP(args.unit, 10, seed=None, device=args.device))
     comm.bcast_data(model)

@@ -40,7 +40,11 @@ The exchanges:
   gathered from every rank, so a snapshot does not depend on the world
   size (a resume under another size slices and re-pads them).
   ``zero_sharding`` is the reduce-scatter exchange under the ZeRO-1
-  name, and refuses double buffering.
+  name, and refuses double buffering.  On a hierarchical communicator
+  the reduce-scatter and the all-gather are hop chains (intra-node hop
+  first, then the inter-node one; gathered in reverse), and the chunk a
+  rank owns is the communicator's ``chunk_index`` (fast-hop-major, at a
+  2 x 2 split ranks 0-3 own chunks 0, 2, 1, 3), not its rank.
 * ``double_buffering=True`` (with either exchange): update ``t`` applies
   the mean gradient of step ``t - 1``; the first update applies zeros.
   Step ``t``'s gradient is packed into one of two flat buffers (in the
@@ -73,9 +77,19 @@ on ``Parameter.grad`` are averaged, then the rule runs (whatever the
 exchange, as in the JAX package).  With the ``dummy`` communicator every
 structure is the plain local update, as there.
 
+A quantized wire with error feedback (the communicator's ``quantized``
+and ``error_feedback``) makes the residual part of the wrapper's state:
+a flat fp32 vector, zero-seeded on first use and again by ``setup``,
+``add_hook`` and ``remove_hook``, which each exchange takes and replaces
+(this rank's part of the JAX package's global vector: per bucket the
+quantized hop's payload, or under the sharded update the chunk after the
+intra-node hop).  It is serialized as the JAX package's ``ef_residual``
+(``n``, ``r0``: the global vector in chunk order, ``world_size``); a
+resume at another world size, or from a snapshot without the section,
+starts again from zeros.
+
 What raises: ``double_buffering="dcn"`` (the striped exchange's
-variant), the quantized wires (the communicator refuses them) and
-``autotune`` wait for ROADMAP A10.
+variant) and ``autotune`` wait for ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -169,7 +183,7 @@ class _MultiNodeOptimizer:
             communicator=communicator, actual_optimizer=actual_optimizer,
             zero_fill=zero_fill, zero_sharding=zero_sharding,
             exchange=exchange, double_buffering=double_buffering,
-            _pending=None, _stale=None, _layout=None,
+            _pending=None, _stale=None, _layout=None, _residual=None,
             _buffers=[None, None], _slot=0, _lazy_done=False)
 
     # -- reference-style delegation ---------------------------------------
@@ -193,6 +207,41 @@ class _MultiNodeOptimizer:
     def _stale_exchange(self):
         return self.double_buffering and self.communicator.name != "dummy"
 
+    @property
+    def _needs_residual(self):
+        """True when the exchange carries an error-feedback residual: a
+        quantized hop with error feedback on."""
+        comm = self.communicator
+        return bool(getattr(comm, "quantized", False)
+                    and getattr(comm, "error_feedback", False))
+
+    def _residual_len(self):
+        """This rank's residual length: under the sharded update the
+        quantized hop's input, the chunk after the intra-node hop
+        (``n_pad / intra``, the whole padded vector when flat); else the
+        communicator's per-bucket accounting."""
+        comm = self.communicator
+        if self._sharded_update:
+            n_pad = self._flat_layout()[1]
+            return n_pad // comm.ici_size if comm.hierarchy is not None \
+                else n_pad
+        return comm.grad_residual_len_for(self.actual_optimizer.target)
+
+    def _residual_in(self):
+        """The residual this step's exchange takes: ``None`` without error
+        feedback, zeros before the first exchange (no error made yet)."""
+        if not self._needs_residual:
+            return None
+        if self._residual is None:
+            device = next(self.actual_optimizer.target.parameters()).device
+            self.__dict__["_residual"] = torch.zeros(
+                self._residual_len(), dtype=torch.float32, device=device)
+        return self._residual
+
+    def _keep_residual(self, residual):
+        """The residual an exchange returned (``None`` without one)."""
+        self.__dict__["_residual"] = residual
+
     def _reset_exchange(self):
         """Back to the first step's state: no gradient in flight (one
         still running is waited for, so its buffer can go), none stale,
@@ -205,16 +254,18 @@ class _MultiNodeOptimizer:
     def setup(self, link):
         self.actual_optimizer.setup(link)
         self._reset_exchange()
-        self.__dict__["_lazy_done"] = False
+        self.__dict__.update(_lazy_done=False, _residual=None)
         return self
 
     def add_hook(self, hook, name=None, timing="pre"):
         self.actual_optimizer.add_hook(hook, name, timing)
         self._reset_exchange()
+        self.__dict__["_residual"] = None
 
     def remove_hook(self, name):
         self.actual_optimizer.remove_hook(name)
         self._reset_exchange()
+        self.__dict__["_residual"] = None
 
     # -- update -------------------------------------------------------------
     def update(self, lossfun=None, *args, **kwargs):
@@ -224,7 +275,9 @@ class _MultiNodeOptimizer:
         comm = self.communicator
         if lossfun is None:
             # the reference's flow: backward, allreduce_grad, update
-            comm.multi_node_mean_grad(actual.target, zero_fill=self.zero_fill)
+            self._keep_residual(comm.multi_node_mean_grad(
+                actual.target, zero_fill=self.zero_fill,
+                residual=self._residual_in()))
             return actual.update()
         self._prepare(lossfun, args, kwargs)
         loss, observation = self._step(lossfun, args, kwargs,
@@ -340,9 +393,11 @@ class _MultiNodeOptimizer:
         """The gradient exchange of one step: what the rule is to apply
         (the plain exchange leaves it on ``Parameter.grad``)."""
         comm = self.communicator
+        residual = self._residual_in()
         if grads is None:
-            comm.multi_node_mean_grad(self.actual_optimizer.target,
-                                      zero_fill=self.zero_fill)
+            self._keep_residual(comm.multi_node_mean_grad(
+                self.actual_optimizer.target, zero_fill=self.zero_fill,
+                residual=residual))
             return None
         if self._sharded_update:
             n, n_pad, _, _ = self._flat_layout()
@@ -350,19 +405,24 @@ class _MultiNodeOptimizer:
                 flat, _ = tree_pack(grads, torch.float32)
                 flat = torch.nn.functional.pad(flat, (0, n_pad - n))
             exchange = comm.reduce_scatter_grad(
-                flat, async_op=self._stale_exchange)
+                flat, async_op=self._stale_exchange, residual=residual)
+            self._keep_residual(exchange.residual)
             if not self._stale_exchange:
                 return exchange.wait()
         else:
-            exchange = comm.allreduce_grad_async(self._pack(grads))
+            exchange = comm.allreduce_grad_async(
+                self._pack(grads), shapes=[tuple(g.shape) for g in grads],
+                residual=residual)
+            self._keep_residual(exchange.residual)
         previous = self._take_stale()
         self.__dict__["_pending"] = exchange
         return previous
 
     def _pack(self, grads):
         """``grads`` copied into the next of the two flat buffers, in the
-        wire dtype."""
-        dtype = self.communicator.allreduce_grad_dtype or grads[0].dtype
+        wire's cast dtype."""
+        dtype = getattr(self.communicator, "grad_cast_dtype",
+                        None) or grads[0].dtype
         n = sum(g.numel() for g in grads)
         buf = self._buffers[self._slot]
         if buf is None or buf.numel() != n or buf.dtype != dtype:
@@ -431,14 +491,15 @@ class _MultiNodeOptimizer:
 
     def _flat_layout(self):
         """``(n, n_pad, start, stop)``: the flat vector's length, its
-        padded length and this rank's chunk."""
+        padded length and this rank's chunk (the communicator's
+        ``chunk_index``: where the reduce-scatter chain leaves it)."""
         _, params = self._sorted_params()
         n = sum(p.numel() for p in params)
         if self._layout is None or self._layout[0] != n:
             comm = self.communicator
             n_pad = padded_length(n, comm.size)
             self.__dict__["_layout"] = (n, n_pad, *chunk_bounds(
-                n_pad, comm.size, comm.rank))
+                n_pad, comm.size, getattr(comm, "chunk_index", comm.rank)))
         return self._layout
 
     def _chunk_hooks(self):
@@ -522,13 +583,54 @@ class _MultiNodeOptimizer:
                                   self._load_flat_state)
         else:
             actual.serialize(serializer)
+        if self._needs_residual and actual.target is not None:
+            self._serialize_residual(serializer["ef_residual"])
         if self._stale_exchange and actual.target is not None:
             self._serialize_stale(serializer["stale_grads"])
 
     def _whole(self, chunk):
-        """Every rank's chunk, gathered: the whole flat vector on the
-        host."""
+        """Every rank's chunk, gathered in chunk order (the reverse hop
+        chain): the whole flat vector on the host."""
         return self.communicator.allgather_flat(chunk).cpu().numpy()
+
+    def _serialize_residual(self, sub):
+        """The JAX package's ``ef_residual`` section: ``n`` (1), ``r0``
+        (the global residual, every rank's part in chunk order) and
+        ``world_size``.  Collective when writing.  Read back, this rank
+        takes its part; a snapshot of another world size, of another
+        length or without the section leaves the residual to be
+        zero-seeded (the residual is per-rank quantization error with no
+        meaning in another partition: one step of correction is lost,
+        never correctness)."""
+        if sub.is_writer:
+            if self._pending is not None:
+                self.__dict__["_stale"] = self._take_stale()
+            if self._residual is not None:
+                sub("n", 1)
+                sub("r0", self._whole(self._residual))
+                sub("world_size", self.communicator.size)
+            return
+        self.__dict__["_residual"] = None
+        try:
+            n = sub("n", None)
+        except KeyError:  # no section (saved without error feedback)
+            return
+        try:
+            saved_size = int(sub("world_size", -1))
+        except KeyError:
+            saved_size = -1
+        if n is None or int(n) < 1 \
+                or saved_size not in (-1, self.communicator.size):
+            return
+        whole = np.asarray(sub("r0", None), np.float32).reshape(-1)
+        local = self._residual_len()
+        if whole.shape[0] != local * self.communicator.size:
+            return
+        at = getattr(self.communicator, "chunk_index",
+                     self.communicator.rank) * local
+        device = self._sorted_params()[1][0].device
+        self.__dict__["_residual"] = torch.from_numpy(
+            whole[at:at + local].copy()).to(device)
 
     def _my_chunk(self, leaf):
         """This rank's chunk of a whole flat vector saved under any world

@@ -102,7 +102,7 @@ Phases, each printing one JSON line:
 13. train_resnet_db, train_resnet_rs, train_resnet_zero: ``train_resnet``'s
     step with only the exchange changed -- ``double_buffering=True``,
     ``exchange="reduce_scatter"``, ``zero_sharding=True`` -- each run
-    twice, in turns around a second run of the plain exchange
+    once, in turns around a second run of the plain exchange
     (``train_resnet_plain``), each with
     images/s, MFU, losses, peak memory and the collectives, 3 profiled
     steps (device idle share), the device time of the exchange and of
@@ -149,7 +149,39 @@ Phases, each printing one JSON line:
 20. convnet_parity: each convnet small (10 classes, batch 2) on the card
     against the CPU under ``train=False``, TF32 off; then 3 training
     steps on the card twice from one seed (bitwise equal losses, dropout
-    live).
+    live);
+21. train_resnet_hier, _hier_rs, _hier_db, _q_int8, _hier_rs_fp8:
+    ``train_resnet``'s step through ``create_communicator("hierarchical",
+    allreduce_grad_dtype={"dcn": "bfloat16"})`` (plain, with
+    ``exchange="reduce_scatter"``, with ``double_buffering=True``),
+    through ``create_communicator("pure_nccl", allreduce_grad_dtype=
+    "int8")`` and through ``"hierarchical"`` with ``{"dcn":
+    "float8_e4m3"}`` and the reduce-scatter update, in turns with a
+    second reading of the plain bf16 exchange (``train_resnet_plain``).
+    A world of one: a 1 x 1 split on two NCCL subgroups of one rank, so
+    the rows show the device cost of the pack, pad, cast, quantize,
+    dequantize and residual at full width, not a wire.  Each row:
+    images/s, MFU, idle share, peak memory, the residual's bytes, the
+    exchange's and the update's device ms, the collectives by hop (one of
+    each per step), the split, and the per-rank wire bytes by hop for
+    this world and for an illustrative 4 x 8 split (accounting, not a
+    measurement);
+22. train_imagenet_hier: the ImageNet twin with ``--arch resnet50 -c
+    hierarchical`` (its default bf16 wire on both hops) at phase 18's
+    settings, beside phase 18's thread-loader reading;
+23. hier_parity: the small fp32 ResNet of phase 12, TF32 off: (1) at a
+    world of one the hierarchical exchange and its reduce-scatter update
+    bitwise the plain DP step and the reduce-scatter step
+    (``cudnn.deterministic`` on); (2) ``quantize_symmetric``,
+    ``quantize_with_feedback`` and ``dequantize_sum`` on the card bitwise
+    the CPU's (a gradient buffer per wire, all-zero buffers, +-inf and
+    NaN); (3) over 3 int8 steps the applied means plus the final residual
+    equal the true gradients' sum per element within fp32 rounding; (4)
+    each of phase 21's exchanges, 3 steps on the card against the same on
+    the CPU (a gloo group beside the NCCL world) within phase 12's
+    tolerances; then the int8 wire's device cost at ResNet-50's 25.6 M
+    parameters beside an fp32 copy of them.  The flash kernels' counts
+    stay 0 in phases 21-23.
 
 Then the kernels line (launches, error, times, the whole call's device
 time and bound of all five kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
@@ -1404,12 +1436,11 @@ RESNET_EXCHANGES = {"train_resnet_db": dict(double_buffering=True),
                     "train_resnet_rs": dict(exchange="reduce_scatter"),
                     "train_resnet_zero": dict(zero_sharding=True),
                     "train_resnet_plain": {}}
-#: their order: each exchange twice, in turns around a second reading of
-#: the plain one, so that a drift of the host over the call shows
+#: their order: each exchange once, in turns around a second reading of
+#: the plain one (phase 21 takes a third), so that a drift of the host
+#: over the call shows
 RESNET_EXCHANGE_ORDER = ["train_resnet_db", "train_resnet_rs",
-                         "train_resnet_zero", "train_resnet_plain",
-                         "train_resnet_zero", "train_resnet_rs",
-                         "train_resnet_db"]
+                         "train_resnet_plain", "train_resnet_zero"]
 
 
 def phase_train_resnet_exchange(phase, plain_row, reading=1):
@@ -2216,6 +2247,412 @@ def phase_convnet_parity():
             fail(f"convnet_parity {arch}: {r}")
 
 
+#: the two-level exchange and the quantized wires on train_resnet's step
+#: (phase 21): (communicator, allreduce_grad_dtype, optimizer keywords)
+RESNET_HIER = {
+    "train_resnet_hier": ("hierarchical", {"dcn": "bfloat16"}, {}),
+    "train_resnet_hier_rs": ("hierarchical", {"dcn": "bfloat16"},
+                             dict(exchange="reduce_scatter")),
+    "train_resnet_hier_db": ("hierarchical", {"dcn": "bfloat16"},
+                             dict(double_buffering=True)),
+    "train_resnet_q_int8": ("pure_nccl", "int8", {}),
+    "train_resnet_hier_rs_fp8": ("hierarchical", {"dcn": "float8_e4m3"},
+                                 dict(exchange="reduce_scatter"))}
+#: their order, in turns with a reading of the plain bf16 exchange
+RESNET_HIER_ORDER = ["train_resnet_hier", "train_resnet_hier_rs",
+                     "train_resnet_hier_db", "train_resnet_plain",
+                     "train_resnet_q_int8", "train_resnet_hier_rs_fp8"]
+#: each phase's collectives per step (one bucket: the flat exchange)
+RESNET_HIER_CALLS = {
+    "train_resnet_hier": ("ici_reduce_scatter", "dcn_allreduce",
+                          "ici_allgather"),
+    "train_resnet_hier_rs": ("ici_reduce_scatter", "dcn_reduce_scatter",
+                             "dcn_allgather", "ici_allgather"),
+    "train_resnet_hier_db": ("ici_reduce_scatter", "dcn_allreduce",
+                             "ici_allgather"),
+    "train_resnet_q_int8": ("allgather_q", "allgather_scale"),
+    "train_resnet_hier_rs_fp8": ("ici_reduce_scatter", "dcn_alltoall_q",
+                                 "dcn_allgather_scale", "dcn_allgather",
+                                 "ici_allgather")}
+#: the illustrative split the byte accounting is also printed for: 4
+#: nodes of 8 cards (accounting, not a measurement)
+ILLUSTRATIVE_SPLIT = (4, 8)
+
+
+def exchange_bytes(comm, n, inter, intra, sharded):
+    """Per-rank wire bytes of one step's gradient exchange of ``n`` fp32
+    gradients under ``comm``'s wires at an ``inter`` x ``intra`` split,
+    by hop (``_memory_utility``'s accounting); the sharded update's
+    parameter all-gather beside it."""
+    from chainermn_tpu_torch.communicators import _memory_utility as mu
+    world = inter * intra
+    n_pad = -(-n // world) * world
+    cast = comm.grad_cast_dtype
+    item = (cast or torch.float32).itemsize
+    q = comm.quantized_wire_dtype
+    coll = "reduce_scatter" if sharded else "psum"
+    if comm.hierarchy is None:   # one hop over the whole world
+        hops = {"world": mu.quantized_hop_bytes(n_pad, world, coll, q)
+                if q is not None else mu.exchanged_bytes(
+                    n_pad * item, world, coll)}
+    else:
+        chunk = n_pad // intra
+        dcn = comm.dcn_grad_dtype
+        hops = mu.hierarchical_exchanged_bytes(
+            n_pad * item, intra, inter, coll,
+            dcn_n_bytes=chunk * (dcn or cast or torch.float32).itemsize)
+        if q is not None:
+            hops["dcn"] = mu.quantized_hop_bytes(chunk, inter, coll, q)
+    out = {"grad": hops}
+    if sharded:
+        out["params_gather"] = mu.hierarchical_exchanged_bytes(
+            n_pad * 4, intra, inter, "all_gather")
+    return out
+
+
+def phase_train_resnet_hier(phase, plain_row):
+    """``train_resnet``'s step through the two-level communicator or a
+    quantized wire (RESNET_HIER), beside ``plain_row``: a world of one
+    NCCL process, so a 1 x 1 split on two NCCL subgroups of one rank;
+    what it shows is the device cost of the pack, pad, cast, quantize,
+    dequantize and residual at full width."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     scatter_dataset)
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import Classifier, ResNet50
+    name, dtype, exchange = RESNET_HIER[phase]
+    comm = create_communicator(name, allreduce_grad_dtype=dtype)
+    try:
+        model = Classifier(ResNet50(compute_dtype=torch.bfloat16,
+                                    device="cuda", **RESNET))
+        comm.bcast_data(model)
+        opt = create_multi_node_optimizer(
+            MomentumSGD(lr=0.1, momentum=0.9), comm, **exchange).setup(model)
+        shard = scatter_dataset(resnet_data(), comm)
+        comm.calls.clear()
+        updater, step_ms, losses, peak, launches = timed_trainer_run(
+            opt, shard, RESNET_BATCH, RESNET_STEPS, f"chip_smoke_{phase}")
+        calls = dict(comm.calls)
+        residual = opt._residual
+        median_ms = float(np.median(step_ms[RESNET_WARMUP:]))
+        images_per_s = RESNET_BATCH / (median_ms * 1e-3)
+        flops = resnet50_train_flops_per_image(RESNET_IMAGE)
+        prof = profile_steps(f"{phase}_profile", updater, top_n=10,
+                             classes_us=op_classes_us)
+        n = sum(p.numel() for p in model.parameters())
+        sharded = opt._sharded_update
+        row = {"phase": phase, "communicator": name,
+               "wire": {"ici": str(comm.allreduce_grad_dtype),
+                        "dcn": str(comm.dcn_grad_dtype)},
+               "exchange": exchange, "steps": RESNET_STEPS,
+               "split": [comm.dcn_size, comm.ici_size]
+               if comm.hierarchy else None,
+               "subgroup_backends": [dist.get_backend(g)
+                                     for g in comm._hop_groups],
+               "step_ms": step_ms, "median_step_ms": median_ms,
+               "images_per_s": images_per_s,
+               "mfu": flops * images_per_s / PEAK_FLOPS[torch.bfloat16],
+               "losses": losses, "peak_bytes": peak, "launches": launches,
+               "device_idle_share": prof["device_idle_share"],
+               "residual_bytes": 0 if residual is None
+               else residual.numel() * residual.element_size(),
+               "collectives": calls, "params": n,
+               "exchanged_bytes": exchange_bytes(
+                   comm, n, comm.dcn_size, comm.ici_size, sharded),
+               "exchanged_bytes_4x8_illustrative": exchange_bytes(
+                   comm, n, *ILLUSTRATIVE_SPLIT, sharded),
+               **exchange_parts(opt, model, shard),
+               "train_resnet": {k: plain_row[k] for k in (
+                   "median_step_ms", "images_per_s", "mfu", "peak_bytes",
+                   "device_idle_share")}}
+        if exchange.get("double_buffering"):
+            row["streams"] = kernel_streams(
+                lambda: [updater.update() for _ in range(2)])
+        opt._reset_exchange()
+        emit(row)
+    finally:
+        comm.finalize()
+    want = {k: RESNET_STEPS for k in RESNET_HIER_CALLS[phase]}
+    if not all(np.isfinite(losses)) or len(losses) != RESNET_STEPS:
+        fail(f"{phase} losses {losses}")
+    if launches != expected_launches():
+        fail(f"{phase} launched flash kernels: {launches}")
+    if calls != want:
+        fail(f"{phase}: expected the collectives {want}, got {calls}")
+    if name == "hierarchical" and row["subgroup_backends"] != ["nccl"] * 2:
+        fail(f"{phase}: the subgroups run {row['subgroup_backends']}")
+    if comm.quantized != (residual is not None):
+        fail(f"{phase}: residual {row['residual_bytes']} bytes on a "
+             f"{'quantized' if comm.quantized else 'lossless'} wire")
+    if dist.is_initialized():
+        fail(f"the process group outlived {phase}")
+    return row
+
+
+def phase_train_imagenet_hier(pipeline_row):
+    """The ImageNet twin with ``--arch resnet50 -c hierarchical`` at the
+    pipeline phase's settings (batch 64, ``--uint8-input
+    --device-prefetch 2 --loader thread``), its communicator the twin's
+    own (the default bf16 wire on both hops), beside the pipeline
+    phase's thread-loader reading."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch.examples import train_imagenet
+    args = twin_args(
+        "--arch", "resnet50", "-b", str(PIPELINE_BATCH), "--uint8-input",
+        "--device-prefetch", "2", "--loader", "thread", "--n-train",
+        str(IMAGENET_N_TRAIN), "--iterations",
+        str(IMAGENET_STEPS + IMAGENET_PROFILED), "-c", "hierarchical")
+    torch.cuda.empty_cache()
+    trainer, comm = train_imagenet.make_trainer(args, seed=0)
+    try:
+        comm.calls.clear()
+        row = run_twin(trainer)
+        calls = {k: v for k, v in comm.calls.items() if k != "bcast"}
+        row = {"phase": "train_imagenet_hier", "communicator": comm.name,
+               "split": [comm.dcn_size, comm.ici_size],
+               "wire": {"ici": str(comm.allreduce_grad_dtype),
+                        "dcn": str(comm.dcn_grad_dtype)},
+               "images_per_s": PIPELINE_BATCH
+               / (row["median_step_ms"] * 1e-3),
+               "collectives": calls,
+               "train_imagenet_pipeline_thread": {k: pipeline_row[k] for k in (
+                   "images_per_s", "device_idle_share", "peak_bytes")},
+               **row}
+        del trainer
+        emit(row)
+    finally:
+        comm.finalize()
+    n = IMAGENET_STEPS + IMAGENET_PROFILED
+    check_twin_row("train_imagenet_hier", row, n)
+    want = {k: n for k in RESNET_HIER_CALLS["train_resnet_hier"]}
+    if comm.hierarchy is None or calls != want:
+        fail(f"train_imagenet_hier: expected {want} on a hierarchical "
+             f"communicator, got {calls}")
+    if dist.is_initialized():
+        fail("the process group outlived train_imagenet_hier")
+    return row
+
+
+#: hier_parity (4): the new exchanges on the small fp32 ResNet, card
+#: against CPU: (communicator, allreduce_grad_dtype, optimizer keywords)
+HIER_PARITY = {"hier": ("hierarchical", {"dcn": "bfloat16"}, {}),
+               "hier_rs": ("hierarchical", {"dcn": "bfloat16"},
+                           dict(exchange="reduce_scatter")),
+               "hier_db": ("hierarchical", {"dcn": "bfloat16"},
+                           dict(double_buffering=True)),
+               "q_int8": ("pure_nccl", "int8", {}),
+               "hier_rs_fp8": ("hierarchical", {"dcn": "float8_e4m3"},
+                               dict(exchange="reduce_scatter"))}
+#: (3): applied means + final residual against the true gradients' sum,
+#: per element, relative to the largest |gradient|: a few fp32 roundings
+#: (one int8 step is 2^-7 of it, which a lost residual would leave)
+TELESCOPE_TOL = 2.0 ** -20
+
+
+def quantization_cases():
+    """One gradient-like buffer per wire, an all-zero one and one with
+    +-inf and NaN (numpy seed 5), with a residual for each."""
+    rng = np.random.RandomState(5)
+    cases = [(wire, rng.normal(0, 1e-2 * (k + 1), 1 << 20))
+             for k, wire in enumerate(("int8", "float8_e4m3",
+                                       "float8_e5m2"))]
+    cases += [(wire, np.zeros(4096)) for wire in ("int8", "float8_e4m3")]
+    cases += [(wire, np.asarray([1.0, -2.0, np.inf, -np.inf, np.nan, 0.5]
+                                * 100))
+              for wire in ("int8", "float8_e4m3", "float8_e5m2")]
+    return [(wire, v.astype(np.float32),
+             rng.normal(0, 1e-4, v.shape).astype(np.float32))
+            for wire, v in cases]
+
+
+def quantization_cost(n):
+    """The device time of the int8 wire's work on ``n`` fp32 gradients at
+    a world of one: quantize with feedback (read the gradient and the
+    residual, write codewords and the new residual) and dequantize-sum
+    (read codewords, write fp32), beside a plain fp32 copy of the same
+    vector; and the least time the bytes allow."""
+    from chainermn_tpu_torch.communicators import _memory_utility as mu
+    g = torch.randn(n, device="cuda") * 1e-2
+    r = torch.zeros(n, device="cuda")
+    q, s, _ = mu.quantize_with_feedback(g, r, "int8")
+    quant = time_ms(lambda: mu.quantize_with_feedback(g, r, "int8"))
+    deq = time_ms(lambda: mu.dequantize_sum(q[None], s[None]))
+    copy = time_ms(lambda: g.clone())
+    q_bytes, d_bytes = 13 * n, 5 * n
+    return {"n": n, "quantize_with_feedback_ms": quant,
+            "dequantize_sum_ms": deq, "fp32_copy_ms": copy,
+            "quantize_bytes": q_bytes, "dequantize_bytes": d_bytes,
+            "quantize_bound_ms": q_bytes / HBM_BYTES_PER_S * 1e3,
+            "dequantize_bound_ms": d_bytes / HBM_BYTES_PER_S * 1e3,
+            "passes_over_fp32": (quant + deq) / copy}
+
+
+def phase_hier_parity(n_params):
+    """The small fp32 ResNet of phase 12 with TF32 off: (1) at a world of
+    one the hierarchical exchange and its reduce-scatter update are
+    bitwise the plain DP step and the reduce-scatter step
+    (``cudnn.deterministic`` on); (2) the quantization functions on the
+    card bitwise the CPU's; (3) 3 int8 steps on the card: applied means
+    plus the final residual equal the true gradients' sum; (4) each new
+    exchange's 3 steps on the card against the same on the CPU (a gloo
+    group beside the NCCL world) within RESNET_PARITY_TOL.  Then the
+    int8 wire's device cost at ``n_params``."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer)
+    from chainermn_tpu_torch.communicators import _memory_utility as mu
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import Classifier, ResNet
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    plain = create_communicator("pure_nccl")
+    try:
+        gloo = dist.new_group(backend="gloo")
+        hier = create_communicator("hierarchical")
+        torch.backends.cudnn.deterministic = True
+        det = {"plain": resnet_parity_run("cuda", True, plain),
+               "rs": resnet_parity_run("cuda", True, plain,
+                                       exchange="reduce_scatter"),
+               "hier": resnet_parity_run("cuda", True, hier),
+               "hier_rs": resnet_parity_run("cuda", True, hier,
+                                            exchange="reduce_scatter")}
+        # (3) the telescoping identity over 3 int8 steps
+        q8 = create_communicator("pure_nccl", allreduce_grad_dtype="int8")
+        cfg = RESNET_PARITY
+        model = Classifier(ResNet(cfg["blocks"], n_classes=cfg["n_classes"],
+                                  seed=0, layout="NHWC", device="cuda"))
+        opt = create_multi_node_optimizer(
+            MomentumSGD(lr=cfg["lr"], momentum=0.9), q8).setup(model)
+        rng = np.random.RandomState(4)
+        true_sum = applied = None
+        biggest = 0.0
+        for _ in range(3):
+            x = torch.from_numpy(rng.normal(0, 1, (
+                cfg["batch"], cfg["size"], cfg["size"], 3)).astype(
+                    np.float32)).cuda()
+            t = torch.from_numpy(rng.randint(0, cfg["n_classes"],
+                                             cfg["batch"])).cuda()
+            if true_sum is None:
+                opt._prepare(model, (x, t), {})
+            model.cleargrads()
+            model(x, t).backward()
+            _, params = opt._sorted_params()
+            g = torch.cat([p.grad.reshape(-1) for p in params]).double()
+            opt._exchange(None)
+            a = torch.cat([p.grad.reshape(-1) for p in params]).double()
+            opt._apply_update(None)
+            biggest = max(biggest, g.abs().max().item())
+            true_sum = g if true_sum is None else true_sum + g
+            applied = a if applied is None else applied + a
+        # the residual's layout is the bucket's: the flat exchange packs
+        # its one bucket in reverse leaf order
+        sizes = [p.numel() for p in params]
+        res = opt._residual.double()
+        res = torch.cat(list(reversed(res.split(list(reversed(sizes))))))
+        gap = (true_sum - applied - res).abs().max().item()
+        telescope = {"max_gap": gap, "largest_grad": biggest,
+                     "tol": TELESCOPE_TOL * biggest,
+                     "residual_absmax": res.abs().max().item()}
+        torch.backends.cudnn.deterministic = flags[2]
+        # (4) card against CPU
+        card, cpu = {}, {}
+        for key, (name, dtype, kw) in HIER_PARITY.items():
+            on_card = create_communicator(name, allreduce_grad_dtype=dtype)
+            on_cpu = create_communicator(name, device="cpu", group=gloo,
+                                         allreduce_grad_dtype=dtype)
+            card[key] = resnet_parity_run("cuda", True, on_card, **kw)
+            cpu[key] = resnet_parity_run("cpu", True, on_cpu, **kw)
+            if key == "hier":
+                backends = {"card": [dist.get_backend(g)
+                                     for g in on_card._hop_groups],
+                            "cpu": [dist.get_backend(g)
+                                    for g in on_cpu._hop_groups]}
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+        plain.finalize()   # the world's owner: every group goes with it
+    # (2) the quantization functions, card against CPU
+    functions = []
+    for wire, v, r in quantization_cases():
+        v_c, r_c = torch.from_numpy(v), torch.from_numpy(r)
+        on_cpu = mu.quantize_with_feedback(v_c, r_c, wire)
+        on_card = mu.quantize_with_feedback(v_c.cuda(), r_c.cuda(), wire)
+        sym_cpu = mu.quantize_symmetric(v_c, wire)
+        sym_card = mu.quantize_symmetric(v_c.cuda(), wire)
+        rows = [mu.quantize_symmetric(v_c * (k + 1), wire) for k in range(4)]
+        qs = torch.stack([x[0] for x in rows])
+        ss = torch.stack([x[1] for x in rows])
+        functions.append({
+            "wire": wire, "n": int(v.size),
+            "quantize_with_feedback": all(
+                torch.equal(a.float(), b.cpu().float())
+                for a, b in zip(on_cpu, on_card)),
+            "quantize_symmetric": all(
+                torch.equal(a.float(), b.cpu().float())
+                for a, b in zip(sym_cpu, sym_card)),
+            "dequantize_sum": torch.equal(
+                mu.dequantize_sum(qs, ss),
+                mu.dequantize_sum(qs.cuda(), ss.cuda()).cpu())})
+
+    def equal(a, b):
+        return a[0] == b[0] and all(torch.equal(a[1][p], b[1][p])
+                                    for p in b[1])
+
+    def max_diff(a, b):
+        return max((a[1][p] - v).abs().max().item() for p, v in b[1].items()
+                   if v.is_floating_point())
+
+    a = {"hier_bitwise_plain": equal(det["hier"], det["plain"]),
+         "hier_rs_bitwise_rs": equal(det["hier_rs"], det["rs"]),
+         "hier_rs_bitwise_plain": equal(det["hier_rs"], det["plain"])}
+    b = {k: {"loss_rel_err": max(abs(x - y) / abs(y) for x, y in zip(
+                 card[k][0], cpu[k][0])),
+             "state_abs_err": max_diff(card[k], cpu[k]),
+             "losses": card[k][0], "cpu_losses": cpu[k][0]}
+         for k in HIER_PARITY}
+    row = {"phase": "hier_parity", "a": a,
+           "a_max_abs_diff": {"hier": max_diff(det["hier"], det["plain"]),
+                              "hier_rs": max_diff(det["hier_rs"],
+                                                  det["rs"])},
+           "functions": functions, "telescope": telescope, "b": b,
+           "subgroup_backends": backends, "tol": RESNET_PARITY_TOL,
+           "launches": launches,
+           "quantization_cost": quantization_cost(n_params)}
+    emit(row)
+    if not all(a.values()):
+        fail(f"hier_parity (1): the two-level exchange differs from the "
+             f"plain step at a world of one: {row['a_max_abs_diff']}")
+    if not all(f[k] for f in functions for k in (
+            "quantize_with_feedback", "quantize_symmetric",
+            "dequantize_sum")):
+        fail(f"hier_parity (2): the card's quantization differs from the "
+             f"CPU's: {functions}")
+    if not (telescope["max_gap"] <= telescope["tol"]
+            and telescope["residual_absmax"] > 0):
+        fail(f"hier_parity (3): the int8 steps do not telescope: "
+             f"{telescope}")
+    for k, errs in b.items():
+        if not (errs["loss_rel_err"] < RESNET_PARITY_TOL["loss_rel"]
+                and errs["state_abs_err"] < RESNET_PARITY_TOL["state_abs"]):
+            fail(f"hier_parity (4): {k} on the card leaves the CPU's run: "
+                 f"{errs}")
+    if backends != {"card": ["nccl"] * 2, "cpu": ["gloo"] * 2}:
+        fail(f"hier_parity: subgroups on {backends}")
+    if launches != expected_launches():
+        fail(f"hier_parity launched flash kernels: {launches}")
+    if dist.is_initialized():
+        fail("the process group outlived the hier_parity phase")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -2279,9 +2716,19 @@ def main():
     phase_train_mnist_dp()
     torch.cuda.empty_cache()
     phase_train_imagenet()
-    phase_train_imagenet_pipeline(resnet_row)
+    pipeline_rows = phase_train_imagenet_pipeline(resnet_row)
     phase_resnet_remat()
     phase_convnet_parity()
+    for i, phase in enumerate(RESNET_HIER_ORDER):
+        torch.cuda.empty_cache()
+        if phase in RESNET_HIER:
+            phase_train_resnet_hier(phase, resnet_row)
+        else:
+            phase_train_resnet_exchange(
+                phase, resnet_row, 1 + RESNET_EXCHANGE_ORDER.count(phase))
+    phase_train_imagenet_hier(next(r for r in pipeline_rows
+                                   if r["run"] == "thread"))
+    phase_hier_parity(resnet_row["params"])
 
     main_check = next(c for c in checks
                       if c["B"] == 1 and c["T"] == 1024 and c["causal"])

@@ -342,17 +342,42 @@ def test_gradient_packing_and_bucket_plan_match_jax():
 
 
 def test_names_not_ported_raise_and_no_card_raises():
-    for kw in (dict(communicator_name="hierarchical"),
-               dict(communicator_name="two_dimensional"),
-               dict(communicator_name="jax_ici", inter_size=2),
-               dict(communicator_name="jax_ici", stripe_ratio=0.25),
+    for kw in (dict(communicator_name="jax_ici", stripe_ratio=0.25),
+               dict(communicator_name="hierarchical", stripe_ratio=0.25),
                dict(communicator_name="jax_ici", autotune=True),
-               dict(communicator_name="pure_nccl",
-                    allreduce_grad_dtype="int8"),
-               dict(communicator_name="pure_nccl",
-                    allreduce_grad_dtype={"dcn": "bfloat16"}),
                dict(communicator_name="fault")):
         with pytest.raises(NotImplementedError, match="ROADMAP A1[01]"):
+            create_communicator(device="cpu", **kw)
+    # the two-level exchange and the quantized wires are ported: each
+    # builds in a world of one (a 1 x 1 split; tests/test_torch_
+    # hierarchical.py runs them at 2 x 2)
+    for kw, want in (
+            (dict(communicator_name="hierarchical"), ((1, 1), None, None)),
+            (dict(communicator_name="two_dimensional"), ((1, 1), None,
+                                                         None)),
+            (dict(communicator_name="hierarchical",
+                  allreduce_grad_dtype={"dcn": "bfloat16"}),
+             ((1, 1), None, torch.bfloat16)),
+            (dict(communicator_name="pure_nccl",
+                  allreduce_grad_dtype="int8"), (None, torch.int8, None))):
+        comm = create_communicator(device="cpu", **kw)
+        try:
+            split = (comm.dcn_size, comm.ici_size) if comm.hierarchy \
+                else None
+            assert (split, comm.allreduce_grad_dtype,
+                    comm.dcn_grad_dtype) == want
+        finally:
+            comm.finalize()
+    # ... or raise what the JAX factory raises
+    for kw, match in (
+            (dict(communicator_name="jax_ici", inter_size=2),
+             "does not divide"),
+            (dict(communicator_name="pure_nccl",
+                  allreduce_grad_dtype={"dcn": "bfloat16"}), "per-hop"),
+            (dict(communicator_name="hierarchical",
+                  allreduce_grad_dtype={"ici": "int8"}),
+             "lossless by design")):
+        with pytest.raises(ValueError, match=match):
             create_communicator(device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown communicator"):
         create_communicator("mpi", device="cpu")
@@ -365,7 +390,7 @@ def test_names_not_ported_raise_and_no_card_raises():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_communicator("pure_nccl")
     import torch.distributed as dist
-    assert not dist.is_initialized()   # nothing above set up a group
+    assert not dist.is_initialized()   # every world above was torn down
     dummy = DummyCommunicator()
     # A5's exchanges are ported (tests/test_torch_exchanges.py); the
     # striped exchange's stale variant and autotune wait for A10

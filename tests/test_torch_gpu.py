@@ -4,7 +4,9 @@ the no-grad forward (``_flash_kernel``), the lse forward
 and the split backward's dq and dk/dv passes (``_flash_bwd_dq_kernel``,
 ``_flash_bwd_dkv_kernel``); the gradient exchange over NCCL in a world of
 one process, the double-buffered exchange's asynchrony and the sharded
-exchanges against the plain one there; the ResNet path's cuDNN layout,
+exchanges against the plain one there, the two-level exchange (a 1 x 1
+split on NCCL subgroups) and the quantized wires against the flat
+exchange, and the quantization functions on the card against the CPU; the ResNet path's cuDNN layout,
 its fp32 step against the CPU's and its remat step against the plain
 one; and the ImageNet example's input pipeline and dropout on the card:
 the device-feed stage's batches and copy stream, masks per step and per
@@ -422,6 +424,108 @@ def test_nccl_world_of_one_mean_grad_leaves_fp32_gradients(cuda_device):
     finally:
         comm.finalize()
     assert not dist.is_initialized()
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_hierarchical_exchange_equals_pure_nccl(
+        cuda_device):
+    """A world of one on the card: the two-level exchange (a 1 x 1 split,
+    two NCCL subgroups of one rank) leaves every gradient bitwise as
+    ``pure_nccl``'s on the same wire (lossless, bf16, the int8 inter-node
+    hop against the flat int8 wire, residuals included), synchronously
+    and launched on its side stream; its reduce-scatter chain and
+    all-gather give back the flat vector."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.models import TransformerLM
+    model = TransformerLM(n_vocab=97, d_model=64, n_heads=1, n_layers=2,
+                          max_len=32, seed=0, device=cuda_device)
+    x = torch.from_numpy(np.random.RandomState(6).randint(0, 97, (2, 32)))
+    x = x.to(cuda_device)
+    model(x, torch.roll(x, -1, 1)).backward()
+    raw = {p: v.grad.clone() for p, v in model.namedparams()}
+    comms = {}
+
+    def make(*args, **kw):
+        comms[len(comms)] = create_communicator(*args, **kw)
+        return comms[len(comms) - 1]
+
+    def exchanged(comm, residual=None):
+        for p, v in model.namedparams():
+            v.grad = raw[p].clone()
+        res = comm.multi_node_mean_grad(model, residual=residual)
+        torch.cuda.synchronize()
+        return {p: v.grad.clone() for p, v in model.namedparams()}, res
+
+    try:
+        for flat_kw, hier_kw in (
+                ({}, {}),
+                (dict(allreduce_grad_dtype="bfloat16"),
+                 dict(allreduce_grad_dtype={"dcn": "bfloat16"})),
+                (dict(allreduce_grad_dtype="bfloat16"),
+                 dict(allreduce_grad_dtype="bfloat16"))):
+            flat = make("pure_nccl", **flat_kw)
+            hier = make("hierarchical", **hier_kw)
+            assert hier.hierarchy and (hier.dcn_size, hier.ici_size) == (1, 1)
+            assert [dist.get_backend(g) for g in hier._hop_groups] \
+                == ["nccl", "nccl"]
+            want, _ = exchanged(flat)
+            got, _ = exchanged(hier)
+            assert all(torch.equal(got[p], want[p]) for p in want)
+            assert hier.calls["ici_reduce_scatter"] == 1
+        q_flat = make("pure_nccl", allreduce_grad_dtype="int8")
+        q_hier = make("hierarchical", allreduce_grad_dtype={"dcn": "int8"})
+        n = q_flat.grad_residual_len_for(model)
+        assert n == q_hier.grad_residual_len_for(model) > 0
+        r0 = torch.linspace(-1e-3, 1e-3, n, device=cuda_device)
+        want, want_res = exchanged(q_flat, r0)
+        got, got_res = exchanged(q_hier, r0)
+        assert all(torch.equal(got[p], want[p]) for p in want)
+        assert torch.equal(got_res, want_res)
+        # the chain and its side stream
+        flat = torch.randn(4096, device=cuda_device)
+        chunk = q_hier.reduce_scatter_grad(flat, residual=r0[:4096]).wait()
+        pending = q_hier.reduce_scatter_grad(flat, async_op=True,
+                                             residual=r0[:4096])
+        assert torch.equal(pending.wait(), chunk)
+        lossless = comms[1]
+        assert torch.equal(lossless.allgather_flat(
+            lossless.reduce_scatter_grad(flat).wait()), flat)
+    finally:
+        for comm in reversed(comms.values()):
+            comm.finalize()
+    assert not dist.is_initialized()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["int8", "float8_e4m3", "float8_e5m2"])
+def test_quantization_on_the_card_equals_the_cpu(cuda_device, wire):
+    """``quantize_symmetric``, ``quantize_with_feedback`` and
+    ``dequantize_sum`` give the same bits on the card as on the CPU: a
+    gradient buffer, an all-zero one and one holding +-inf and NaN."""
+    from chainermn_tpu_torch.communicators import _memory_utility as mu
+    rng = np.random.RandomState(3)
+    buffers = [rng.normal(0, 2e-3, 100003).astype(np.float32),
+               np.zeros(4096, np.float32),
+               np.asarray([1.0, -2.0, np.inf, -np.inf, np.nan, 0.5] * 9,
+                          np.float32)]
+    for v in buffers:
+        v = torch.from_numpy(v)
+        residual = torch.from_numpy(
+            rng.normal(0, 1e-4, v.numel()).astype(np.float32))
+        cpu = mu.quantize_with_feedback(v, residual, wire)
+        card = mu.quantize_with_feedback(v.to(cuda_device),
+                                         residual.to(cuda_device), wire)
+        for a, b in zip(cpu, card):
+            assert torch.equal(a.float(), b.cpu().float())
+        q, s = mu.quantize_symmetric(v.to(cuda_device), wire)
+        assert torch.equal(q.cpu().float(), mu.quantize_symmetric(
+            v, wire)[0].float())
+        rows = [mu.quantize_symmetric(v * (k + 1), wire) for k in range(4)]
+        qs, ss = torch.stack([r[0] for r in rows]), torch.stack(
+            [r[1] for r in rows])
+        assert torch.equal(mu.dequantize_sum(qs, ss), mu.dequantize_sum(
+            qs.to(cuda_device), ss.to(cuda_device)).cpu())
 
 
 # the Hopper backward's tile edges (64-row q tiles, 64-key tiles), Tq !=
