@@ -27,20 +27,35 @@ exchanges of :func:`create_multi_node_optimizer`.  The ImageNet example
 :mod:`.core.rng`) and ResNet-50 (with per-stage remat) through its input
 pipeline: the thread, process-pool and native (C++) loaders, the
 device-feed stage and ``FusedUpdater`` (:mod:`.dataset`,
-:mod:`.training`).
+:mod:`.training`).  The communicators include ChainerMN's
+``hierarchical`` and ``two_dimensional`` (a two-level exchange over
+intra-node and inter-node subgroups), the striped multi-path exchange
+(``stripe_ratio``: each bucket split between a fast-hop-major and a
+slow-hop-major chain, on two side streams of the card) and the int8/fp8
+wires with error feedback.  :mod:`.observability` traces the training
+and serving paths (``CHAINERMN_TPU_TRACE=events|full``) into the JAX
+package's Chrome-trace format and keeps their metrics; :mod:`.utils`
+wraps ``torch.profiler`` (``trace``, ``annotate``, ``Profile``).
 """
 
-from . import functions, links
+from . import functions, links, observability, utils
 from ._device import resolve_device
-from .communicators import create_communicator
+from .communicators import (CommunicatorBase, DummyCommunicator,
+                            MeshCommunicator, create_communicator)
+from .core import Chain, ChainList, Link, report, using_config
 from .datasets import (create_empty_dataset, get_n_iterations_for_one_epoch,
                        scatter_dataset, scatter_index)
 from .evaluators import create_multi_node_evaluator
 from .iterators import create_multi_node_iterator, create_synchronized_iterator
+from .nn import functions as F
+from .nn import links as L
 from .optimizers import create_multi_node_optimizer
 
-__all__ = ["functions", "links", "resolve_device", "create_communicator",
-           "create_multi_node_optimizer", "create_multi_node_evaluator", "scatter_dataset",
+__all__ = ["functions", "links", "observability", "utils", "resolve_device",
+           "create_communicator", "CommunicatorBase", "MeshCommunicator",
+           "DummyCommunicator", "create_multi_node_optimizer",
+           "create_multi_node_evaluator", "scatter_dataset",
            "create_empty_dataset", "scatter_index",
            "get_n_iterations_for_one_epoch", "create_multi_node_iterator",
-           "create_synchronized_iterator"]
+           "create_synchronized_iterator", "Link", "Chain", "ChainList",
+           "report", "using_config", "F", "L"]

@@ -33,7 +33,11 @@ name                 port realization
                      flat exchange
 ``two_dimensional``  the same two-level exchange (the reference's
                      leader-staged and chunked variants collapse onto the
-                     chunked one, as in the JAX package)
+                     chunked one, as in the JAX package).  With a nonzero
+                     ``stripe_ratio`` (or ``CHAINERMN_TPU_STRIPE_RATIO``)
+                     either hierarchical name runs the striped exchange:
+                     that share of each bucket takes the transposed,
+                     slow-hop-major chain, concurrently with the rest
 ``fault``            raises ``NotImplementedError`` (fault injection, A11)
 ===================  ========================================================
 """
@@ -66,8 +70,7 @@ EXCHANGES = ("per_leaf", "flat", "bucketed", "reduce_scatter",
 def exchange_knobs(exchange):
     """``(communicator name, batch_collectives, optimizer exchange=)``
     for a named gradient-exchange structure, the JAX package's mapping
-    (the striped ones also need a ``stripe_ratio``, which raises until
-    ROADMAP A10's second half ports it)."""
+    (the striped ones also need a nonzero ``stripe_ratio``)."""
     try:
         name, bc = {
             "per_leaf": ("jax_ici", False),
@@ -117,8 +120,12 @@ def create_communicator(communicator_name="jax_ici", device=None,
     dropped; a per-hop dict keeps its ``dcn`` entry, else its ``ici``
     one, with a warning once per dict).
 
-    ``stripe_ratio`` and ``autotune`` raise ``NotImplementedError``: the
-    striped exchange and self-tuning are ROADMAP A10's second half."""
+    ``stripe_ratio`` (a hierarchical communicator only; in [0, 1]; else
+    ``CHAINERMN_TPU_STRIPE_RATIO``, read for a hierarchical name or a
+    forced split): the DCN-path share of each bucket of the striped
+    exchange (0, the default, is the plain two-level exchange).
+    ``autotune`` raises ``NotImplementedError``: self-tuning is ROADMAP
+    A10's last part."""
     name = communicator_name
     if name not in _NAMES:
         raise ValueError(
@@ -142,15 +149,6 @@ def create_communicator(communicator_name="jax_ici", device=None,
             _warn_hierarchy_flat_stripe_dropped(stripe)
         stripe_ratio = None
         name = "jax_ici"
-    if stripe_ratio is None and (
-            name in ("hierarchical", "two_dimensional")
-            or intra_size is not None or inter_size is not None):
-        stripe_ratio = os.environ.get("CHAINERMN_TPU_STRIPE_RATIO",
-                                      "").strip() or None
-    if stripe_ratio and float(stripe_ratio):
-        raise NotImplementedError(
-            "stripe_ratio: the striped multi-path exchange is not ported "
-            "yet (ROADMAP A10)")
     if autotune:
         raise NotImplementedError(
             "autotune: the self-tuning exchange is not ported yet "
@@ -187,7 +185,8 @@ def create_communicator(communicator_name="jax_ici", device=None,
                             batch_collectives=batch_collectives,
                             bucket_mb=bucket_mb, name=name,
                             intra_size=intra_size, inter_size=inter_size,
-                            error_feedback=error_feedback)
+                            error_feedback=error_feedback,
+                            stripe_ratio=stripe_ratio)
     if name == "single_node" and comm.inter_size != 1:
         raise ValueError("single_node communicator requires one host "
                          f"(the ranks span {comm.inter_size} hosts)")

@@ -2,17 +2,19 @@
 
 The port of the pure parts of ``chainermn_tpu.communicators._memory_utility``:
 :func:`tree_pack`/:func:`tree_unpack`, :func:`plan_buckets`,
-:func:`hop_schedule` (its ``"hierarchical"`` mode), :func:`pad_to_multiple`,
+:func:`hop_schedule` (its ``"hierarchical"`` and ``"striped"`` modes),
+the striped split (:func:`stripe_plan`, :func:`derived_stripe_ratio`,
+:func:`stripe_plan_from_measurement`), :func:`pad_to_multiple`,
 :func:`resolve_grad_dtype`, :func:`pack_params`/:func:`unpack_params`,
 the sharded update's flat layout (:func:`padded_length`,
 :func:`chunk_bounds`, :func:`chain_chunk_index`), the quantized wire
 (:func:`quantize_symmetric` and its inverse, the error-feedback residual,
 :func:`dequantize_sum`) and the wire-byte accounting
 (:func:`exchanged_bytes`, :func:`hierarchical_exchanged_bytes`,
-:func:`quantized_hop_bytes`).
+:func:`striped_exchanged_bytes`, :func:`quantized_hop_bytes`).
 A "tree" here is a sequence of tensors (the port's gradients are
-``Parameter.grad`` tensors, not a pytree).  The striped helpers wait for
-ROADMAP A10.
+``Parameter.grad`` tensors, not a pytree).  The MoE schedule and byte
+accounting wait for ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -28,13 +30,22 @@ __all__ = ["pack_params", "unpack_params", "tree_pack", "tree_unpack",
            "quantize_symmetric", "dequantize_symmetric",
            "quantization_residual", "quantize_with_feedback",
            "dequantize_sum", "exchanged_bytes",
-           "hierarchical_exchanged_bytes", "quantized_hop_bytes",
-           "padded_length", "chunk_bounds", "chain_chunk_index",
-           "DEFAULT_BUCKET_MB"]
+           "hierarchical_exchanged_bytes", "striped_exchanged_bytes",
+           "quantized_hop_bytes", "padded_length", "chunk_bounds",
+           "chain_chunk_index", "stripe_plan",
+           "derived_stripe_ratio", "stripe_plan_from_measurement",
+           "DEFAULT_BUCKET_MB", "DEFAULT_STRIPE_RATIO"]
 
 #: default bucket bound (MB) for the bucketed exchange, as in the JAX
 #: package (``CHAINERMN_TPU_BUCKET_MB`` overrides)
 DEFAULT_BUCKET_MB = 4.0
+
+#: the stripe ratio used when no fabric measurement exists (the JAX
+#: package's fallback): the 1:3 DCN:ICI seed ratio.  The right value is
+#: the slow fabric's share of the aggregate bandwidth,
+#: :func:`derived_stripe_ratio`; ``CHAINERMN_TPU_STRIPE_RATIO`` and
+#: ``create_communicator(stripe_ratio=)`` pin it by hand
+DEFAULT_STRIPE_RATIO = 0.25
 
 #: the quantized wire names, mapped to the largest magnitude each can
 #: represent (the symmetric scale's target).  int8 uses +-127 (-128 is
@@ -111,26 +122,91 @@ def plan_buckets(shapes, dtypes, bucket_bytes):
 
 
 def hop_schedule(n_buckets, mode="hierarchical"):
-    """The emission order of the two-level exchange: ``(op, bucket)``
-    pairs that the hierarchical exchange follows literally.  Per bucket
-    ``"ici_reduce_scatter"`` (fast hop, the whole bucket), then
-    ``"dcn_exchange"`` (slow hop, the ``1/intra`` chunk); after every
-    bucket's slow hop, the ``"ici_all_gather"``s.  Buckets in plan
-    order.  Every rank emits the same order, which keeps the collectives
-    of the two groups from deadlocking each other.  Only the
-    ``"hierarchical"`` mode is ported (the striped and MoE schedules come
-    with their callers)."""
+    """The emission order of the two-level exchanges: ``(op, bucket)``
+    pairs that the exchange follows literally, buckets in plan order.
+    Every rank emits the same order, which keeps the collectives of the
+    groups from deadlocking each other.
+
+    ``"hierarchical"``: per bucket ``"ici_reduce_scatter"`` (fast hop,
+    the whole bucket), then ``"dcn_exchange"`` (slow hop, the ``1/intra``
+    chunk); after every bucket's slow hop, the ``"ici_all_gather"``s.
+
+    ``"striped"``: each bucket splits (:func:`stripe_plan`) into an
+    ICI-path slice (fast-hop-major: reduce-scatter over the intra-node
+    group, the chunk's exchange over the inter-node group, all-gather
+    over intra) and a DCN-path slice (the transposed chain, slow hop
+    first).  Per bucket ``dcn_path_scatter``, ``ici_path_scatter``,
+    ``dcn_path_exchange``, ``ici_path_exchange``; then per bucket the
+    epilogue ``dcn_path_gather``, ``ici_path_gather``.  The slow path's
+    op leads each phase of its bucket, each path keeps its dataflow
+    order, and both paths' scatters and exchanges of every bucket come
+    before any gather.
+
+    The ``"moe"`` schedule comes with its caller (ROADMAP A9)."""
     if n_buckets < 0:
         raise ValueError(f"n_buckets must be >= 0, got {n_buckets}")
-    if mode != "hierarchical":
+    if mode not in ("hierarchical", "striped"):
         raise ValueError(f"unknown hop_schedule mode {mode!r}")
     schedule = []
+    if mode == "striped":
+        for b in range(n_buckets):
+            schedule.append(("dcn_path_scatter", b))
+            schedule.append(("ici_path_scatter", b))
+            schedule.append(("dcn_path_exchange", b))
+            schedule.append(("ici_path_exchange", b))
+        for b in range(n_buckets):
+            schedule.append(("dcn_path_gather", b))
+            schedule.append(("ici_path_gather", b))
+        return schedule
     for b in range(n_buckets):
         schedule.append(("ici_reduce_scatter", b))
         schedule.append(("dcn_exchange", b))
     for b in range(n_buckets):
         schedule.append(("ici_all_gather", b))
     return schedule
+
+
+def stripe_plan(n_elems, ratio):
+    """The striped exchange's split of a bucket's flat payload:
+    ``(ici_elems, dcn_elems)``, the ICI-path slice at ``flat[:ici_elems]``
+    and the DCN-path slice at ``flat[ici_elems:]``.  A pure function of
+    its arguments, so every rank splits alike: every element in one
+    slice, both contiguous, ``dcn_elems == round(ratio * n_elems)``;
+    ratio 0 is the hierarchical exchange, ratio 1 routes the whole
+    payload over the slow-hop-major path."""
+    if not 0.0 <= ratio <= 1.0:
+        raise ValueError(f"stripe ratio must be in [0, 1], got {ratio}")
+    if n_elems < 0:
+        raise ValueError(f"n_elems must be >= 0, got {n_elems}")
+    dcn_elems = int(round(ratio * n_elems))
+    return n_elems - dcn_elems, dcn_elems
+
+
+def derived_stripe_ratio(b_ici, b_dcn):
+    """The DCN share at which both paths of the striped exchange finish
+    together, from measured per-hop bandwidths (any one unit): ``b_dcn
+    / (b_ici + b_dcn)``, clamped to the open interval (0, 1), so that a
+    derived plan never collapses to one path.  0.25 at the 1:3 seed
+    ratio.  A non-finite or non-positive bandwidth raises (an
+    unmeasured hop falls back to :data:`DEFAULT_STRIPE_RATIO` at the
+    call site)."""
+    b_ici, b_dcn = float(b_ici), float(b_dcn)
+    if not (np.isfinite(b_ici) and np.isfinite(b_dcn)) \
+            or b_ici <= 0 or b_dcn <= 0:
+        raise ValueError(
+            f"derived_stripe_ratio needs positive finite per-hop "
+            f"bandwidths, got b_ici={b_ici!r} b_dcn={b_dcn!r}; an "
+            f"unmeasured hop falls back to DEFAULT_STRIPE_RATIO "
+            f"explicitly at the call site")
+    ratio = b_dcn / (b_ici + b_dcn)
+    eps = 1e-6
+    return min(1.0 - eps, max(eps, ratio))
+
+
+def stripe_plan_from_measurement(n_elems, b_ici, b_dcn):
+    """:func:`stripe_plan` at the ratio :func:`derived_stripe_ratio`
+    derives from measured per-hop bandwidths."""
+    return stripe_plan(n_elems, derived_stripe_ratio(b_ici, b_dcn))
 
 
 def pad_to_multiple(flat, multiple):
@@ -298,6 +374,45 @@ def hierarchical_exchanged_bytes(n_bytes, intra_size, inter_size,
     raise ValueError(f"unknown collective {collective!r}")
 
 
+def striped_exchanged_bytes(n_bytes, intra_size, inter_size, ratio,
+                            itemsize=4, dcn_itemsize=None):
+    """Per-replica wire bytes of the striped exchange on an ``n_bytes``
+    buffer, by path and by fabric: ``{"ici_path": {"ici", "dcn",
+    "total"}, "dcn_path": {"ici", "dcn", "total"}}``.  The ICI-path slice
+    (share ``1 - ratio``) is priced by :func:`hierarchical_exchanged_bytes`
+    as it is; the DCN-path slice (share ``ratio``) by the same formula
+    with the hops transposed.  Each slice pads to its ring multiple, as
+    the wire does.  The path totals sum to the flat allreduce's figure
+    over ``intra * inter`` ranks, and the DCN path's share of it is the
+    ratio (exactly, where the split divides cleanly).
+    ``dcn_itemsize`` prices the DCN-fabric crossings at another wire
+    dtype; the DCN-path chunk's ICI crossing stays fp32 (the exchange
+    upcasts it before the fast hop)."""
+    elems = n_bytes // itemsize
+    if elems * itemsize != n_bytes:
+        raise ValueError(
+            f"n_bytes={n_bytes} is not a multiple of itemsize={itemsize}")
+    ici_elems, dcn_elems = stripe_plan(elems, ratio)
+    n_i = -(-ici_elems // intra_size) * intra_size * itemsize
+    n_d = -(-dcn_elems // inter_size) * inter_size * itemsize
+    dcn_scale = (dcn_itemsize / itemsize) if dcn_itemsize else 1.0
+    a = hierarchical_exchanged_bytes(
+        n_i, intra_size, inter_size, "psum",
+        dcn_n_bytes=int(n_i // intra_size * dcn_scale)
+        if dcn_itemsize else None) if n_i else {"ici": 0, "dcn": 0}
+    # the transposed chain: its "intra" ring is the DCN axis, its chunk
+    # crossing rides ICI at fp32; relabel the hops back to fabrics
+    b = hierarchical_exchanged_bytes(
+        int(n_d * dcn_scale), inter_size, intra_size, "psum",
+        dcn_n_bytes=n_d // itemsize // inter_size * 4) \
+        if n_d else {"ici": 0, "dcn": 0}
+    ici_path = {"ici": a["ici"], "dcn": a["dcn"]}
+    dcn_path = {"dcn": b["ici"], "ici": b["dcn"]}
+    for p in (ici_path, dcn_path):
+        p["total"] = p["ici"] + p["dcn"]
+    return {"ici_path": ici_path, "dcn_path": dcn_path}
+
+
 def quantized_hop_bytes(chunk_elems, size, collective, wire_dtype):
     """Per-replica wire bytes of the quantized slow hop on a
     ``chunk_elems`` chunk over ``size`` ranks at the wire's itemsize:
@@ -347,3 +462,4 @@ def chain_chunk_index(ici_index, dcn_index, dcn_size):
     dcn_size + dcn_index``.  At a 2 x 2 split ranks 0, 1, 2, 3 own chunks
     0, 2, 1, 3."""
     return ici_index * dcn_size + dcn_index
+

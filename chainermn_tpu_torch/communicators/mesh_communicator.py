@@ -51,15 +51,37 @@ allreduce_grad_async`, ``reduce_scatter_grad(async_op=True)``): a single
 collective on the backend's stream, a chain of them on a side stream of
 the card.
 
+The striped exchange (a hierarchical communicator with a nonzero
+``stripe_ratio``) follows ``hop_schedule(k, mode="striped")``: each
+bucket splits at :func:`stripe_plan` into an ICI-path slice, exchanged as
+above (fast hop first), and a DCN-path slice, exchanged by the
+transposed chain (reduce-scatter over the inter-node group in
+``dcn_grad_dtype``, the chunk allreduced over the intra-node group in
+fp32, all-gather over inter; a quantized ``dcn_grad_dtype`` quantizes
+the slice itself with its own residual, all-gathers the codewords and
+scales over inter, and sums over intra in fp32).  The DCN path runs on
+a second pair of subgroups, so that neither path's collectives queue
+behind the other's on one communicator, and on the card each path's
+chain runs on its own side stream.  The sharded update's striped layout
+is a ``{"ici", "dcn"}`` pair of flat vectors: the ICI-path slice's
+chunks land fast-hop-major (:attr:`MeshCommunicator.chunk_index`), the
+DCN-path slice's slow-hop-major (:attr:`MeshCommunicator.
+striped_chunk_index`).
+
 A quantized exchange takes and returns the error-feedback residual (the
 JAX ``transform(grads, residual)``): the residual is added before
 quantizing, and the new one, ``v - Q(v)`` per element, is what the
 caller carries to the next step.  ``calls`` counts each collective by
 hop (``ici_reduce_scatter``, ``dcn_allreduce``, ``dcn_allgather_q``,
-``dcn_allgather_scale``, ``ici_allgather``, ...).
+``dcn_allgather_scale``, ``ici_allgather``, ...), and each op of the
+striped schedule by its name (``dcn_path_scatter``, ...).  With tracing
+on (``CHAINERMN_TPU_TRACE``) the communicator stamps its rank into the
+tracer; under ``full`` each bucket's hop runs inside
+``record_function("train.grad_exchange.bucket{k}.{op}")`` with the JAX
+package's op names.
 
-Not ported yet (they raise ``NotImplementedError``): ``stripe_ratio``
-and ``autotune`` (ROADMAP A10), and the elastic subclass (A11).
+Not ported yet (they raise ``NotImplementedError``): ``autotune`` (ROADMAP
+A10), and the elastic subclass (A11).
 """
 
 from __future__ import annotations
@@ -73,6 +95,7 @@ import torch
 import torch.distributed as dist
 from torch.nn.parameter import is_lazy
 
+from .. import observability
 from .._device import resolve_device
 from ._communication_utility import (backend_for, gather_hosts,
                                      hierarchy_groups, init_ranks,
@@ -82,10 +105,12 @@ from ._memory_utility import (DEFAULT_BUCKET_MB, chain_chunk_index,
                               dequantize_sum, hop_schedule,
                               is_quantized_dtype, pad_to_multiple,
                               plan_buckets, quantize_with_feedback,
-                              resolve_grad_dtype, tree_pack, tree_unpack)
+                              resolve_grad_dtype, stripe_plan, tree_pack,
+                              tree_unpack)
 from .communicator_base import CommunicatorBase
 
-__all__ = ["MeshCommunicator", "ElasticMeshCommunicator", "PendingExchange"]
+__all__ = ["MeshCommunicator", "ElasticMeshCommunicator", "PendingExchange",
+           "STRIPED_OP_PATH"]
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
                "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
@@ -94,7 +119,53 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
 #: refuse fp8 tensors; a gather or an all-to-all only copies bytes
 _BYTE_WIRE = (torch.float8_e4m3fn, torch.float8_e5m2)
 
+#: the striped exchange's op names (the JAX package's scope names) by the
+#: path whose chain runs them
+STRIPED_OP_PATH = {
+    "mn_stripe_pack_scatter_dcn": "dcn", "mn_stripe_allreduce_ici": "dcn",
+    "mn_stripe_dequant_psum_ici": "dcn", "mn_stripe_ag_dcn": "dcn",
+    "mn_stripe_zero_rs_dcn": "dcn", "mn_stripe_zero_ag_dcn": "dcn",
+    "mn_stripe_rs_ici": "ici", "mn_stripe_allreduce_dcn": "ici",
+    "mn_stripe_quantized_chunk": "ici", "mn_stripe_ag_ici": "ici",
+    "mn_stripe_zero_rs_ici": "ici", "mn_stripe_zero_ag_ici": "ici"}
+
 _warned_inert_ef = False
+
+
+def _bucket_scope(name, bucket):
+    """The range of one bucket's hop: under ``CHAINERMN_TPU_TRACE=full``
+    a ``record_function("train.grad_exchange.bucket{k}.{name}")`` (the
+    JAX ``_bucket_scope``'s name, so a profiler capture attributes device
+    time to the span tracer's vocabulary), else a no-op."""
+    if observability.named_scopes_enabled():
+        return torch.profiler.record_function(
+            f"train.grad_exchange.bucket{bucket}.{name}")
+    return observability.tracing._NOOP
+
+
+def _resolve_stripe(ratio, hierarchical, hand_knobs):
+    """The constructor's ``stripe_ratio`` (the JAX rules): the
+    ``CHAINERMN_TPU_STRIPE_RATIO`` variable is read only where it can
+    matter (a hierarchical communicator) and then counts as set by hand;
+    the ratio must lie in [0, 1], and a nonzero one needs a hierarchical
+    communicator (a flat one has one fabric)."""
+    if ratio is None and hierarchical:
+        raw = os.environ.get("CHAINERMN_TPU_STRIPE_RATIO", "").strip()
+        if raw:
+            ratio = float(raw)
+            hand_knobs["stripe_ratio"] = True
+    if ratio is None:
+        return 0.0
+    ratio = float(ratio)
+    if not 0.0 <= ratio <= 1.0:
+        raise ValueError(f"stripe_ratio must be in [0, 1], got {ratio}")
+    if ratio > 0 and not hierarchical:
+        raise ValueError(
+            "stripe_ratio needs a hierarchical communicator "
+            "(name='hierarchical'/'two_dimensional' or an "
+            "intra_size/inter_size split): a flat mesh has one "
+            "fabric, there is nothing to stripe across")
+    return ratio
 
 
 def _warn_inert_error_feedback():
@@ -172,7 +243,9 @@ class PendingExchange:
     stream wait for it (a failure raises here) and returns its result; it
     is called once.  ``residual`` is the exchange's new error-feedback
     residual (``None`` without one), a tensor from the moment the
-    exchange is launched; on the card it is written in stream order."""
+    exchange is launched; on the card it is written in stream order.
+    ``work``: a ``Work``, a CUDA event, a list of them (a striped
+    exchange: one event per path), a failure to raise, or ``None``."""
 
     def __init__(self, work, finish, residual=None):
         self._work = work
@@ -182,9 +255,57 @@ class PendingExchange:
     def wait(self):
         if isinstance(self._work, BaseException):
             raise self._work
-        if self._work is not None:   # a Work, or a CUDA event
-            self._work.wait()
+        works = self._work if isinstance(self._work, list) \
+            else [self._work]
+        for work in works:
+            if work is not None:   # a Work, or a CUDA event
+                work.wait()
         return self._finish()
+
+
+class _StripedRun:
+    """A striped exchange launched: per bucket the ICI path's gathered
+    slice and the DCN path's mean, the CUDA event that ends each path's
+    chain on its side stream (``None`` on the CPU, where the chains have
+    run), the new error-feedback residual and the fresh DCN-path results
+    (``double_buffering="dcn"``'s next stale buffer).  :meth:`assemble`
+    runs on the current stream once it waits for what it reads."""
+
+    def __init__(self, buckets, plans, specs, a_full, b_full, events,
+                 residual, fresh):
+        self.buckets, self.plans, self.specs = buckets, plans, specs
+        self.a_full, self.b_full = a_full, b_full
+        self.events, self.residual, self.fresh = events, residual, fresh
+
+    def wait(self, path):
+        """Make the current stream wait for ``path``'s chain."""
+        if self.events is not None:
+            self.events[path].wait()
+
+    def assemble(self, n_leaves, stale=None):
+        """The mean leaves: per bucket the ICI-path slice and the
+        DCN-path slice (this step's, or ``stale``'s part of a flat fp32
+        vector of every bucket's DCN-path slice), unpacked."""
+        main = torch.cuda.current_stream() if self.events is not None \
+            else None
+        out = [None] * n_leaves
+        for b, idx in enumerate(self.buckets):
+            n_i, n_d, _, _, off_s = self.plans[b]
+            spec, dtype = self.specs[b]
+            parts = []
+            if n_i:
+                parts.append(self.a_full[b])
+            if n_d:
+                part = self.b_full[b] if stale is None \
+                    else stale[off_s:off_s + n_d]
+                parts.append(part.to(dtype))
+            if main is not None:   # made on a side stream, read here
+                for part in parts:
+                    part.record_stream(main)
+            flat = parts[0] if len(parts) == 1 else torch.cat(parts)
+            for i, g in zip(idx, tree_unpack(flat, spec)):
+                out[i] = g
+        return out
 
 
 class MeshCommunicator(CommunicatorBase):
@@ -202,14 +323,25 @@ class MeshCommunicator(CommunicatorBase):
     quantized), or on a hierarchical communicator a per-hop ``{"ici":
     .., "dcn": ..}`` dict.  ``error_feedback``: carry the quantization
     residual (the optimizer threads it).  ``calls`` counts the
-    collectives issued, by kind and hop."""
+    collectives issued, by kind and hop.  ``stripe_ratio`` (a
+    hierarchical communicator only; ``CHAINERMN_TPU_STRIPE_RATIO`` when
+    not given): the DCN-path share of each bucket of the striped
+    exchange, 0 for the plain two-level one."""
 
     def __init__(self, device=None, group=None, allreduce_grad_dtype=None,
                  batch_collectives=False, bucket_mb=None, name="jax_ici",
-                 intra_size=None, inter_size=None, error_feedback=True):
+                 intra_size=None, inter_size=None, error_feedback=True,
+                 stripe_ratio=None):
         self.name = name
         want_hier = (name in ("hierarchical", "two_dimensional")
                      or intra_size is not None or inter_size is not None)
+        # which exchange knobs the caller set by hand (an argument, or an
+        # environment variable read below): autotune fills only the others
+        self._hand_knobs = {"bucket_mb": bucket_mb is not None,
+                            "stripe_ratio": stripe_ratio is not None,
+                            "grad_dtype": allreduce_grad_dtype is not None}
+        self.stripe_ratio = _resolve_stripe(stripe_ratio, want_hier,
+                                            self._hand_knobs)
         self.allreduce_grad_dtype, self.dcn_grad_dtype = _wire_dtypes(
             allreduce_grad_dtype, want_hier)
         self.error_feedback = bool(error_feedback)
@@ -220,8 +352,9 @@ class MeshCommunicator(CommunicatorBase):
                 f"buckets); got {batch_collectives!r}")
         self.batch_collectives = batch_collectives
         if bucket_mb is None and batch_collectives == "bucketed":
-            bucket_mb = float(os.environ.get("CHAINERMN_TPU_BUCKET_MB")
-                              or DEFAULT_BUCKET_MB)
+            raw = os.environ.get("CHAINERMN_TPU_BUCKET_MB")
+            self._hand_knobs["bucket_mb"] = bool(raw)
+            bucket_mb = float(raw or DEFAULT_BUCKET_MB)
         if bucket_mb is not None:
             bucket_mb = float(bucket_mb)
             if bucket_mb <= 0:
@@ -242,6 +375,7 @@ class MeshCommunicator(CommunicatorBase):
                                  f"does not serve {dev} tensors")
             self.calls = collections.Counter()
             self._side = None
+            self._path_streams = None
             # the reference's init_ranks at construction: a collective, so
             # every rank constructs its communicators in the same order
             hosts = gather_hosts(group)
@@ -249,13 +383,23 @@ class MeshCommunicator(CommunicatorBase):
             self.hierarchy = None
             self._hier_sizes = None
             self._hop_groups = ()
+            self._path_groups = ()
             if want_hier:
                 inter, intra = resolve_hierarchy(self.size, intra_size,
                                                  inter_size, hosts)
                 self._hop_groups = hierarchy_groups(inter, intra, group,
                                                     backend=backend)
+                if self.stripe_ratio > 0:
+                    # the DCN path's own (intra, inter) pair: one
+                    # communicator serializes its collectives, and each
+                    # path uses both hops
+                    self._path_groups = hierarchy_groups(
+                        inter, intra, group, backend=backend)
                 self.hierarchy = ("dcn", "ici")
                 self._hier_sizes = (inter, intra)
+            if observability.enabled():
+                # every later event carries this rank's lane
+                observability.tracer().configure(rank=self.rank)
         except BaseException:
             if self._owns_world:
                 dist.destroy_process_group()
@@ -338,6 +482,25 @@ class MeshCommunicator(CommunicatorBase):
         (:func:`chain_chunk_index`; ``rank`` when flat)."""
         return chain_chunk_index(self.ici_index, self.dcn_index,
                                  self.dcn_size)
+
+    @property
+    def striped_chunk_index(self):
+        """The chunk of a DCN-path slice that the striped sharded update's
+        transposed chain (inter-node reduce-scatter first) leaves on this
+        rank: slow-hop-major, ``dcn_index * ici_size + ici_index``, which
+        is ``rank``.  At a 2 x 2 split it differs from
+        :attr:`chunk_index`."""
+        return self.dcn_index * self.ici_size + self.ici_index
+
+    def striped_chunk_specs(self):
+        """The chunks of the striped sharded update's two slices on this
+        rank: ``(fast-hop-major index of the ICI-path slice, slow-hop-major
+        index of the DCN-path slice)`` (the JAX package returns the pair
+        as partition specs)."""
+        if self.hierarchy is None:
+            raise ValueError("striped chunk specs need a hierarchical "
+                             "communicator")
+        return self.chunk_index, self.striped_chunk_index
 
     def chunk_axes(self):
         """The hops of the reduce-scatter chain, fast first: ``("ici",
@@ -550,6 +713,21 @@ class MeshCommunicator(CommunicatorBase):
         return [tuple(p.shape) for p in leaves], [p.dtype for p in leaves]
 
     @property
+    def striped(self):
+        """True when the exchange stripes each bucket across both fabrics:
+        a hierarchical communicator with a nonzero :attr:`stripe_ratio`."""
+        return self.hierarchy is not None and self.stripe_ratio > 0
+
+    @property
+    def topology(self):
+        """``"striped"``, ``"hierarchical"`` or ``"flat"``: the exchange's
+        topology, orthogonal to :attr:`exchange` (bucketing composes with
+        any)."""
+        if self.hierarchy is None:
+            return "flat"
+        return "striped" if self.striped else "hierarchical"
+
+    @property
     def exchange(self):
         """``"per_leaf"`` | ``"flat"`` | ``"bucketed"``."""
         if self.batch_collectives == "bucketed":
@@ -569,41 +747,72 @@ class MeshCommunicator(CommunicatorBase):
         """The bucket plan :meth:`multi_node_mean_grad` runs for
         ``model`` (leaves in sorted path order, in the cast dtype: a
         quantized wire plans in the gradient's own dtype)."""
-        shapes, dtypes = self.grad_leaf_specs(model)
-        if self.grad_cast_dtype is not None:
-            dtypes = [self.grad_cast_dtype] * len(dtypes)
-        return self.grad_buckets(shapes, dtypes)
+        return self.grad_buckets(*self._wire_leaf_specs(model))
 
     def grad_residual_len(self, shapes, dtypes):
         """This rank's length of the error-feedback residual of the
         allreduce exchange: per bucket the quantized hop's payload (the
         padded ``1/intra`` chunk on a hierarchical communicator, the whole
-        bucket on a flat one), in plan order.  0 when no wire is
-        quantized."""
+        bucket on a flat one; striped, the DCN-path slice and then the
+        ICI-path slice's padded ``1/intra`` chunk, the order the schedule
+        consumes them in), in plan order.  0 when no wire is quantized."""
         if self.quantized_wire_dtype is None:
             return 0
         total = 0
         for idx in self.grad_buckets(shapes, dtypes):
             elems = sum(int(np.prod(shapes[i])) for i in idx)
-            total += -(-elems // self.ici_size) if self.hierarchy \
-                else elems
+            if self.striped:
+                n_i, n_d = stripe_plan(elems, self.stripe_ratio)
+                total += n_d + -(-n_i // self.ici_size)
+            elif self.hierarchy is not None:
+                total += -(-elems // self.ici_size)
+            else:
+                total += elems
         return total
+
+    def _wire_leaf_specs(self, model):
+        """``model``'s leaf shapes and their dtypes on the wire (the cast
+        dtype; a quantized wire plans in the gradient's own dtype)."""
+        shapes, dtypes = self.grad_leaf_specs(model)
+        if self.grad_cast_dtype is not None:
+            dtypes = [self.grad_cast_dtype] * len(dtypes)
+        return shapes, dtypes
 
     def grad_residual_len_for(self, model):
         """:meth:`grad_residual_len` over ``model``'s gradient leaves,
         planned as :meth:`grad_buckets_for` plans them."""
-        shapes, dtypes = self.grad_leaf_specs(model)
-        if self.grad_cast_dtype is not None:
-            dtypes = [self.grad_cast_dtype] * len(dtypes)
-        return self.grad_residual_len(shapes, dtypes)
+        return self.grad_residual_len(*self._wire_leaf_specs(model))
 
-    def multi_node_mean_grad(self, model, zero_fill=False, residual=None):
+    def grad_dcn_stale_len(self, shapes, dtypes):
+        """The length of ``double_buffering="dcn"``'s stale buffer: every
+        bucket's DCN-path slice, in plan order (a ``stripe_ratio`` share
+        of the gradient).  0 when not striped."""
+        if not self.striped:
+            return 0
+        return sum(stripe_plan(sum(int(np.prod(shapes[i])) for i in idx),
+                               self.stripe_ratio)[1]
+                   for idx in self.grad_buckets(shapes, dtypes))
+
+    def grad_dcn_stale_len_for(self, model):
+        """:meth:`grad_dcn_stale_len` over ``model``'s gradient leaves."""
+        return self.grad_dcn_stale_len(*self._wire_leaf_specs(model))
+
+    def multi_node_mean_grad(self, model, zero_fill=False, residual=None,
+                             stale_dcn=None):
         """Average every rank's ``param.grad`` in place.  A parameter
         without a gradient is skipped, or given zeros first with
         ``zero_fill`` (every rank must skip the same parameters).  On a
         quantized wire ``residual`` is the error-feedback residual
         (:meth:`grad_residual_len_for` long); the new one is returned
-        (``None`` without one)."""
+        (``None`` without one).
+
+        ``stale_dcn`` (a striped communicator, ``double_buffering="dcn"``):
+        a :class:`PendingExchange` of the previous step's DCN-path
+        results (:meth:`grad_dcn_stale_len_for` fp32 elements), applied in
+        place of this step's, whose DCN path then runs on without being
+        waited for.  Returns ``(new_residual, fresh)``: ``fresh`` is the
+        pending DCN-path results of this step, the next step's
+        ``stale_dcn``."""
         leaves = []
         for p in self._leaf_params(model):
             if p.grad is None:
@@ -612,52 +821,72 @@ class MeshCommunicator(CommunicatorBase):
                 p.grad = torch.zeros_like(p)
             leaves.append(p)
         if not leaves:
-            return residual
+            return residual if stale_dcn is None else (residual, stale_dcn)
         dtype = self.grad_cast_dtype
         wire = [(p.grad if dtype is None else p.grad.to(dtype)).contiguous()
                 for p in leaves]
         with torch.no_grad():
-            out, new_residual = self._mean_leaves(wire, residual)
+            out, new_residual, *fresh = self._mean_leaves(wire, residual,
+                                                          stale_dcn)
             for p, g in zip(leaves, out):
                 if g is not p.grad:
                     p.grad = g.to(p.dtype)
-        return new_residual
+        return new_residual if stale_dcn is None \
+            else (new_residual, fresh[0])
 
-    def _mean_leaves(self, wire, residual=None):
+    def _mean_leaves(self, wire, residual=None, stale_dcn=None):
         """The mean over the ranks of ``wire`` (this rank's gradient
         leaves in the cast dtype), bucket by bucket, on the plain, the
-        quantized or the two-level path: ``(leaves, new_residual)``."""
+        quantized, the two-level or the striped path: ``(leaves,
+        new_residual)``, and with ``stale_dcn`` the pending fresh DCN-path
+        results after them."""
         if self.quantized and residual is None and self.error_feedback:
             _warn_inert_error_feedback()
         buckets = self.grad_buckets([tuple(g.shape) for g in wire],
                                     [g.dtype for g in wire])
+        if stale_dcn is not None and not self.striped:
+            raise ValueError("stale_dcn needs a striped communicator")
+        if self.striped:
+            run = self._striped_launch(wire, buckets, residual,
+                                       fresh=stale_dcn is not None)
+            run.wait("ici")
+            if stale_dcn is None:
+                run.wait("dcn")
+                return run.assemble(len(wire)), run.residual
+            out = run.assemble(len(wire), stale_dcn.wait())
+            return out, run.residual, PendingExchange(
+                None if run.events is None else run.events["dcn"],
+                lambda: run.fresh)
         if self.hierarchy is not None:
             return self._hierarchical(wire, buckets, residual)
         if self.quantized:
             return self._quantized_flat(wire, buckets, residual)
         out = list(wire)
-        for idx in buckets:
-            if len(idx) == 1:   # no pack/unpack copies for one leaf
-                flat, spec = wire[idx[0]], None
-            else:
-                flat, spec = tree_pack([wire[i] for i in idx])
-            dist.all_reduce(flat, dist.ReduceOp.SUM, group=self.group)
-            flat.div_(self.size)
-            self.calls["allreduce_grad"] += 1
-            if spec is not None:
-                for i, g in zip(idx, tree_unpack(flat, spec)):
-                    out[i] = g
+        for k, idx in enumerate(buckets):
+            with _bucket_scope("mn_leaf_pmean" if self.exchange == "per_leaf"
+                               else "mn_bucket_pmean", k):
+                if len(idx) == 1:   # no pack/unpack copies for one leaf
+                    flat, spec = wire[idx[0]], None
+                else:
+                    flat, spec = tree_pack([wire[i] for i in idx])
+                dist.all_reduce(flat, dist.ReduceOp.SUM, group=self.group)
+                flat.div_(self.size)
+                self.calls["allreduce_grad"] += 1
+                if spec is not None:
+                    for i, g in zip(idx, tree_unpack(flat, spec)):
+                        out[i] = g
         return out, None
 
-    def _gather_rows(self, x, group, size, name):
+    def _gather_rows(self, x, group, size, name=None):
         """Every member's ``x`` (1-D, or a 0-d scale) stacked: ``(size,
-        n)``; fp8 crosses as its bytes."""
+        n)``; fp8 crosses as its bytes.  Counted under ``name``."""
         x = x.reshape(-1)
         send = x.view(torch.uint8) if x.dtype in _BYTE_WIRE else x
         out = torch.empty(size * send.numel(), dtype=send.dtype,
                           device=send.device)
         dist.all_gather_into_tensor(out, send, group=group)
-        self.calls[name] += 1
+        if name is not None:
+            self.calls[name] += 1
         return out.view(x.dtype).view(size, -1)
 
     def _residual_slice(self, residual, offset, n):
@@ -671,19 +900,20 @@ class MeshCommunicator(CommunicatorBase):
         out = list(wire)
         new_res = []
         offset = 0
-        for idx in buckets:
-            flat, spec = tree_pack([wire[i] for i in idx])
-            n = flat.numel()
-            q, scale, nr = quantize_with_feedback(
-                flat, self._residual_slice(residual, offset, n), q_dtype)
-            offset += n
-            new_res.append(nr)
-            mean = dequantize_sum(
-                self._gather_rows(q, self.group, size, "allgather_q"),
-                self._gather_rows(scale, self.group, size,
-                                  "allgather_scale")[:, 0]) / size
-            for i, g in zip(idx, tree_unpack(mean, spec)):
-                out[i] = g
+        for k, idx in enumerate(buckets):
+            with _bucket_scope("mn_q_bucket_exchange", k):
+                flat, spec = tree_pack([wire[i] for i in idx])
+                n = flat.numel()
+                q, scale, nr = quantize_with_feedback(
+                    flat, self._residual_slice(residual, offset, n), q_dtype)
+                offset += n
+                new_res.append(nr)
+                mean = dequantize_sum(
+                    self._gather_rows(q, self.group, size, "allgather_q"),
+                    self._gather_rows(scale, self.group, size,
+                                      "allgather_scale")[:, 0]) / size
+                for i, g in zip(idx, tree_unpack(mean, spec)):
+                    out[i] = g
         return out, None if residual is None else torch.cat(new_res)
 
     def _hierarchical(self, wire, buckets, residual):
@@ -704,42 +934,289 @@ class MeshCommunicator(CommunicatorBase):
         for op, b in hop_schedule(len(buckets)):
             idx = buckets[b]
             if op == "ici_reduce_scatter":
-                flat, spec = tree_pack([wire[i] for i in idx])
-                flat, n_true = pad_to_multiple(flat, intra)
-                specs[b] = (spec, n_true)
-                chunk = flat.new_empty(flat.numel() // intra)
-                dist.reduce_scatter_tensor(chunk, flat, dist.ReduceOp.SUM,
-                                           group=intra_g)
+                with _bucket_scope("mn_hier_rs_ici", b):
+                    flat, spec = tree_pack([wire[i] for i in idx])
+                    flat, n_true = pad_to_multiple(flat, intra)
+                    specs[b] = (spec, n_true)
+                    chunk = flat.new_empty(flat.numel() // intra)
+                    dist.reduce_scatter_tensor(chunk, flat,
+                                               dist.ReduceOp.SUM,
+                                               group=intra_g)
                 self.calls["ici_reduce_scatter"] += 1
                 chunks[b] = chunk
             elif op == "dcn_exchange" and q_dcn:
-                c = chunks[b]
-                n = c.numel()
-                q, scale, new_res[b] = quantize_with_feedback(
-                    c, self._residual_slice(residual, offset, n), dcn_dtype)
-                offset += n
-                total = dequantize_sum(
-                    self._gather_rows(q, inter_g, inter, "dcn_allgather_q"),
-                    self._gather_rows(scale, inter_g, inter,
-                                      "dcn_allgather_scale")[:, 0])
-                chunks[b] = (total / size).to(c.dtype)
+                with _bucket_scope("mn_hier_quantized_dcn", b):
+                    c = chunks[b]
+                    n = c.numel()
+                    q, scale, new_res[b] = quantize_with_feedback(
+                        c, self._residual_slice(residual, offset, n),
+                        dcn_dtype)
+                    offset += n
+                    total = dequantize_sum(
+                        self._gather_rows(q, inter_g, inter,
+                                          "dcn_allgather_q"),
+                        self._gather_rows(scale, inter_g, inter,
+                                          "dcn_allgather_scale")[:, 0])
+                    chunks[b] = (total / size).to(c.dtype)
             elif op == "dcn_exchange":
-                c = chunks[b]
-                w = c if dcn_dtype is None else c.to(dcn_dtype)
-                dist.all_reduce(w, dist.ReduceOp.SUM, group=inter_g)
+                with _bucket_scope("mn_hier_allreduce_dcn", b):
+                    c = chunks[b]
+                    w = c if dcn_dtype is None else c.to(dcn_dtype)
+                    dist.all_reduce(w, dist.ReduceOp.SUM, group=inter_g)
+                    chunks[b] = w.to(c.dtype).div_(size)
                 self.calls["dcn_allreduce"] += 1
-                chunks[b] = w.to(c.dtype).div_(size)
             else:  # ici_all_gather
-                c = chunks.pop(b)
-                full = c.new_empty(c.numel() * intra)
-                dist.all_gather_into_tensor(full, c, group=intra_g)
+                with _bucket_scope("mn_hier_ag_ici", b):
+                    c = chunks.pop(b)
+                    full = c.new_empty(c.numel() * intra)
+                    dist.all_gather_into_tensor(full, c, group=intra_g)
+                    spec, n_true = specs[b]
+                    for i, g in zip(idx, tree_unpack(full[:n_true], spec)):
+                        out[i] = g
                 self.calls["ici_allgather"] += 1
-                spec, n_true = specs[b]
-                for i, g in zip(idx, tree_unpack(full[:n_true], spec)):
-                    out[i] = g
         if residual is None or not q_dcn:
             return out, None
         return out, torch.cat([new_res[b] for b in range(len(buckets))])
+
+    # -- the striped exchange ------------------------------------------------------
+    def _path_stream(self, path):
+        """The side stream of a striped path's chain (``"dcn"`` or
+        ``"ici"``) on the card; ``None`` on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        if self._path_streams is None:
+            self._path_streams = {p: torch.cuda.Stream(self.device)
+                                  for p in ("dcn", "ici")}
+        return self._path_streams[path]
+
+    def _fork_paths(self, inputs):
+        """Start both paths' side streams after the current stream's work,
+        ``inputs`` (tensors made here and read there) marked as used on
+        them: ``(streams by path, the current stream)``, ``(None, None)``
+        on the CPU."""
+        if self.device.type != "cuda":
+            return None, None
+        main = torch.cuda.current_stream(self.device)
+        streams = {p: self._path_stream(p) for p in ("dcn", "ici")}
+        for side in streams.values():
+            side.wait_stream(main)
+            for x in inputs:
+                if x is not None:
+                    x.record_stream(side)
+        return streams, main
+
+    @staticmethod
+    def _on(streams, path):
+        """The context that runs ``path``'s ops on its side stream."""
+        if streams is None:
+            return observability.tracing._NOOP
+        return torch.cuda.stream(streams[path])
+
+    @staticmethod
+    def _join_paths(streams):
+        """One event per path, recorded at the end of its chain (``None``
+        on the CPU)."""
+        if streams is None:
+            return None
+        events = {}
+        for path, side in streams.items():
+            events[path] = torch.cuda.Event()
+            events[path].record(side)
+        return events
+
+    def _striped_launch(self, wire, buckets, residual, fresh=False):
+        """Launch the striped exchange of ``wire`` (this rank's leaves in
+        the cast dtype), following ``hop_schedule(k, "striped")``: per
+        bucket the ICI-path slice ``flat[:n_i]`` (reduce-scatter over the
+        intra-node group, the chunk's exchange over the inter-node group
+        in ``dcn_grad_dtype`` or quantized, all-gather over intra) and the
+        DCN-path slice ``flat[n_i:]`` (the transposed chain on the second
+        pair of subgroups: reduce-scatter over inter in
+        ``dcn_grad_dtype``, the chunk allreduced over intra in fp32,
+        all-gather over inter; quantized: the slice itself quantized
+        with its residual, codewords and scales all-gathered over inter,
+        dequantize-summed, allreduced over intra in fp32).  The buckets
+        are packed on the current stream; each path's chain runs on its
+        side stream of the card.  Returns a :class:`_StripedRun`; with
+        ``fresh`` it carries every bucket's DCN-path results, flat, in
+        fp32."""
+        intra_g, inter_g = self._hop_groups
+        intra_g2, inter_g2 = self._path_groups
+        intra, inter, size = self.ici_size, self.dcn_size, self.size
+        dcn_dtype = self.dcn_grad_dtype
+        q_dcn = is_quantized_dtype(dcn_dtype)
+        sum_ = dist.ReduceOp.SUM
+        # per bucket (n_i, n_d, residual offset of its DCN-path slice and
+        # of its ICI-path chunk, stale offset): the schedule consumes the
+        # buckets out of offset order
+        plans, r_off, s_off = [], 0, 0
+        flats, specs = {}, {}
+        for b, idx in enumerate(buckets):
+            with _bucket_scope("mn_stripe_pack", b):
+                flats[b], spec = tree_pack([wire[i] for i in idx])
+            specs[b] = (spec, flats[b].dtype)
+            n_i, n_d = stripe_plan(flats[b].numel(), self.stripe_ratio)
+            plans.append((n_i, n_d, r_off, r_off + n_d, s_off))
+            r_off += n_d + -(-n_i // intra)
+            s_off += n_d
+        new_res = None
+        if residual is not None and q_dcn:
+            new_res = residual.new_empty(r_off)
+        streams, _ = self._fork_paths([*flats.values(), residual, new_res])
+        a_chunk, b_chunk, a_full, b_full = {}, {}, {}, {}
+        for op, b in hop_schedule(len(buckets), mode="striped"):
+            n_i, n_d, off_b, off_a, _ = plans[b]
+            path = op[:3]
+            if not (n_d if path == "dcn" else n_i) \
+                    or (op == "dcn_path_gather" and q_dcn):
+                continue   # an empty slice; the quantized DCN path is full
+            with self._on(streams, path):
+                if op == "dcn_path_scatter" and q_dcn:
+                    with _bucket_scope("mn_stripe_pack_scatter_dcn", b):
+                        q, scale, nr = quantize_with_feedback(
+                            flats[b][n_i:],
+                            self._residual_slice(residual, off_b, n_d),
+                            dcn_dtype)
+                        if nr is not None:
+                            new_res[off_b:off_b + n_d].copy_(nr)
+                        b_chunk[b] = (
+                            self._gather_rows(q, inter_g2, inter),
+                            self._gather_rows(scale, inter_g2, inter)[:, 0])
+                elif op == "dcn_path_scatter":
+                    with _bucket_scope("mn_stripe_pack_scatter_dcn", b):
+                        g, _ = pad_to_multiple(flats[b][n_i:], inter)
+                        if dcn_dtype is not None:
+                            g = g.to(dcn_dtype)
+                        b_chunk[b] = g.new_empty(g.numel() // inter)
+                        dist.reduce_scatter_tensor(b_chunk[b], g, sum_,
+                                                   group=inter_g2)
+                elif op == "ici_path_scatter":
+                    with _bucket_scope("mn_stripe_rs_ici", b):
+                        g, _ = pad_to_multiple(flats[b][:n_i], intra)
+                        a_chunk[b] = g.new_empty(g.numel() // intra)
+                        dist.reduce_scatter_tensor(a_chunk[b], g, sum_,
+                                                   group=intra_g)
+                elif op == "dcn_path_exchange" and q_dcn:
+                    with _bucket_scope("mn_stripe_dequant_psum_ici", b):
+                        c = dequantize_sum(*b_chunk.pop(b))
+                        dist.all_reduce(c, sum_, group=intra_g2)
+                        b_full[b] = c.div_(size)
+                elif op == "dcn_path_exchange":
+                    # the fast hop is lossless: fp32 before the sum
+                    with _bucket_scope("mn_stripe_allreduce_ici", b):
+                        c = b_chunk[b].float()
+                        dist.all_reduce(c, sum_, group=intra_g2)
+                        b_chunk[b] = c.div_(size)
+                elif op == "ici_path_exchange" and q_dcn:
+                    with _bucket_scope("mn_stripe_quantized_chunk", b):
+                        c = a_chunk[b]
+                        q, scale, nr = quantize_with_feedback(
+                            c, self._residual_slice(residual, off_a,
+                                                    c.numel()), dcn_dtype)
+                        if nr is not None:
+                            new_res[off_a:off_a + c.numel()].copy_(nr)
+                        total = dequantize_sum(
+                            self._gather_rows(q, inter_g, inter),
+                            self._gather_rows(scale, inter_g, inter)[:, 0])
+                        a_chunk[b] = (total / size).to(c.dtype)
+                elif op == "ici_path_exchange":
+                    with _bucket_scope("mn_stripe_allreduce_dcn", b):
+                        c = a_chunk[b]
+                        w = c if dcn_dtype is None else c.to(dcn_dtype)
+                        dist.all_reduce(w, sum_, group=inter_g)
+                        a_chunk[b] = w.to(c.dtype).div_(size)
+                elif op == "dcn_path_gather":
+                    with _bucket_scope("mn_stripe_ag_dcn", b):
+                        c = b_chunk.pop(b)
+                        if dcn_dtype is not None:
+                            c = c.to(dcn_dtype)
+                        full = c.new_empty(c.numel() * inter)
+                        dist.all_gather_into_tensor(full, c, group=inter_g2)
+                        b_full[b] = full[:n_d].float()
+                else:  # ici_path_gather
+                    with _bucket_scope("mn_stripe_ag_ici", b):
+                        c = a_chunk.pop(b)
+                        full = c.new_empty(c.numel() * intra)
+                        dist.all_gather_into_tensor(full, c, group=intra_g)
+                        a_full[b] = full[:n_i]
+            self.calls[op] += 1
+        fresh_dcn = None
+        if fresh:
+            # the DCN path's results as applied (rounded to the wire), fp32
+            with self._on(streams, "dcn"):
+                fresh_dcn = torch.cat(
+                    [b_full[b].to(specs[b][1]).float() for b in b_full]) \
+                    if b_full else flats[0].new_zeros(0, dtype=torch.float32)
+        return _StripedRun(buckets, plans, specs, a_full, b_full,
+                           self._join_paths(streams), new_res, fresh_dcn)
+
+    def _striped_reduce_scatter(self, flat):
+        """The striped sharded update's gradient exchange: ``flat`` the
+        ``{"ici", "dcn"}`` pair of padded slices (lengths multiples of
+        ``size``).  The DCN-path slice reduce-scatters over the inter-node
+        group (in ``dcn_grad_dtype``) and then, in fp32, over the
+        intra-node group, landing slow-hop-major; the ICI-path slice over
+        intra and then (in ``dcn_grad_dtype``) over inter, fast-hop-major.
+        Slow path first; each path on its side stream of the card.
+        Returns ``({"ici", "dcn"} chunks, events)``."""
+        intra_g, inter_g = self._hop_groups
+        intra_g2, inter_g2 = self._path_groups
+        cast, dcn_dtype = self.grad_cast_dtype, self.dcn_grad_dtype
+        g = {k: v if cast is None else v.to(cast) for k, v in flat.items()}
+        streams, _ = self._fork_paths(g.values())
+        chain = {"dcn": [("dcn_path_scatter", inter_g2, self.dcn_size,
+                          dcn_dtype),
+                         ("dcn_path_exchange", intra_g2, self.ici_size,
+                          torch.float32)],
+                 "ici": [("ici_path_scatter", intra_g, self.ici_size, None),
+                         ("ici_path_exchange", inter_g, self.dcn_size,
+                          dcn_dtype)]}
+        for k in range(2):
+            for path in ("dcn", "ici"):
+                name, group, n, dtype = chain[path][k]
+                if not g[path].numel():
+                    continue
+                with self._on(streams, path), _bucket_scope(
+                        f"mn_stripe_zero_rs_{path}", 0):
+                    x = g[path] if dtype is None else g[path].to(dtype)
+                    out = x.new_empty(x.numel() // n)
+                    dist.reduce_scatter_tensor(out, x, dist.ReduceOp.SUM,
+                                               group=group)
+                    g[path] = out
+                self.calls[name] += 1
+        for path in ("dcn", "ici"):
+            with self._on(streams, path):
+                g[path] = g[path].float() / self.size
+        return g, self._join_paths(streams)
+
+    def _striped_allgather(self, chunks):
+        """Every rank's ``{"ici", "dcn"}`` chunks (or either one), each
+        slice rebuilt along the reverse of its chain (ICI path: inter,
+        then intra; DCN path: intra, then inter) on its side stream; the
+        current stream waits for both."""
+        intra_g, inter_g = self._hop_groups
+        intra_g2, inter_g2 = self._path_groups
+        hops = {"ici": [(inter_g, self.dcn_size), (intra_g, self.ici_size)],
+                "dcn": [(intra_g2, self.ici_size), (inter_g2, self.dcn_size)]}
+        streams, main = self._fork_paths(chunks.values())
+        out = {}
+        for path in [p for p in ("ici", "dcn") if p in chunks]:
+            x = chunks[path].contiguous()
+            if x.numel():
+                with self._on(streams, path), _bucket_scope(
+                        f"mn_stripe_zero_ag_{path}", 0):
+                    for group, n in hops[path]:
+                        full = x.new_empty(x.numel() * n)
+                        dist.all_gather_into_tensor(full, x, group=group)
+                        x = full
+                self.calls[f"{path}_path_gather"] += 1
+            out[path] = x
+        if streams is not None:
+            for side in streams.values():
+                main.wait_stream(side)
+            for x in out.values():
+                x.record_stream(main)
+        return out
 
     # -- the sharded update's flat exchange ---------------------------------------
     def _hops(self):
@@ -801,6 +1278,8 @@ class MeshCommunicator(CommunicatorBase):
         error-feedback residual; with ``async_op`` the exchange runs
         until its ``wait()`` (one collective on the backend's stream, a
         chain on a side stream of the card)."""
+        if isinstance(flat, dict):
+            return self._striped_pending(flat)
         if flat.numel() % self.size:
             raise ValueError(f"flat length {flat.numel()} is not a "
                              f"multiple of the size {self.size}")
@@ -820,10 +1299,37 @@ class MeshCommunicator(CommunicatorBase):
         return PendingExchange(
             work, lambda: out.to(flat.dtype).div_(size))
 
+    def _striped_pending(self, flat):
+        """:meth:`reduce_scatter_grad` of a striped pair: the chains run
+        at once (each on its side stream of the card) and ``wait()``
+        waits for both paths' events."""
+        if not self.striped:
+            raise ValueError("a {'ici', 'dcn'} pair of flat slices needs a "
+                             "striped communicator")
+        for k, v in flat.items():
+            if v.numel() % self.size:
+                raise ValueError(f"{k} slice length {v.numel()} is not a "
+                                 f"multiple of the size {self.size}")
+        chunks, events = self._striped_reduce_scatter(flat)
+        if events is None:
+            return PendingExchange(None, lambda: chunks)
+
+        def finish():
+            main = torch.cuda.current_stream(self.device)
+            for c in chunks.values():   # made on a side stream
+                c.record_stream(main)
+            return chunks
+
+        return PendingExchange([events["dcn"], events["ici"]], finish)
+
     def allgather_flat(self, chunk):
         """Every rank's ``chunk``, concatenated in chunk order (the
         sharded update's parameters, rebuilt): all-gathers along the
-        reverse of the hop chain, the inter-node hop first."""
+        reverse of the hop chain, the inter-node hop first.  A striped
+        ``{"ici", "dcn"}`` pair of chunks gives the pair of slices, each
+        along its own chain."""
+        if isinstance(chunk, dict):
+            return self._striped_allgather(chunk)
         out = chunk.contiguous()
         for group, n, _, ag_name, _ in reversed(self._hops()):
             full = out.new_empty(out.numel() * n)
@@ -853,6 +1359,22 @@ class MeshCommunicator(CommunicatorBase):
         shapes = [tuple(flat.shape)] if shapes is None else shapes
         views = [v.view(s) for v, s in zip(
             flat.split([int(np.prod(s)) for s in shapes]), shapes)]
+        if self.striped:
+            # both paths' chains on their side streams; wait() waits for
+            # one event per path, then writes the mean back
+            if self.quantized and residual is None and self.error_feedback:
+                _warn_inert_error_feedback()
+            run = self._striped_launch(views, self.grad_buckets(
+                shapes, [flat.dtype] * len(shapes)), residual)
+
+            def finish():
+                torch._foreach_copy_(views, run.assemble(len(views)))
+                return flat
+
+            return PendingExchange(
+                None if run.events is None
+                else [run.events["dcn"], run.events["ici"]],
+                finish, run.residual)
 
         def exchange():
             out, new_residual = self._mean_leaves(views, residual)
@@ -929,7 +1451,9 @@ class MeshCommunicator(CommunicatorBase):
             device=self.device, group=group,
             allreduce_grad_dtype=self.allreduce_grad_dtype,
             batch_collectives=self.batch_collectives,
-            bucket_mb=self.bucket_mb, name=self.name,
+            bucket_mb=self.bucket_mb,
+            # a hierarchical name would build a split over the color's ranks
+            name="jax_ici" if self.hierarchy is not None else self.name,
             error_feedback=self.error_feedback)
 
     def finalize(self):
@@ -939,16 +1463,19 @@ class MeshCommunicator(CommunicatorBase):
         if self._owns_world:
             dist.destroy_process_group()
         else:
-            for group in (*self._hop_groups, self.group):
+            for group in (*self._hop_groups, *self._path_groups,
+                          self.group):
                 if group is not None:
                     dist.destroy_process_group(group)
-        self._hop_groups = ()
+        self._hop_groups = self._path_groups = ()
         self._owns_world = False
 
     def __repr__(self):
         split = "" if self.hierarchy is None \
             else f" split={self.dcn_size}x{self.ici_size}" \
             f" dcn_dtype={self.dcn_grad_dtype}"
+        if self.striped:
+            split += f" stripe_ratio={self.stripe_ratio}"
         return (f"<{type(self).__name__} name={self.name!r} "
                 f"size={self.size} device={self.device} "
                 f"exchange={self.exchange} "

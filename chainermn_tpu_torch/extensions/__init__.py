@@ -1,6 +1,6 @@
 """Distributed trainer extensions (reference: ``chainermn.extensions``).
-The checkpointer, failure recovery and the elastic extensions are not
-ported yet (ROADMAP A12, A11)."""
+The multi-node checkpointer (ROADMAP A8), failure recovery and the
+elastic extensions (A11) are not ported yet."""
 
 from .observation_aggregator import ObservationAggregator
 

@@ -1,5 +1,5 @@
 """Differentiable communication (reference: ``chainermn.functions``).
-The point-to-point functions are not ported yet (ROADMAP A9)."""
+The point-to-point functions are not ported yet (ROADMAP A7)."""
 
 from .collective_communication import (allgather, allreduce, alltoall, bcast,
                                        gather, psum_gradient, scatter)

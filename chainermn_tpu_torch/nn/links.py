@@ -239,3 +239,13 @@ class EmbedID(Link):
 
     def forward(self, x):
         return F.embed_id(x, self.W)
+
+
+def __getattr__(name):
+    # L.Classifier lives with the models (a module-level import would be
+    # circular); served here for ``L.Classifier(...)``, as the JAX
+    # package serves it
+    if name == "Classifier":
+        from ..models.mlp import Classifier
+        return Classifier
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

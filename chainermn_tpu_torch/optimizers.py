@@ -88,8 +88,28 @@ intra-node hop).  It is serialized as the JAX package's ``ef_residual``
 resume at another world size, or from a snapshot without the section,
 starts again from zeros.
 
-What raises: ``double_buffering="dcn"`` (the striped exchange's
-variant) and ``autotune`` wait for ROADMAP A10.
+On a striped communicator (``stripe_ratio``) the sharded update's flat
+vector splits at ``stripe_plan(n, ratio)`` into a ``{"ici", "dcn"}`` pair,
+each slice padded to a multiple of ``size``: the ICI-path slice's chunks
+land fast-hop-major (``chunk_index``), the DCN-path slice's slow-hop-major
+(``striped_chunk_index``), and the rule's state is the pair, serialized
+as the JAX package's optax state over the pair (per slot the ``dcn``
+vector, then the ``ici`` one).  ``double_buffering="dcn"`` (the striped
+allreduce exchange only) applies each step's ICI-path results fresh and
+the DCN-path results of the step before (zeros first): on the card this
+step's DCN path runs on under the next step's forward and backward.  Its
+stale buffer (``grad_dcn_stale_len_for`` fp32 elements) serializes as
+``stale_grads`` with one leaf.  A quantized wire does not compose with the
+striped sharded update, and ``"dcn"`` needs a striped communicator and
+the allreduce exchange: both are refused, as in the JAX package.
+
+With tracing on (``CHAINERMN_TPU_TRACE``) each step's exchange runs in a
+``train/grad_exchange`` span tagged with its planned payload bytes and
+bucket count, and each bucket leaves a ``train/grad_exchange/bucket{k}``
+instant and adds its payload to
+``chainermn_tpu_grad_exchange_payload_bytes_total``.
+
+What raises: ``autotune`` waits for ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -98,8 +118,11 @@ import numpy as np
 import torch
 from torch.nn.parameter import is_lazy
 
+from . import observability
 from .communicators._memory_utility import (chunk_bounds, padded_length,
-                                            tree_pack, tree_unpack)
+                                            stripe_plan, tree_pack,
+                                            tree_unpack)
+from .communicators.mesh_communicator import PendingExchange
 from .core import reporter as reporter_module
 from .core import rng
 
@@ -134,14 +157,26 @@ def create_multi_node_optimizer(actual_optimizer, communicator,
             f"exchange must be 'allreduce' or 'reduce_scatter', got "
             f"{exchange!r} (per_leaf/flat/bucketed are communicator "
             f"batch_collectives flavors of the allreduce exchange)")
+    striped = getattr(communicator, "striped", False)
+    if (exchange == "reduce_scatter" or zero_sharding) and striped \
+            and getattr(communicator, "quantized_wire_dtype",
+                        None) is not None:
+        raise ValueError(
+            "a quantized (int8/fp8) wire does not compose with the "
+            "STRIPED sharded update (zero_sharding or "
+            "exchange='reduce_scatter') yet: the slow-hop-major chain "
+            "has no quantized reduce-scatter.  Use the allreduce striped "
+            "exchange (which quantizes both slices' DCN crossings) or the "
+            "non-striped hierarchical_rs path")
     if zero_sharding and exchange == "reduce_scatter":
         raise ValueError(
             "zero_sharding already exchanges gradients via reduce-scatter; "
             "exchange='reduce_scatter' on top of it is a redundancy error")
     if double_buffering not in (False, True, "dcn"):
         raise ValueError(
-            f"double_buffering must be False, True or 'dcn'; got "
-            f"{double_buffering!r}")
+            f"double_buffering must be False, True (full one-step-stale "
+            f"semantics) or 'dcn' (the striped exchange's DCN-slice-only "
+            f"stale variant); got {double_buffering!r}")
     if double_buffering:
         if zero_sharding:
             raise ValueError(
@@ -149,10 +184,19 @@ def create_multi_node_optimizer(actual_optimizer, communicator,
                 "(a one-step-stale gradient buffer would defeat the "
                 "sharded-state memory contract)")
         if double_buffering == "dcn":
-            raise NotImplementedError(
-                "double_buffering='dcn' is the striped exchange's "
-                "DCN-slice-only stale variant, not ported yet "
-                "(ROADMAP A10)")
+            if not striped:
+                raise ValueError(
+                    "double_buffering='dcn' is the striped exchange's "
+                    "DCN-slice-only stale variant: it needs a "
+                    "communicator with stripe_ratio > 0 "
+                    "(create_communicator('hierarchical', "
+                    "stripe_ratio=...))")
+            if exchange == "reduce_scatter":
+                raise ValueError(
+                    "double_buffering='dcn' rides the allreduce striped "
+                    "exchange (the DCN-path slice of each bucket); with "
+                    "exchange='reduce_scatter' use double_buffering=True: "
+                    "the stale chunk is already 1/n-sized")
         if communicator.name not in _DB_COMMUNICATORS:
             raise ValueError(
                 "double buffering requires a fused-bucket communicator "
@@ -160,7 +204,7 @@ def create_multi_node_optimizer(actual_optimizer, communicator,
     return _MultiNodeOptimizer(actual_optimizer, communicator, zero_fill,
                                zero_sharding=zero_sharding,
                                exchange=exchange,
-                               double_buffering=bool(double_buffering))
+                               double_buffering=double_buffering)
 
 
 def _observed(fn):
@@ -183,8 +227,9 @@ class _MultiNodeOptimizer:
             communicator=communicator, actual_optimizer=actual_optimizer,
             zero_fill=zero_fill, zero_sharding=zero_sharding,
             exchange=exchange, double_buffering=double_buffering,
-            _pending=None, _stale=None, _layout=None, _residual=None,
-            _buffers=[None, None], _slot=0, _lazy_done=False)
+            _pending=None, _stale=None, _stale_dcn=None, _layout=None,
+            _residual=None, _obs_plan=None, _buffers=[None, None],
+            _slot=0, _lazy_done=False)
 
     # -- reference-style delegation ---------------------------------------
     def __getattr__(self, name):
@@ -205,7 +250,22 @@ class _MultiNodeOptimizer:
 
     @property
     def _stale_exchange(self):
-        return self.double_buffering and self.communicator.name != "dummy"
+        """Full one-step-stale double buffering on a real communicator."""
+        return self.double_buffering is True \
+            and self.communicator.name != "dummy"
+
+    @property
+    def _db_dcn(self):
+        """``double_buffering="dcn"``: fresh ICI-path results, one-step-
+        stale DCN-path ones."""
+        return self.double_buffering == "dcn" \
+            and self.communicator.name != "dummy"
+
+    @property
+    def _striped_update(self):
+        """True for the sharded update's ``{"ici", "dcn"}`` layout."""
+        return self._sharded_update \
+            and getattr(self.communicator, "striped", False)
 
     @property
     def _needs_residual(self):
@@ -222,7 +282,7 @@ class _MultiNodeOptimizer:
         communicator's per-bucket accounting."""
         comm = self.communicator
         if self._sharded_update:
-            n_pad = self._flat_layout()[1]
+            n_pad = self._segments()[0][3]
             return n_pad // comm.ici_size if comm.hierarchy is not None \
                 else n_pad
         return comm.grad_residual_len_for(self.actual_optimizer.target)
@@ -248,13 +308,14 @@ class _MultiNodeOptimizer:
         the flat layout recomputed at the next step."""
         if self._pending is not None:
             self._pending.wait()
-        self.__dict__.update(_pending=None, _stale=None, _layout=None,
-                             _buffers=[None, None], _slot=0)
+        self.__dict__.update(_pending=None, _stale=None, _stale_dcn=None,
+                             _layout=None, _buffers=[None, None], _slot=0)
 
     def setup(self, link):
         self.actual_optimizer.setup(link)
         self._reset_exchange()
-        self.__dict__.update(_lazy_done=False, _residual=None)
+        self.__dict__.update(_lazy_done=False, _residual=None,
+                             _obs_plan=None)
         return self
 
     def add_hook(self, hook, name=None, timing="pre"):
@@ -275,9 +336,11 @@ class _MultiNodeOptimizer:
         comm = self.communicator
         if lossfun is None:
             # the reference's flow: backward, allreduce_grad, update
-            self._keep_residual(comm.multi_node_mean_grad(
-                actual.target, zero_fill=self.zero_fill,
-                residual=self._residual_in()))
+            with observability.span("train/grad_exchange",
+                                    tags=self._exchange_tags()):
+                self._keep_residual(comm.multi_node_mean_grad(
+                    actual.target, zero_fill=self.zero_fill,
+                    residual=self._residual_in()))
             return actual.update()
         self._prepare(lossfun, args, kwargs)
         loss, observation = self._step(lossfun, args, kwargs,
@@ -359,9 +422,62 @@ class _MultiNodeOptimizer:
             loss, observation = _observed(lambda: lossfun(*args, **kwargs))
         if isinstance(loss, tuple):
             loss = loss[0]
-        self._apply_update(self._exchange(self._gradients(loss)))
+        grads = self._gradients(loss)
+        if observability.enabled():
+            self._emit_exchange_telemetry()
+        with observability.span("train/grad_exchange",
+                                tags=self._exchange_tags()):
+            exchanged = self._exchange(grads)
+        self._apply_update(exchanged)
         self._mean_persistent()
         return self._global_means(loss, observation)
+
+    # -- telemetry (tracing on only) -------------------------------------------
+    def _exchange_plan_rows(self):
+        """The planned exchange, per bucket ``{bucket, leaves, elems,
+        payload_bytes}`` (the gradient's own dtype), cached until
+        ``setup``."""
+        if self._obs_plan is None:
+            comm = self.communicator
+            target = self.actual_optimizer.target
+            rows = []
+            if hasattr(comm, "grad_buckets_for"):
+                shapes, dtypes = comm.grad_leaf_specs(target)
+                for k, idx in enumerate(comm.grad_buckets_for(target)):
+                    elems = [int(np.prod(shapes[i])) for i in idx]
+                    rows.append({"bucket": k, "leaves": len(idx),
+                                 "elems": sum(elems),
+                                 "payload_bytes": sum(
+                                     e * dtypes[i].itemsize
+                                     for e, i in zip(elems, idx))})
+            self.__dict__["_obs_plan"] = rows
+        return self._obs_plan
+
+    def _exchange_tags(self):
+        """The ``train/grad_exchange`` span's tags: the planned payload
+        bytes and bucket count (``None`` with tracing off: built only when
+        they are recorded)."""
+        if not observability.enabled():
+            return None
+        rows = self._exchange_plan_rows()
+        return {"payload_bytes": sum(r["payload_bytes"] for r in rows),
+                "buckets": len(rows)} if rows else None
+
+    def _emit_exchange_telemetry(self):
+        """One ``train/grad_exchange/bucket{k}`` instant per planned
+        bucket, and its payload added to the per-bucket byte counter."""
+        exchange = str(getattr(self.communicator, "exchange", None)
+                       or self.exchange)
+        counter = observability.registry().counter(
+            "chainermn_tpu_grad_exchange_payload_bytes_total",
+            help="planned per-bucket gradient wire payload (gradient "
+                 "dtype; the census prices the per-hop wire dtypes)")
+        for row in self._exchange_plan_rows():
+            observability.instant(
+                f"train/grad_exchange/bucket{row['bucket']}",
+                tags=dict(row, exchange=exchange))
+            counter.inc(row["payload_bytes"], bucket=str(row["bucket"]),
+                        exchange=exchange)
 
     def _sorted_params(self):
         """``(paths, parameters)`` in sorted path order: the order of the
@@ -394,16 +510,23 @@ class _MultiNodeOptimizer:
         (the plain exchange leaves it on ``Parameter.grad``)."""
         comm = self.communicator
         residual = self._residual_in()
+        if grads is None and self._db_dcn:
+            new_residual, fresh = comm.multi_node_mean_grad(
+                self.actual_optimizer.target, zero_fill=self.zero_fill,
+                residual=residual, stale_dcn=self._stale_dcn_in())
+            self._keep_residual(new_residual)
+            self.__dict__["_stale_dcn"] = fresh
+            return None
         if grads is None:
             self._keep_residual(comm.multi_node_mean_grad(
                 self.actual_optimizer.target, zero_fill=self.zero_fill,
                 residual=residual))
             return None
         if self._sharded_update:
-            n, n_pad, _, _ = self._flat_layout()
             with torch.no_grad():
                 flat, _ = tree_pack(grads, torch.float32)
-                flat = torch.nn.functional.pad(flat, (0, n_pad - n))
+                flat = self._per_slice(lambda seg: torch.nn.functional.pad(
+                    flat[seg[1]:seg[1] + seg[2]], (0, seg[3] - seg[2])))
             exchange = comm.reduce_scatter_grad(
                 flat, async_op=self._stale_exchange, residual=residual)
             self._keep_residual(exchange.residual)
@@ -460,11 +583,23 @@ class _MultiNodeOptimizer:
 
     def _zeros(self):
         if self._sharded_update:
-            _, _, lo, hi = self._flat_layout()
-            _, params = self._sorted_params()
-            return torch.zeros(hi - lo, dtype=torch.float32,
-                               device=params[0].device)
+            device = self._sorted_params()[1][0].device
+            return self._per_slice(lambda seg: torch.zeros(
+                seg[5] - seg[4], dtype=torch.float32, device=device))
         return [torch.zeros_like(p) for p in self._sorted_params()[1]]
+
+    def _stale_dcn_in(self):
+        """``double_buffering="dcn"``'s previous DCN-path results: the
+        pending exchange of the step before, or the vector a snapshot
+        restored, or zeros before any."""
+        if self._stale_dcn is None:
+            comm = self.communicator
+            target = self.actual_optimizer.target
+            zeros = torch.zeros(comm.grad_dcn_stale_len_for(target),
+                                dtype=torch.float32,
+                                device=next(target.parameters()).device)
+            return PendingExchange(None, lambda: zeros)
+        return self._stale_dcn
 
     def _apply_update(self, exchanged):
         """The rule on what :meth:`_exchange` returned: on every
@@ -478,29 +613,67 @@ class _MultiNodeOptimizer:
         if not self._sharded_update:
             actual._apply_to(paths, params, exchanged)
             return
-        n, n_pad, lo, hi = self._flat_layout()
+        segments = self._segments()
         with torch.no_grad():
             flat, spec = tree_pack(params, torch.float32)
-            flat = torch.nn.functional.pad(flat, (0, n_pad - n))
-        chunk = flat[lo:hi]
-        actual._apply_to([_FLAT], [chunk], [exchanged],
-                         hooks=self._chunk_hooks())
-        full = self.communicator.allgather_flat(chunk)
+            chunks = self._per_slice(lambda seg: torch.nn.functional.pad(
+                flat[seg[1]:seg[1] + seg[2]], (0, seg[3] - seg[2]))[
+                    seg[4]:seg[5]])
+        actual._apply_to([seg[0] for seg in segments], self._slices(chunks),
+                         self._slices(exchanged), hooks=self._chunk_hooks())
+        full = self._slices(self.communicator.allgather_flat(chunks))
         with torch.no_grad():
-            torch._foreach_copy_(params, tree_unpack(full[:n], spec))
+            new_flat = torch.cat([f[:seg[2]] for f, seg in sorted(
+                zip(full, segments), key=lambda fs: fs[1][1])])
+            torch._foreach_copy_(params, tree_unpack(new_flat, spec))
 
     def _flat_layout(self):
-        """``(n, n_pad, start, stop)``: the flat vector's length, its
-        padded length and this rank's chunk (the communicator's
-        ``chunk_index``: where the reduce-scatter chain leaves it)."""
+        """``(n, n_pad, start, stop)`` of the plain sharded update: the
+        flat vector's length, its padded length and this rank's chunk
+        (the communicator's ``chunk_index``: where the reduce-scatter
+        chain leaves it)."""
+        _, _, n, n_pad, lo, hi = self._segments()[0]
+        return n, n_pad, lo, hi
+
+    def _segments(self):
+        """The sharded update's flat slices, each ``(key, offset in the
+        parameter vector, length, padded length, start, stop of this
+        rank's chunk)``: one ``"flat"`` slice, or on a striped
+        communicator the ``"dcn"`` and ``"ici"`` slices of
+        ``stripe_plan(n, ratio)`` (the JAX state's leaf order), each padded
+        to a multiple of ``size``, the ICI-path chunks fast-hop-major
+        (``chunk_index``) and the DCN-path ones slow-hop-major
+        (``striped_chunk_index``)."""
         _, params = self._sorted_params()
         n = sum(p.numel() for p in params)
         if self._layout is None or self._layout[0] != n:
             comm = self.communicator
-            n_pad = padded_length(n, comm.size)
-            self.__dict__["_layout"] = (n, n_pad, *chunk_bounds(
-                n_pad, comm.size, getattr(comm, "chunk_index", comm.rank)))
-        return self._layout
+            size = comm.size
+            if self._striped_update:
+                fast, slow = comm.striped_chunk_specs()
+                n_i, n_d = stripe_plan(n, comm.stripe_ratio)
+                pad_i, pad_d = padded_length(n_i, size), padded_length(
+                    n_d, size)
+                segments = [
+                    ("dcn", n_i, n_d, pad_d, *chunk_bounds(pad_d, size, slow)),
+                    ("ici", 0, n_i, pad_i, *chunk_bounds(pad_i, size, fast))]
+            else:
+                n_pad = padded_length(n, size)
+                segments = [(_FLAT, 0, n, n_pad, *chunk_bounds(
+                    n_pad, size, getattr(comm, "chunk_index", comm.rank)))]
+            self.__dict__["_layout"] = (n, segments)
+        return self._layout[1]
+
+    def _per_slice(self, fn):
+        """``fn(segment)`` for each flat slice: one tensor, or the striped
+        ``{"dcn", "ici"}`` pair."""
+        out = {seg[0]: fn(seg) for seg in self._segments()}
+        return out if self._striped_update else out[_FLAT]
+
+    def _slices(self, x):
+        """A :meth:`_per_slice` value as a list in the slices' order."""
+        return [x[seg[0]] for seg in self._segments()] \
+            if self._striped_update else [x]
 
     def _chunk_hooks(self):
         """The registered hooks as they run on a chunk of the flat
@@ -587,11 +760,45 @@ class _MultiNodeOptimizer:
             self._serialize_residual(serializer["ef_residual"])
         if self._stale_exchange and actual.target is not None:
             self._serialize_stale(serializer["stale_grads"])
+        if self._db_dcn and actual.target is not None:
+            self._serialize_stale_dcn(serializer["stale_grads"])
 
-    def _whole(self, chunk):
-        """Every rank's chunk, gathered in chunk order (the reverse hop
-        chain): the whole flat vector on the host."""
-        return self.communicator.allgather_flat(chunk).cpu().numpy()
+    def _whole(self, chunk, key=_FLAT):
+        """Every rank's chunk of the flat slice ``key``, gathered in chunk
+        order (the reverse hop chain): the whole slice on the host."""
+        comm = self.communicator
+        if key != _FLAT:
+            return comm.allgather_flat({key: chunk})[key].cpu().numpy()
+        return comm.allgather_flat(chunk).cpu().numpy()
+
+    def _serialize_stale_dcn(self, sub):
+        """``double_buffering="dcn"``'s stale buffer as the JAX package
+        writes it: ``n`` 1 and ``g0``, every bucket's DCN-path results
+        (the same on every rank).  Read back it is applied by the next
+        step; a snapshot without it, or of another length, leaves zeros."""
+        if sub.is_writer:
+            if self._stale_dcn is not None:
+                stale = self._stale_dcn.wait()
+                self.__dict__["_stale_dcn"] = PendingExchange(
+                    None, lambda: stale)
+                sub("n", 1)
+                sub("g0", stale.cpu().numpy())
+            return
+        self.__dict__["_stale_dcn"] = None
+        try:
+            n = sub("n", None)
+        except KeyError:  # saved before the first update
+            return
+        if n is None or int(n) != 1:
+            return
+        comm = self.communicator
+        target = self.actual_optimizer.target
+        leaf = np.asarray(sub("g0", None), np.float32).reshape(-1)
+        if leaf.shape[0] != comm.grad_dcn_stale_len_for(target):
+            return
+        stale = torch.from_numpy(leaf.copy()).to(
+            next(target.parameters()).device)
+        self.__dict__["_stale_dcn"] = PendingExchange(None, lambda: stale)
 
     def _serialize_residual(self, sub):
         """The JAX package's ``ef_residual`` section: ``n`` (1), ``r0``
@@ -605,6 +812,8 @@ class _MultiNodeOptimizer:
         if sub.is_writer:
             if self._pending is not None:
                 self.__dict__["_stale"] = self._take_stale()
+            if self._stale_dcn is not None:
+                self._stale_dcn.wait()   # the DCN path writes its part
             if self._residual is not None:
                 sub("n", 1)
                 sub("r0", self._whole(self._residual))
@@ -632,10 +841,11 @@ class _MultiNodeOptimizer:
         self.__dict__["_residual"] = torch.from_numpy(
             whole[at:at + local].copy()).to(device)
 
-    def _my_chunk(self, leaf):
-        """This rank's chunk of a whole flat vector saved under any world
-        size (cut to the parameters' length, padded to this size's)."""
-        n, n_pad, lo, hi = self._flat_layout()
+    def _my_chunk(self, leaf, key=_FLAT):
+        """This rank's chunk of a whole flat slice ``key`` saved under any
+        world size (cut to the slice's length, padded to this size's)."""
+        _, _, n, n_pad, lo, hi = next(seg for seg in self._segments()
+                                      if seg[0] == key)
         leaf = np.asarray(leaf, np.float32).reshape(-1)
         if leaf.shape[0] < n:
             raise ValueError(f"flat vector of {leaf.shape[0]} elements "
@@ -646,27 +856,33 @@ class _MultiNodeOptimizer:
         return torch.from_numpy(full[lo:hi].copy()).to(device)
 
     def _save_flat_state(self):
+        """The rule's state as the JAX package's flat optax leaves:
+        ``count``, then per slot the whole flat vector of each slice."""
         actual = self.actual_optimizer
-        st = actual._state.get(_FLAT)
-        if st is None:
+        keys = [seg[0] for seg in self._segments()]
+        if any(k not in actual._state for k in keys):
             return None
-        leaves = [np.asarray(st["count"], np.int32)] \
+        sts = [actual._state[k] for k in keys]
+        leaves = [np.asarray(sts[0]["count"], np.int32)] \
             if actual._has_count else []
-        return leaves + [self._whole(st[slot]) for slot in actual._slots]
+        return leaves + [self._whole(st[slot], k) for slot in actual._slots
+                         for k, st in zip(keys, sts)]
 
     def _load_flat_state(self, leaves):
         actual = self.actual_optimizer
-        want = int(actual._has_count) + len(actual._slots)
+        keys = [seg[0] for seg in self._segments()]
+        want = int(actual._has_count) + len(actual._slots) * len(keys)
         if len(leaves) != want:
             raise ValueError(
                 f"optimizer state has {len(leaves)} leaves, the flat "
                 f"state of {type(actual).__name__} takes {want}")
         leaves = list(leaves)
-        st = {"count": int(np.asarray(leaves.pop(0)))
-              if actual._has_count else 0}
-        for slot, leaf in zip(actual._slots, leaves):
-            st[slot] = self._my_chunk(leaf)
-        actual._state = {_FLAT: st}
+        count = int(np.asarray(leaves.pop(0))) if actual._has_count else 0
+        state = {k: {"count": count} for k in keys}
+        for slot in actual._slots:
+            for k in keys:
+                state[k][slot] = self._my_chunk(leaves.pop(0), k)
+        actual._state = state
 
     def _serialize_stale(self, sub):
         if sub.is_writer:
@@ -674,8 +890,13 @@ class _MultiNodeOptimizer:
                 self.__dict__["_stale"] = self._take_stale()
             if self._stale is None:
                 return
-            leaves = [self._whole(self._stale)] if self._sharded_update \
-                else [g.detach().cpu().numpy() for g in self._stale]
+            if self._striped_update:
+                leaves = [self._whole(self._stale[k], k)
+                          for k, *_ in self._segments()]
+            elif self._sharded_update:
+                leaves = [self._whole(self._stale)]
+            else:
+                leaves = [g.detach().cpu().numpy() for g in self._stale]
             sub("n", len(leaves))
             for i, leaf in enumerate(leaves):
                 sub(f"g{i}", leaf)
@@ -689,7 +910,13 @@ class _MultiNodeOptimizer:
             return
         leaves = [sub(f"g{i}", None) for i in range(int(n))]
         if self._sharded_update:
-            stale = self._my_chunk(leaves[0])
+            keys = [seg[0] for seg in self._segments()]
+            if len(leaves) != len(keys):
+                raise ValueError(f"stale_grads has {len(leaves)} leaves "
+                                 f"for the {len(keys)} flat slices")
+            stale = self._per_slice(
+                lambda seg: self._my_chunk(leaves[keys.index(seg[0])],
+                                           seg[0]))
         else:
             _, params = self._sorted_params()
             if len(leaves) != len(params):

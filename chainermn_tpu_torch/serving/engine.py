@@ -27,21 +27,32 @@ with per-tenant round-robin fairness; when the pool runs dry the youngest
 running sequence owning a unique page is evicted (pages freed, request
 re-queued front-of-line with its tokens folded into the prompt).
 
+Observability (``CHAINERMN_TPU_TRACE``, the JAX engine's spans and
+metrics): each request's lifecycle rides a track of its own
+(``serve/queue_wait``, measured on the engine's clock from arrival, or
+from the eviction that re-queued it, and tagged ``readmit``;
+``serve/prefill`` or ``serve/suffix_prefill``; the ``serve/finish`` and
+``serve/evict`` instants), decode steps run in ``serve/decode_window``
+spans, forks leave ``serve/fork`` instants; the registry keeps the
+queue-wait histogram, the per-tenant queue depth and the eviction and
+fork counters.
+
 The port is eager PyTorch: there are no jit programs, trace counters or
 warm-up, and the pools are updated in place (the JAX engine's donation).
 The JAX engine's disaggregated prefill, tensor-parallel decode,
 speculative decoding and chunked prefill are not ported yet (ROADMAP
-A13) and raise ``NotImplementedError``; its observability spans wait for
-the observability item (ROADMAP A12).
+A13) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import time
+import zlib
 
 import numpy as np
 import torch
 
+from .. import observability
 from .._device import resolve_device
 from ..nn import functions as F
 from ..ops import attention as flash_attention_op
@@ -287,6 +298,44 @@ class ServingEngine:
         tokens[0, :len(toks)] = toks
         return self._tensor(tokens)
 
+    # -- observability -------------------------------------------------------
+
+    @staticmethod
+    def _req_tid(req):
+        """The request's own trace track: lifecycle spans of concurrent
+        requests overlap, so each takes a Chrome ``tid`` lane.  A request
+        id that is not an int maps onto a crc32 lane (independent of
+        ``PYTHONHASHSEED``)."""
+        rid = req.request_id
+        if isinstance(rid, int):
+            return 1 + rid
+        return 1 + (zlib.crc32(str(rid).encode()) & 0x7FFFFFFF)
+
+    def _obs_admitted(self, req, wait_s, readmit):
+        """The admission's queue wait: a retroactive span on the
+        request's lane (its exact duration on the engine's clock in the
+        tags) and the per-tenant histogram."""
+        tags = {"tenant": req.tenant, "request": req.request_id,
+                "prompt": int(req.prompt.size)}
+        if readmit:
+            tags["readmit"] = True
+        observability.tracer().complete("serve/queue_wait", wait_s,
+                                        tags=tags, tid=self._req_tid(req))
+        observability.registry().histogram(
+            "chainermn_tpu_serving_queue_wait_ms",
+            help="admission queue wait per request (ms)").observe(
+            wait_s * 1e3, tenant=req.tenant)
+
+    def _obs_queue_depths(self):
+        queues = getattr(self.scheduler, "_queues", None)
+        if queues is None:   # a scheduler without tenant queues
+            return
+        gauge = observability.registry().gauge(
+            "chainermn_tpu_serving_queue_depth",
+            help="pending requests per tenant at the last decode step")
+        for tenant in list(queues):
+            gauge.set(self.scheduler.pending(tenant), tenant=tenant)
+
     def _record_token(self, req, tok, now):
         req.tokens.append(int(tok))
         req.token_times.append(now)
@@ -304,19 +353,42 @@ class ServingEngine:
         self.running.remove(req)
         req.finish_time = now
         self.completed.append(req)
+        if observability.enabled():
+            observability.instant("serve/finish",
+                                  tags={"tenant": req.tenant,
+                                        "request": req.request_id,
+                                        "tokens": len(req.tokens)},
+                                  tid=self._req_tid(req))
 
-    def _evict(self, req):
+    def _evict(self, req, now=None):
         """Preemption: free pages (shared pages stay alive through their
         other holders), fold generated tokens into the prompt, re-queue
-        front-of-line (recompute on re-admit)."""
+        front-of-line (recompute on re-admit).  ``now`` stamps the
+        re-queue, from which the re-admission's queue wait counts."""
         self.allocator.free(req.request_id)
         self.running.remove(req)
+        req.requeue_time = now
         self.scheduler.requeue_front(req)
         self.evictions += 1
+        if observability.enabled():
+            observability.instant("serve/evict",
+                                  tags={"tenant": req.tenant,
+                                        "request": req.request_id},
+                                  tid=self._req_tid(req))
+            observability.registry().counter(
+                "chainermn_tpu_serving_evictions_total",
+                help="running sequences preempted for pool pages").inc(
+                1, tenant=req.tenant)
 
     def _run_fork(self, src, dst):
         copy_page(self.kv.k_store, self.kv.v_store, src, dst)
         self.forks += 1
+        if observability.enabled():
+            observability.instant("serve/fork",
+                                  tags={"src": int(src), "dst": int(dst)})
+            observability.registry().counter(
+                "chainermn_tpu_serving_forks_total",
+                help="copy-on-write page forks").inc(1)
 
     def _run_prefix_prefill(self, req, L, matched):
         """Prefix hit: prefill only the unmatched suffix."""
@@ -332,6 +404,7 @@ class ServingEngine:
         The prefix match is capped at ``L - 1`` so prefill always has a
         suffix token to produce the first logits; a match ending mid-page
         forks that page before the suffix's first write."""
+        t_admit = clock()
         L = int(req.prompt.size)
         sid = req.request_id
         matched = 0
@@ -356,16 +429,37 @@ class ServingEngine:
                     self._run_fork(old, new)
         if not matched:
             self.allocator.ensure(sid, L + 1)
+        # this admission's queue wait: from arrival, or from the eviction
+        # that re-queued the request (its running time is not a wait)
+        readmit = req.requeue_time is not None
+        wait_s = max(0.0, t_admit - (req.requeue_time if readmit
+                                     else req.arrival_time))
+        req.queue_wait_s += wait_s
+        obs_on = observability.enabled()
+        rtid = self._req_tid(req) if obs_on else None
+        if obs_on:
+            self._obs_admitted(req, wait_s, readmit)
         t0 = time.perf_counter()
         if matched:
-            logits = self._run_prefix_prefill(req, L, matched)
+            with observability.span(
+                    "serve/suffix_prefill",
+                    tags={"request": sid, "matched": matched,
+                          "suffix": L - matched} if obs_on else None,
+                    tid=rtid):
+                logits = self._run_prefix_prefill(req, L, matched)
             self.prefix_hits += 1
             self.prefix_tokens_matched += matched
         else:
-            logits = prefill_program(self.model, self.kv,
-                                     self._padded_tokens(req.prompt), L,
-                                     self._tensor(self._bt_row(sid)))
+            with observability.span(
+                    "serve/prefill",
+                    tags={"request": sid, "prompt": L} if obs_on else None,
+                    tid=rtid):
+                logits = prefill_program(self.model, self.kv,
+                                         self._padded_tokens(req.prompt),
+                                         L, self._tensor(self._bt_row(sid)))
             self.full_prefills += 1
+        req.admit_time = t_admit
+        req.requeue_time = None   # the next eviction stamps it again
         self.admissions += 1
         if self.prefix_cache:
             self.allocator.register_prefix(sid, prompt_t)
@@ -400,7 +494,7 @@ class ServingEngine:
             except PagePoolExhaustedError:
                 victim = self.scheduler.pick_victim(self.running,
                                                     self.allocator)
-                self._evict(victim)
+                self._evict(victim, clock())
                 # the victim may be req: re-check the same index
         while len(self.running) < self.max_batch:
             req = self.scheduler.next_admission(arrived_by=clock())
@@ -418,23 +512,29 @@ class ServingEngine:
         stats["running"] = n
         stats["occupancy"] = (self.allocator.used_pages
                               / self.allocator.num_pages)
+        if observability.enabled():
+            self._obs_queue_depths()
         if n == 0:
             stats["decoded"] = 0
             return stats
-        Bb = _bucket(n, self.batch_buckets, "batch")
-        toks = np.zeros(Bb, dtype=np.int64)
-        pos = np.full(Bb, -1, dtype=np.int64)
-        bts = np.zeros((Bb, self.n_block_entries), dtype=np.int64)
-        for j, req in enumerate(self.running):
-            toks[j] = req.tokens[-1]
-            pos[j] = req._ctx
-            bts[j] = self._bt_row(req.request_id)
-        t0 = time.perf_counter()
-        _, nxt = decode_program(self.model, self.kv, self._tensor(toks),
-                                self._tensor(pos), self._tensor(bts),
-                                mode=self.mode)
-        nxt = nxt.cpu().numpy()      # device -> host sync
-        self.decode_s += time.perf_counter() - t0
+        with observability.span(
+                "serve/decode_window",
+                tags={"batch": n, "step": self.decode_steps}
+                if observability.enabled() else None):
+            Bb = _bucket(n, self.batch_buckets, "batch")
+            toks = np.zeros(Bb, dtype=np.int64)
+            pos = np.full(Bb, -1, dtype=np.int64)
+            bts = np.zeros((Bb, self.n_block_entries), dtype=np.int64)
+            for j, req in enumerate(self.running):
+                toks[j] = req.tokens[-1]
+                pos[j] = req._ctx
+                bts[j] = self._bt_row(req.request_id)
+            t0 = time.perf_counter()
+            _, nxt = decode_program(self.model, self.kv, self._tensor(toks),
+                                    self._tensor(pos), self._tensor(bts),
+                                    mode=self.mode)
+            nxt = nxt.cpu().numpy()      # device -> host sync
+            self.decode_s += time.perf_counter() - t0
         self.decode_steps += 1
         t_tok = clock()
         for j, req in enumerate(list(self.running)):

@@ -62,6 +62,12 @@ class Request:
         self.preemptions = 0
         self.first_token_time = None
         self.finish_time = None
+        # the engine's clock at the last admission, at the last eviction
+        # (cleared by the admission after it), and the queue waits summed
+        # over the admissions
+        self.admit_time = None
+        self.requeue_time = None
+        self.queue_wait_s = 0.0
 
     def __repr__(self):
         return (f"Request(id={self.request_id}, tenant={self.tenant!r}, "

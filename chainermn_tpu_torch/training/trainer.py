@@ -7,8 +7,12 @@ observation scope in which the optimizer targets are registered as
 ``main/loss``), then calls the registered extensions by priority: each
 extension's ``initialize(trainer)`` once before the first iteration
 (and so again in a trainer that resumes from a snapshot), its
-``finalize()`` once at the end.  Failure recovery and trace export are
-not ported yet (ROADMAP A12).
+``finalize()`` once at the end, each in its own ``try`` (the first
+failure is raised after every finalizer and the updater's have run,
+unless the loop is already raising).  With tracing on
+(``CHAINERMN_TPU_TRACE``) a run leaves its rank's Chrome-trace shard,
+``trace-rank{r}.jsonl``, in ``out``.  Failure recovery is not ported yet
+(ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import os
 import sys
 import time
 
+from .. import observability
 from ..core import reporter as reporter_module
 from .triggers import get_trigger
 
@@ -166,12 +171,40 @@ class Trainer:
                               file=sys.stderr)
             raise
         finally:
-            for entry in extensions:
-                finalize = getattr(entry.extension, "finalize", None)
-                if finalize:
-                    finalize()
-            self.updater.finalize()
-            self._done = True
+            self._finalize(extensions)
+
+    def _finalize(self, extensions):
+        """Every extension's ``finalize`` and the updater's, each in its
+        own ``try``: one failing cleanup must not skip the others (the
+        updater's stops the loader workers and the device-feed thread).
+        The first failure is printed and raised after all of them have
+        run, unless an exception is already unwinding from the loop,
+        which wins.  Then the trace shard is written (tracing on), a
+        failure to write it printed, never raised."""
+        first = None
+        cleanups = [(f"finalize of extension {entry.name}",
+                     getattr(entry.extension, "finalize", None))
+                    for entry in extensions]
+        cleanups.append(("updater.finalize", self.updater.finalize))
+        for what, finalize in cleanups:
+            if finalize is None:
+                continue
+            try:
+                finalize()
+            except BaseException as e:  # noqa: BLE001 (re-raised below)
+                print(f"Exception in {what}: {e}", file=sys.stderr)
+                if first is None:
+                    first = e
+        self._done = True
+        if observability.enabled():
+            try:
+                tr = observability.tracer()
+                tr.export(os.path.join(self.out,
+                                       f"trace-rank{tr.rank}.jsonl"))
+            except Exception as e:  # noqa: BLE001 (never mask the run)
+                print(f"trace export failed: {e}", file=sys.stderr)
+        if first is not None and sys.exc_info()[0] is None:
+            raise first
 
     def serialize(self, serializer):
         """The JAX trainer's keys: ``updater/...``, ``stop_trigger/...``,

@@ -181,7 +181,35 @@ Phases, each printing one JSON line:
     the CPU (a gloo group beside the NCCL world) within phase 12's
     tolerances; then the int8 wire's device cost at ResNet-50's 25.6 M
     parameters beside an fp32 copy of them.  The flash kernels' counts
-    stay 0 in phases 21-23.
+    stay 0 in phases 21-23;
+24-27. train_resnet_striped, _striped_rs, _striped_db_dcn,
+    _striped_q_int8: ``train_resnet``'s step through
+    ``create_communicator("hierarchical", stripe_ratio=0.25,
+    allreduce_grad_dtype={"dcn": "bfloat16"})`` (the allreduce exchange,
+    ``exchange="reduce_scatter"``, ``double_buffering="dcn"``) and with
+    ``{"dcn": "int8"}``: a 1 x 1 split on two pairs of NCCL subgroups.
+    Each row: images/s, idle share, peak memory, the exchange's (and the
+    update's) device ms, each striped op's count a step (one each), the
+    sharded update's ``{"ici", "dcn"}`` state sizes, the stale DCN
+    buffer's bytes (4 x ``grad_dcn_stale_len``), the residual's (4 x
+    ``grad_residual_len``), and from one step profiled under
+    ``CHAINERMN_TPU_TRACE=full`` the streams each path's kernels and
+    copies ran on (one side stream per path, two distinct, neither the
+    step's own, or the phase fails) and how long the two paths' device
+    intervals overlapped;
+28. train_resnet_traced: ``train_resnet`` on that striped communicator
+    untraced and with ``CHAINERMN_TPU_TRACE=events`` in turns: images/s
+    of each, the trainer's shard valid with one ``train/optimizer_update``,
+    ``train/grad_exchange`` and ``train/input_stall`` per iteration, the
+    payload counter steps x the planned payload; then one step under
+    ``full`` in the profiler: the device work inside the
+    ``train.grad_exchange.bucket*`` ranges (some, or the phase fails);
+29. striped_parity: the small fp32 ResNet of phase 12, TF32 off: (1) at a
+    world of one, ratio 0 bitwise the hierarchical exchange and its
+    reduce-scatter update, ratios 1 and 0.25 (both flavors) bitwise the
+    plain DP step; (2) each exchange of phases 24-27, 3 steps on the card
+    against the same on the CPU within phase 12's tolerances.  The flash
+    kernels' counts stay 0 in phases 24-29.
 
 Then the kernels line (launches, error, times, the whole call's device
 time and bound of all five kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
@@ -2653,6 +2681,406 @@ def phase_hier_parity(n_params):
         fail("the process group outlived the hier_parity phase")
 
 
+#: phases 24-27: train_resnet's step through the striped exchange at a
+#: 1 x 1 split (stripe ratio 0.25, the JAX package's default): the
+#: communicator's keywords and the optimizer's
+STRIPE = dict(stripe_ratio=0.25)
+RESNET_STRIPED = {
+    "train_resnet_striped": (dict(STRIPE, allreduce_grad_dtype={
+        "dcn": "bfloat16"}), {}),
+    "train_resnet_striped_rs": (dict(STRIPE, allreduce_grad_dtype={
+        "dcn": "bfloat16"}), dict(exchange="reduce_scatter")),
+    "train_resnet_striped_db_dcn": (dict(STRIPE, allreduce_grad_dtype={
+        "dcn": "bfloat16"}), dict(double_buffering="dcn")),
+    "train_resnet_striped_q_int8": (dict(STRIPE, allreduce_grad_dtype={
+        "dcn": "int8"}), {})}
+#: the striped schedule's ops, each once a step (one bucket); the
+#: quantized DCN path needs no gather
+STRIPED_OPS = ("dcn_path_scatter", "ici_path_scatter", "dcn_path_exchange",
+               "ici_path_exchange", "dcn_path_gather", "ici_path_gather")
+
+
+def striped_paths(events):
+    """From a ``torch.profiler`` trace of a step under
+    ``CHAINERMN_TPU_TRACE=full``: per striped path the streams of the
+    device ops inside its ``train.grad_exchange.bucket*`` ranges (NCCL's
+    kernels and copies on their groups' streams apart from the path's
+    own kernels), and how long the two paths' device intervals
+    overlap."""
+    from chainermn_tpu_torch.communicators.mesh_communicator import \
+        STRIPED_OP_PATH
+    from chainermn_tpu_torch.utils import device_ops_in_ranges
+    paths = {p: {"kernel_streams": set(), "copy_streams": set(),
+                 "nccl_streams": set(), "ops": 0, "spans": []}
+             for p in ("dcn", "ici")}
+    for name, op in device_ops_in_ranges(events, "train.grad_exchange."):
+        path = STRIPED_OP_PATH.get(name.rsplit(".", 1)[-1])
+        if path is None:
+            continue
+        row = paths[path]
+        kind = ("nccl_streams" if "nccl" in op["name"].lower()
+                else "kernel_streams" if op.get("cat") == "kernel"
+                else "copy_streams")
+        row[kind].add(op["args"]["stream"])
+        row["ops"] += 1
+        row["spans"].append((op["ts"], op["ts"] + op.get("dur", 0)))
+
+    def union(spans):
+        out = []
+        for a, b in sorted(spans):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    overlap = 0.0
+    for a0, a1 in union(paths["dcn"]["spans"]):
+        for b0, b1 in union(paths["ici"]["spans"]):
+            overlap += max(0.0, min(a1, b1) - max(a0, b0))
+    out = {p: {"ops": row["ops"],
+               "device_ms": sum(b - a for a, b in union(row["spans"]))
+               * 1e-3,
+               **{k: sorted(row[k], key=str) for k in (
+                   "kernel_streams", "copy_streams", "nccl_streams")}}
+           for p, row in paths.items()}
+    out["overlap_ms"] = overlap * 1e-3
+    return out
+
+
+def profiled_events(fn, name):
+    """``fn()`` under ``torch.profiler`` (host and card): the trace's
+    events, also written to ``build/<name>.json``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", f"{name}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def streams_under_full(updater, name):
+    """One step of ``updater`` traced under ``CHAINERMN_TPU_TRACE=full``:
+    :func:`striped_paths` of it, and the streams of the step's own work
+    (the ops whose innermost span range is ``train.optimizer_update``:
+    the forward, the backward, the rule)."""
+    from chainermn_tpu_torch import observability
+    from chainermn_tpu_torch.utils import device_ops_in_ranges
+    prev = observability.set_mode("full")
+    try:
+        events = profiled_events(updater.update, name)
+    finally:
+        observability.set_mode(prev)
+        observability.reset_tracer()
+        observability.reset_registry()
+    paths = striped_paths(events)
+    paths["caller_streams"] = sorted(
+        {op["args"]["stream"] for name, op in device_ops_in_ranges(
+            events, "train.") if name == "train.optimizer_update"}, key=str)
+    return paths
+
+
+def check_two_side_streams(phase, paths):
+    """Each path's own kernels ran on one side stream of its own, neither
+    the other path's nor the caller's."""
+    dcn, ici = (set(paths[p]["kernel_streams"]) for p in ("dcn", "ici"))
+    caller = set(paths["caller_streams"])
+    if not (len(dcn) == len(ici) == 1 and dcn != ici and caller
+            and not (dcn | ici) & caller):
+        fail(f"{phase}: the striped paths did not run on two side streams: "
+             f"{paths}")
+
+
+def phase_train_resnet_striped(phase, plain_row):
+    """``train_resnet``'s step through the striped exchange (RESNET_STRIPED)
+    at a 1 x 1 split on NCCL subgroups, beside ``plain_row``: the device
+    cost of the striped packs, splits, casts and copies at full width,
+    the streams each path ran on and how long they overlapped."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     scatter_dataset)
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import Classifier, ResNet50
+    comm_kw, exchange = RESNET_STRIPED[phase]
+    comm = create_communicator("hierarchical", **comm_kw)
+    try:
+        model = Classifier(ResNet50(compute_dtype=torch.bfloat16,
+                                    device="cuda", **RESNET))
+        comm.bcast_data(model)
+        opt = create_multi_node_optimizer(
+            MomentumSGD(lr=0.1, momentum=0.9), comm, **exchange).setup(model)
+        shard = scatter_dataset(resnet_data(), comm)
+        comm.calls.clear()
+        updater, step_ms, losses, peak, launches = timed_trainer_run(
+            opt, shard, RESNET_BATCH, RESNET_STEPS, f"chip_smoke_{phase}")
+        calls = dict(comm.calls)
+        median_ms = float(np.median(step_ms[RESNET_WARMUP:]))
+        images_per_s = RESNET_BATCH / (median_ms * 1e-3)
+        flops = resnet50_train_flops_per_image(RESNET_IMAGE)
+        prof = profile_steps(f"{phase}_profile", updater, top_n=10,
+                             classes_us=op_classes_us)
+        residual = opt._residual
+        row = {"phase": phase, "communicator": comm.name,
+               "topology": comm.topology, "stripe_ratio": comm.stripe_ratio,
+               "wire": {"ici": str(comm.allreduce_grad_dtype),
+                        "dcn": str(comm.dcn_grad_dtype)},
+               "exchange": exchange, "steps": RESNET_STEPS,
+               "split": [comm.dcn_size, comm.ici_size],
+               "subgroup_backends": [dist.get_backend(g) for g in (
+                   *comm._hop_groups, *comm._path_groups)],
+               "step_ms": step_ms, "median_step_ms": median_ms,
+               "images_per_s": images_per_s,
+               "mfu": flops * images_per_s / PEAK_FLOPS[torch.bfloat16],
+               "losses": losses, "peak_bytes": peak, "launches": launches,
+               "device_idle_share": prof["device_idle_share"],
+               "collectives": calls,
+               "ops_per_step": {k: v / RESNET_STEPS for k, v in calls.items()},
+               "residual_bytes": 0 if residual is None
+               else residual.numel() * residual.element_size(),
+               "grad_residual_len": comm.grad_residual_len_for(model),
+               "grad_dcn_stale_len": comm.grad_dcn_stale_len_for(model),
+               "params": sum(p.numel() for p in model.parameters()),
+               **exchange_parts(opt, model, shard),
+               "train_resnet": {k: plain_row[k] for k in (
+                   "median_step_ms", "images_per_s", "mfu", "peak_bytes",
+                   "device_idle_share")}}
+        if opt._sharded_update:
+            row["segments"] = [list(seg) for seg in opt._segments()]
+            row["state_elems"] = {
+                k: {slot: v.numel() for slot, v in st.items()
+                    if isinstance(v, torch.Tensor)}
+                for k, st in opt.actual_optimizer._state.items()}
+        if opt._db_dcn:
+            stale = opt._stale_dcn.wait()
+            row["stale_dcn_bytes"] = stale.numel() * stale.element_size()
+        row["paths"] = streams_under_full(updater, f"chip_smoke_{phase}_full")
+        opt._reset_exchange()
+        emit(row)
+    finally:
+        comm.finalize()
+    ops = [op for op in STRIPED_OPS if not (
+        comm.quantized and op == "dcn_path_gather")]
+    want = {op: RESNET_STEPS for op in ops}
+    if not all(np.isfinite(losses)) or len(losses) != RESNET_STEPS:
+        fail(f"{phase} losses {losses}")
+    if launches != expected_launches():
+        fail(f"{phase} launched flash kernels: {launches}")
+    if calls != want:
+        fail(f"{phase}: expected the ops {want}, got {calls}")
+    if row["subgroup_backends"] != ["nccl"] * 4 or row["split"] != [1, 1]:
+        fail(f"{phase}: subgroups {row['subgroup_backends']}, split "
+             f"{row['split']}")
+    check_two_side_streams(phase, row["paths"])
+    if comm.quantized and row["residual_bytes"] \
+            != 4 * row["grad_residual_len"]:
+        fail(f"{phase}: residual {row['residual_bytes']} bytes, expected "
+             f"4 x {row['grad_residual_len']}")
+    if opt._db_dcn and row["stale_dcn_bytes"] \
+            != 4 * row["grad_dcn_stale_len"]:
+        fail(f"{phase}: stale buffer {row['stale_dcn_bytes']} bytes, "
+             f"expected 4 x {row['grad_dcn_stale_len']}")
+    if dist.is_initialized():
+        fail(f"the process group outlived {phase}")
+    return row
+
+
+def phase_train_resnet_traced(plain_row):
+    """``train_resnet`` on the striped communicator with tracing on
+    (``CHAINERMN_TPU_TRACE=events``, set in-process) beside the same run
+    untraced: the trainer's shard is valid, holds one
+    ``train/optimizer_update``, ``train/grad_exchange`` and
+    ``train/input_stall`` per iteration, and the payload counter is steps
+    x the planned payload.  Then one step under ``full`` in the profiler:
+    the device time inside the ``train.grad_exchange.bucket*`` ranges."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     observability, scatter_dataset)
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import Classifier, ResNet50
+    from chainermn_tpu_torch.utils import device_ops_in_ranges
+    comm_kw, _ = RESNET_STRIPED["train_resnet_striped"]
+    comm = create_communicator("hierarchical", **comm_kw)
+    runs = {}
+    try:
+        model = Classifier(ResNet50(compute_dtype=torch.bfloat16,
+                                    device="cuda", **RESNET))
+        comm.bcast_data(model)
+        opt = create_multi_node_optimizer(
+            MomentumSGD(lr=0.1, momentum=0.9), comm).setup(model)
+        shard = scatter_dataset(resnet_data(), comm)
+        for mode in ("off", "events", "off", "events"):
+            observability.set_mode(mode)
+            observability.reset_tracer()
+            observability.reset_registry()
+            name = f"chip_smoke_traced_{len(runs)}"
+            shard_path = os.path.join("build", name, "trace-rank0.jsonl")
+            if os.path.exists(shard_path):
+                os.remove(shard_path)
+            updater, step_ms, losses, peak, launches = timed_trainer_run(
+                opt, shard, RESNET_BATCH, RESNET_STEPS, name)
+            median_ms = float(np.median(step_ms[RESNET_WARMUP:]))
+            run = {"mode": mode, "median_step_ms": median_ms,
+                   "images_per_s": RESNET_BATCH / (median_ms * 1e-3),
+                   "losses": losses, "launches": launches}
+            if mode == "events":
+                events = observability.read_jsonl(shard_path)
+                observability.validate_events(events)
+                counter = observability.registry().get(
+                    "chainermn_tpu_grad_exchange_payload_bytes_total")
+                rows = opt._exchange_plan_rows()
+                run.update(
+                    events=len(events),
+                    spans={name: sum(e["name"] == name and e["ph"] == "B"
+                                     for e in events)
+                           for name in ("train/optimizer_update",
+                                        "train/grad_exchange",
+                                        "train/input_stall")},
+                    payload_bytes_total=counter.value(
+                        bucket="0", exchange=comm.exchange),
+                    planned_payload_bytes=sum(r["payload_bytes"]
+                                              for r in rows))
+            else:
+                run["shard_written"] = os.path.exists(shard_path)
+            runs[f"{mode}_{len(runs)}"] = run
+        observability.set_mode("full")
+        observability.reset_tracer()
+        events = profiled_events(updater.update, "chip_smoke_traced_full")
+        observability.set_mode("off")
+        observability.reset_tracer()
+        observability.reset_registry()
+        in_buckets = device_ops_in_ranges(events, "train.grad_exchange."
+                                          "bucket")
+        full = {"bucket_ops": len(in_buckets),
+                "bucket_device_ms": sum(op.get("dur", 0)
+                                        for _, op in in_buckets) * 1e-3,
+                "ops_by_range": {}}
+        for name, op in in_buckets:
+            key = name.rsplit(".", 1)[-1]
+            full["ops_by_range"][key] = full["ops_by_range"].get(key, 0) + 1
+        opt._reset_exchange()
+    finally:
+        observability.set_mode("off")
+        comm.finalize()
+    traced = [r for r in runs.values() if r["mode"] == "events"]
+    untraced = [r for r in runs.values() if r["mode"] == "off"]
+    row = {"phase": "train_resnet_traced", "runs": runs, "full": full,
+           "images_per_s_traced": [r["images_per_s"] for r in traced],
+           "images_per_s_untraced": [r["images_per_s"] for r in untraced],
+           "train_resnet": {k: plain_row[k] for k in (
+               "median_step_ms", "images_per_s", "device_idle_share")}}
+    emit(row)
+    for r in runs.values():
+        if not all(np.isfinite(r["losses"])) \
+                or r["launches"] != expected_launches():
+            fail(f"train_resnet_traced: {r}")
+    for r in untraced:
+        if r["shard_written"]:
+            fail("train_resnet_traced: an untraced run wrote a shard")
+    for r in traced:
+        if r["spans"] != {k: RESNET_STEPS for k in r["spans"]} \
+                or r["payload_bytes_total"] \
+                != RESNET_STEPS * r["planned_payload_bytes"] \
+                or not r["planned_payload_bytes"]:
+            fail(f"train_resnet_traced: the shard or the payload counter "
+                 f"is off: {r}")
+    if not full["bucket_ops"]:
+        fail("train_resnet_traced: no kernel or copy inside a "
+             "train.grad_exchange.bucket range under full")
+    if dist.is_initialized():
+        fail("the process group outlived train_resnet_traced")
+    return row
+
+
+def phase_striped_parity():
+    """The small fp32 ResNet of phase 12 with TF32 off: (1) at a world of
+    one, ratio 0 is bitwise the hierarchical exchange and its
+    reduce-scatter update; ratios 1 and 0.25 (the allreduce and the
+    reduce-scatter flavors) bitwise the plain DP step
+    (``cudnn.deterministic`` on); (2) each striped flavor of phases
+    24-27, 3 steps on the card against the same on the CPU (a gloo group
+    beside the NCCL world) within RESNET_PARITY_TOL."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    rs = dict(exchange="reduce_scatter")
+    plain = create_communicator("pure_nccl")
+    try:
+        gloo = dist.new_group(backend="gloo")
+        torch.backends.cudnn.deterministic = True
+        hier = create_communicator("hierarchical")
+        det = {"plain": resnet_parity_run("cuda", True, plain),
+               "hier": resnet_parity_run("cuda", True, hier),
+               "hier_rs": resnet_parity_run("cuda", True, hier, **rs)}
+        for ratio in (0.0, 1.0, 0.25):
+            comm = create_communicator("hierarchical", stripe_ratio=ratio)
+            det[f"r{ratio}"] = resnet_parity_run("cuda", True, comm)
+            det[f"r{ratio}_rs"] = resnet_parity_run("cuda", True, comm, **rs)
+        torch.backends.cudnn.deterministic = flags[2]
+        card, cpu = {}, {}
+        for key, (comm_kw, kw) in RESNET_STRIPED.items():
+            on_card = create_communicator("hierarchical", **comm_kw)
+            on_cpu = create_communicator("hierarchical", device="cpu",
+                                         group=gloo, **comm_kw)
+            card[key] = resnet_parity_run("cuda", True, on_card, **kw)
+            cpu[key] = resnet_parity_run("cpu", True, on_cpu, **kw)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+        plain.finalize()   # the world's owner: every group goes with it
+
+    def equal(a, b):
+        return a[0] == b[0] and all(torch.equal(a[1][p], b[1][p])
+                                    for p in b[1])
+
+    def max_diff(a, b):
+        return max((a[1][p] - v).abs().max().item() for p, v in b[1].items()
+                   if v.is_floating_point())
+
+    a = {"r0_bitwise_hier": equal(det["r0.0"], det["hier"]),
+         "r0_rs_bitwise_hier_rs": equal(det["r0.0_rs"], det["hier_rs"])}
+    for ratio in ("r1.0", "r0.25"):
+        a[f"{ratio}_bitwise_plain"] = equal(det[ratio], det["plain"])
+        a[f"{ratio}_rs_bitwise_plain"] = equal(det[f"{ratio}_rs"],
+                                               det["plain"])
+    b = {k: {"loss_rel_err": max(abs(x - y) / abs(y) for x, y in zip(
+                 card[k][0], cpu[k][0])),
+             "state_abs_err": max_diff(card[k], cpu[k]),
+             "losses": card[k][0], "cpu_losses": cpu[k][0]}
+         for k in RESNET_STRIPED}
+    row = {"phase": "striped_parity", "a": a,
+           "a_max_abs_diff": {k: max_diff(det[k], det["plain"])
+                              for k in det if k.startswith("r")},
+           "b": b, "tol": RESNET_PARITY_TOL, "launches": launches}
+    emit(row)
+    if not all(a.values()):
+        fail(f"striped_parity (1): the striped exchange differs from the "
+             f"plain step at a world of one: {row['a_max_abs_diff']}")
+    for k, errs in b.items():
+        if not (errs["loss_rel_err"] < RESNET_PARITY_TOL["loss_rel"]
+                and errs["state_abs_err"] < RESNET_PARITY_TOL["state_abs"]):
+            fail(f"striped_parity (2): {k} on the card leaves the CPU's "
+                 f"run: {errs}")
+    if launches != expected_launches():
+        fail(f"striped_parity launched flash kernels: {launches}")
+    if dist.is_initialized():
+        fail("the process group outlived the striped_parity phase")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -2729,6 +3157,12 @@ def main():
     phase_train_imagenet_hier(next(r for r in pipeline_rows
                                    if r["run"] == "thread"))
     phase_hier_parity(resnet_row["params"])
+    for phase in RESNET_STRIPED:
+        torch.cuda.empty_cache()
+        phase_train_resnet_striped(phase, resnet_row)
+    torch.cuda.empty_cache()
+    phase_train_resnet_traced(resnet_row)
+    phase_striped_parity()
 
     main_check = next(c for c in checks
                       if c["B"] == 1 and c["T"] == 1024 and c["causal"])

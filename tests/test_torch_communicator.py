@@ -342,12 +342,14 @@ def test_gradient_packing_and_bucket_plan_match_jax():
 
 
 def test_names_not_ported_raise_and_no_card_raises():
-    for kw in (dict(communicator_name="jax_ici", stripe_ratio=0.25),
-               dict(communicator_name="hierarchical", stripe_ratio=0.25),
-               dict(communicator_name="jax_ici", autotune=True),
+    for kw in (dict(communicator_name="jax_ici", autotune=True),
                dict(communicator_name="fault")):
         with pytest.raises(NotImplementedError, match="ROADMAP A1[01]"):
             create_communicator(device="cpu", **kw)
+    # the striped exchange is ported: a flat communicator has nothing to
+    # stripe (tests/test_torch_striped_exchange.py runs the rest)
+    with pytest.raises(ValueError, match="stripe_ratio needs"):
+        create_communicator("jax_ici", device="cpu", stripe_ratio=0.25)
     # the two-level exchange and the quantized wires are ported: each
     # builds in a world of one (a 1 x 1 split; tests/test_torch_
     # hierarchical.py runs them at 2 x 2)
@@ -359,7 +361,9 @@ def test_names_not_ported_raise_and_no_card_raises():
                   allreduce_grad_dtype={"dcn": "bfloat16"}),
              ((1, 1), None, torch.bfloat16)),
             (dict(communicator_name="pure_nccl",
-                  allreduce_grad_dtype="int8"), (None, torch.int8, None))):
+                  allreduce_grad_dtype="int8"), (None, torch.int8, None)),
+            (dict(communicator_name="hierarchical", stripe_ratio=0.25),
+             ((1, 1), None, None))):
         comm = create_communicator(device="cpu", **kw)
         try:
             split = (comm.dcn_size, comm.ici_size) if comm.hierarchy \
@@ -393,13 +397,15 @@ def test_names_not_ported_raise_and_no_card_raises():
     assert not dist.is_initialized()   # every world above was torn down
     dummy = DummyCommunicator()
     # A5's exchanges are ported (tests/test_torch_exchanges.py); the
-    # striped exchange's stale variant and autotune wait for A10
+    # striped exchange's stale variant needs a striped communicator, and
+    # autotune waits for A10
     for kw in (dict(exchange="reduce_scatter"), dict(zero_sharding=True),
                dict(double_buffering=True)):
         assert create_multi_node_optimizer(SGD(), dummy, **kw) is not None
-    for kw in (dict(double_buffering="dcn"), dict(autotune=True)):
-        with pytest.raises(NotImplementedError, match="A10"):
-            create_multi_node_optimizer(SGD(), dummy, **kw)
+    with pytest.raises(ValueError, match="stripe_ratio > 0"):
+        create_multi_node_optimizer(SGD(), dummy, double_buffering="dcn")
+    with pytest.raises(NotImplementedError, match="A10"):
+        create_multi_node_optimizer(SGD(), dummy, autotune=True)
     with pytest.raises(ValueError, match="exchange"):
         create_multi_node_optimizer(SGD(), dummy, exchange="striped")
 

@@ -967,3 +967,120 @@ def test_native_loader_builds_from_the_repo_and_raises_when_broken(
     bad.write_text("int broken(\n")
     with pytest.raises(native.NativeBuildFailed):
         native.load_library(bad)
+
+
+def _profiled_trace(fn, tmp_path):
+    """``fn()`` under ``torch.profiler`` (host and card): its Chrome
+    trace's events."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return json.loads(path.read_text())["traceEvents"]
+
+
+@pytest.mark.gpu
+def test_striped_paths_run_on_two_side_streams(cuda_device, tmp_path):
+    """A world of one on the card (a 1 x 1 split): the striped exchange
+    leaves every gradient bitwise as ``pure_nccl``'s, and under
+    ``CHAINERMN_TPU_TRACE=full`` the work inside each path's
+    ``train.grad_exchange.bucket*`` ranges runs on that path's own side
+    stream: two streams, neither the one the caller runs on."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator, observability
+    from chainermn_tpu_torch.communicators.mesh_communicator import \
+        STRIPED_OP_PATH
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.utils import annotate, device_ops_in_ranges
+    model = TransformerLM(n_vocab=97, d_model=64, n_heads=1, n_layers=2,
+                          max_len=32, seed=0, device=cuda_device)
+    x = torch.from_numpy(np.random.RandomState(6).randint(0, 97, (2, 32)))
+    x = x.to(cuda_device)
+    model(x, torch.roll(x, -1, 1)).backward()
+    raw = {p: v.grad.clone() for p, v in model.namedparams()}
+    flat = create_communicator("pure_nccl")
+    prev = observability.set_mode("full")
+    try:
+        striped = create_communicator(
+            "hierarchical", stripe_ratio=0.25,
+            allreduce_grad_dtype={"dcn": "bfloat16"})
+        lossless = create_communicator("hierarchical", stripe_ratio=0.25)
+        flat.multi_node_mean_grad(model)
+        want = {p: v.grad.clone() for p, v in model.namedparams()}
+        for p, v in model.namedparams():
+            v.grad = raw[p].clone()
+        lossless.multi_node_mean_grad(model)
+        torch.cuda.synchronize()
+        assert all(torch.equal(v.grad, want[p])
+                   for p, v in model.namedparams())
+
+        def exchange():
+            with annotate("caller"):   # the caller's own work
+                model.cleargrads()
+                model(x, torch.roll(x, -1, 1)).backward()
+            striped.multi_node_mean_grad(model)
+
+        events = _profiled_trace(exchange, tmp_path)
+    finally:
+        observability.set_mode(prev)
+        flat.finalize()
+    assert not dist.is_initialized()
+    caller = {op["args"]["stream"]
+              for _, op in device_ops_in_ranges(events, "caller")}
+    streams = {"dcn": set(), "ici": set()}
+    for name, op in device_ops_in_ranges(events, "train.grad_exchange."):
+        path = STRIPED_OP_PATH.get(name.rsplit(".", 1)[-1])
+        if path and op.get("cat") == "kernel" \
+                and "nccl" not in op["name"].lower():
+            streams[path].add(op["args"]["stream"])
+    assert len(streams["dcn"]) == len(streams["ici"]) == 1, streams
+    assert streams["dcn"] != streams["ici"], streams
+    assert caller and not (streams["dcn"] | streams["ici"]) & caller, \
+        (streams, caller)
+
+
+@pytest.mark.gpu
+def test_full_mode_ranges_hold_the_steps_device_work(cuda_device,
+                                                      tmp_path):
+    """Under ``CHAINERMN_TPU_TRACE=full`` a multi-node optimizer step on
+    the card opens ``record_function`` ranges with the span tracer's
+    names: the ``train.grad_exchange`` span around the exchange, and in
+    it the per-bucket hop ranges, which hold the exchange's copies and
+    kernels."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     observability)
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import MLP, Classifier
+    from chainermn_tpu_torch.utils import device_ops_in_ranges
+    prev = observability.set_mode("full")
+    comm = create_communicator("hierarchical", stripe_ratio=0.5)
+    try:
+        model = Classifier(MLP(n_units=64, n_out=10, seed=0,
+                               device=cuda_device))
+        opt = create_multi_node_optimizer(MomentumSGD(lr=0.1),
+                                          comm).setup(model)
+        rng = np.random.RandomState(0)
+        x = torch.from_numpy(rng.normal(0, 1, (16, 32)).astype(
+            np.float32)).to(cuda_device)
+        t = torch.from_numpy(rng.randint(0, 10, 16)).to(cuda_device)
+        opt.update(model, x, t)
+        events = _profiled_trace(lambda: opt.update(model, x, t), tmp_path)
+    finally:
+        observability.set_mode(prev)
+        comm.finalize()
+    assert not dist.is_initialized()
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert "train.grad_exchange" in names, sorted(names)[:20]
+    hops = device_ops_in_ranges(events, "train.grad_exchange.bucket")
+    assert hops and {name.split(".")[3] for name, _ in hops} \
+        <= {"mn_stripe_pack", "mn_stripe_pack_scatter_dcn",
+            "mn_stripe_rs_ici", "mn_stripe_allreduce_ici",
+            "mn_stripe_allreduce_dcn", "mn_stripe_ag_dcn",
+            "mn_stripe_ag_ici"}
