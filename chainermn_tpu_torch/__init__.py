@@ -36,9 +36,16 @@ wires with error feedback.  :mod:`.observability` traces the training
 and serving paths (``CHAINERMN_TPU_TRACE=events|full``) into the JAX
 package's Chrome-trace format and keeps their metrics; :mod:`.utils`
 wraps ``torch.profiler`` (``trace``, ``annotate``, ``Profile``).
+``autotune=`` tunes the exchange knobs from measured fabric numbers
+(:mod:`.communicators._autotune`).  Model parallelism is the
+reference's: differentiable point-to-point transfers
+(:mod:`.functions`), ``MultiNodeChainList`` and
+``ParallelConvolution2D`` (:mod:`.links`), the GPipe and 1F1B pipelines
+and named mesh axes (:mod:`.parallel`), and the seq2seq model
+(:mod:`.models.seq2seq`) with the LSTM links it runs (:mod:`.nn.rnn`).
 """
 
-from . import functions, links, observability, utils
+from . import functions, links, observability, parallel, utils
 from ._device import resolve_device
 from .communicators import (CommunicatorBase, DummyCommunicator,
                             MeshCommunicator, create_communicator)
@@ -51,7 +58,7 @@ from .nn import functions as F
 from .nn import links as L
 from .optimizers import create_multi_node_optimizer
 
-__all__ = ["functions", "links", "observability", "utils", "resolve_device",
+__all__ = ["functions", "links", "observability", "parallel", "utils", "resolve_device",
            "create_communicator", "CommunicatorBase", "MeshCommunicator",
            "DummyCommunicator", "create_multi_node_optimizer",
            "create_multi_node_evaluator", "scatter_dataset",

@@ -124,8 +124,15 @@ def create_communicator(communicator_name="jax_ici", device=None,
     ``CHAINERMN_TPU_STRIPE_RATIO``, read for a hierarchical name or a
     forced split): the DCN-path share of each bucket of the striped
     exchange (0, the default, is the plain two-level exchange).
-    ``autotune`` raises ``NotImplementedError``: self-tuning is ROADMAP
-    A10's last part."""
+
+    ``autotune`` (:mod:`._autotune`) tunes the exchange knobs from
+    measured fabric numbers: ``True``/``"startup"`` runs the startup
+    micro-bench now (collective), agrees the plan across the ranks and
+    returns the re-tuned communicator; ``"online"`` leaves it to the
+    multi-node optimizer, which re-tunes after its first steps from the
+    ``train/grad_exchange`` spans; a dict is a recorded plan, applied as
+    it is.  A plan fills only the knobs not set here by hand (an argument
+    or its environment variable)."""
     name = communicator_name
     if name not in _NAMES:
         raise ValueError(
@@ -149,10 +156,17 @@ def create_communicator(communicator_name="jax_ici", device=None,
             _warn_hierarchy_flat_stripe_dropped(stripe)
         stripe_ratio = None
         name = "jax_ici"
-    if autotune:
-        raise NotImplementedError(
-            "autotune: the self-tuning exchange is not ported yet "
-            "(ROADMAP A10)")
+    if autotune not in (None, False, True, "startup", "online") \
+            and not isinstance(autotune, dict):
+        raise ValueError(
+            f"autotune must be True/'startup' (micro-bench now), "
+            f"'online' (re-tune from the first N steps' trace), or a "
+            f"recorded plan dict; got {autotune!r}")
+    if autotune and name in ("dummy", "debug"):
+        raise ValueError(
+            f"autotune= is a mesh-communicator knob, not {name!r} — a "
+            f"silently dropped plan would make an autotune run pass "
+            f"vacuously")
     if name == "fault":
         raise NotImplementedError(
             "communicator 'fault': fault injection is not ported yet "
@@ -190,7 +204,24 @@ def create_communicator(communicator_name="jax_ici", device=None,
     if name == "single_node" and comm.inter_size != 1:
         raise ValueError("single_node communicator requires one host "
                          f"(the ranks span {comm.inter_size} hosts)")
-    return comm
+    return _apply_autotune(comm, autotune)
+
+
+def _apply_autotune(comm, autotune):
+    """The factory's ``autotune=`` on a new communicator: measure, agree
+    and apply now (``"startup"``), leave it to the optimizer
+    (``"online"``, the mode rides on the communicator), or apply a
+    recorded plan dict."""
+    if autotune in (None, False):
+        return comm
+    if isinstance(autotune, dict):
+        return comm.retuned(autotune)
+    if autotune == "online":
+        comm._autotune_mode = "online"
+        return comm
+    comm._autotune_mode = "startup"
+    from ._autotune import retune_communicator
+    return retune_communicator(comm, mode="startup")
 
 
 #: per-hop dicts and stripe ratios already warned about under the flat

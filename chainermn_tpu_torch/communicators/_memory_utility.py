@@ -4,7 +4,8 @@ The port of the pure parts of ``chainermn_tpu.communicators._memory_utility``:
 :func:`tree_pack`/:func:`tree_unpack`, :func:`plan_buckets`,
 :func:`hop_schedule` (its ``"hierarchical"`` and ``"striped"`` modes),
 the striped split (:func:`stripe_plan`, :func:`derived_stripe_ratio`,
-:func:`stripe_plan_from_measurement`), :func:`pad_to_multiple`,
+:func:`stripe_plan_from_measurement`), the measured bucket bound
+(:func:`derived_bucket_bytes`), :func:`pad_to_multiple`,
 :func:`resolve_grad_dtype`, :func:`pack_params`/:func:`unpack_params`,
 the sharded update's flat layout (:func:`padded_length`,
 :func:`chunk_bounds`, :func:`chain_chunk_index`), the quantized wire
@@ -20,6 +21,7 @@ accounting wait for ROADMAP A9.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -34,7 +36,7 @@ __all__ = ["pack_params", "unpack_params", "tree_pack", "tree_unpack",
            "quantized_hop_bytes", "padded_length", "chunk_bounds",
            "chain_chunk_index", "stripe_plan",
            "derived_stripe_ratio", "stripe_plan_from_measurement",
-           "DEFAULT_BUCKET_MB", "DEFAULT_STRIPE_RATIO"]
+           "derived_bucket_bytes", "DEFAULT_BUCKET_MB", "DEFAULT_STRIPE_RATIO"]
 
 #: default bucket bound (MB) for the bucketed exchange, as in the JAX
 #: package (``CHAINERMN_TPU_BUCKET_MB`` overrides)
@@ -207,6 +209,31 @@ def stripe_plan_from_measurement(n_elems, b_ici, b_dcn):
     """:func:`stripe_plan` at the ratio :func:`derived_stripe_ratio`
     derives from measured per-hop bandwidths."""
     return stripe_plan(n_elems, derived_stripe_ratio(b_ici, b_dcn))
+
+
+def derived_bucket_bytes(gbps, lat_us, overhead_frac=0.125,
+                         floor_mb=1.0, cap_mb=32.0):
+    """The bucket bound (bytes) from a measured hop's bandwidth (GB/s)
+    and launch latency (µs): the smallest bucket whose wire time keeps
+    one collective's launch overhead under ``overhead_frac`` of it,
+    ``bandwidth x latency / overhead_frac``, clamped to [``floor_mb``,
+    ``cap_mb``] MiB and rounded to 2 significant digits (the JAX
+    package's rule, bit for bit).  A non-finite or non-positive
+    bandwidth, or a negative latency, raises."""
+    gbps, lat_us = float(gbps), float(lat_us)
+    if not (np.isfinite(gbps) and np.isfinite(lat_us)) \
+            or gbps <= 0 or lat_us < 0:
+        raise ValueError(
+            f"derived_bucket_bytes needs a positive finite bandwidth "
+            f"and a non-negative latency, got gbps={gbps!r} "
+            f"lat_us={lat_us!r}")
+    raw = gbps * 1e9 * (lat_us * 1e-6) / float(overhead_frac)
+    mb = min(float(cap_mb), max(float(floor_mb), raw / (1 << 20)))
+    if mb > 0:
+        digits = 1 - int(math.floor(math.log10(abs(mb))))
+        mb = round(mb, digits)
+    return int(round(min(float(cap_mb), max(float(floor_mb), mb))
+                     * (1 << 20)))
 
 
 def pad_to_multiple(flat, multiple):

@@ -80,8 +80,13 @@ tracer; under ``full`` each bucket's hop runs inside
 ``record_function("train.grad_exchange.bucket{k}.{op}")`` with the JAX
 package's op names.
 
-Not ported yet (they raise ``NotImplementedError``): ``autotune`` (ROADMAP
-A10), and the elastic subclass (A11).
+The self-tuned knobs (``autotune=``, :mod:`._autotune`) reach a
+communicator through :meth:`MeshCommunicator.retuned`, which fills only
+the knobs the caller did not set by hand (``_hand_knobs``, recorded at
+construction and carried across clones and :meth:`MeshCommunicator.split`).
+
+Not ported yet (it raises ``NotImplementedError``): the elastic subclass
+(A11).
 """
 
 from __future__ import annotations
@@ -340,6 +345,10 @@ class MeshCommunicator(CommunicatorBase):
         self._hand_knobs = {"bucket_mb": bucket_mb is not None,
                             "stripe_ratio": stripe_ratio is not None,
                             "grad_dtype": allreduce_grad_dtype is not None}
+        #: the agreed autotune plan applied to this communicator, and the
+        #: mode that produced it ("startup" | "online"), if any
+        self.autotune_plan = None
+        self._autotune_mode = None
         self.stripe_ratio = _resolve_stripe(stripe_ratio, want_hier,
                                             self._hand_knobs)
         self.allreduce_grad_dtype, self.dcn_grad_dtype = _wire_dtypes(
@@ -407,6 +416,13 @@ class MeshCommunicator(CommunicatorBase):
             raise
 
     # -- topology ------------------------------------------------------------
+    @property
+    def axis_name(self):
+        """The JAX package's axis name of this communicator: ``("dcn",
+        "ici")`` when hierarchical, ``"mn_world"`` when flat (the autotune
+        plan's ``axis`` label and artifact name)."""
+        return self.hierarchy if self.hierarchy is not None else "mn_world"
+
     @property
     def rank(self):
         return dist.get_rank(self.group)
@@ -701,10 +717,12 @@ class MeshCommunicator(CommunicatorBase):
         sorted parameter path (the JAX params-tree flatten order), NOT
         registration order -- the two orders give different bucket
         plans.  Lazy parameters not yet created are not leaves, as the
-        JAX params tree lacks them."""
+        JAX params tree lacks them; nor are the parameters of a
+        ``MultiNodeChainList`` component another rank owns (marked
+        ``_mn_not_owned``: they take no gradient on this rank)."""
         return [p for _, p in sorted(model.namedparams(),
                                      key=lambda kv: kv[0])
-                if not is_lazy(p)]
+                if not is_lazy(p) and not getattr(p, "_mn_not_owned", False)]
 
     @classmethod
     def grad_leaf_specs(cls, model):
@@ -1420,6 +1438,76 @@ class MeshCommunicator(CommunicatorBase):
 
         return PendingExchange(event, finish, new_residual)
 
+    # -- self-tuning ------------------------------------------------------------
+    def _clone_kwargs(self):
+        """Constructor arguments that build this communicator again (same
+        group, split and knobs): the base of :meth:`retuned`'s clone."""
+        kwargs = dict(device=self.device, group=self.group,
+                      batch_collectives=self.batch_collectives,
+                      bucket_mb=self.bucket_mb, name=self.name,
+                      error_feedback=self.error_feedback)
+        if self.hierarchy is not None:
+            kwargs["inter_size"], kwargs["intra_size"] = self._hier_sizes
+            if self.allreduce_grad_dtype is not None \
+                    or self.dcn_grad_dtype is not None:
+                kwargs["allreduce_grad_dtype"] = {
+                    "ici": self.allreduce_grad_dtype,
+                    "dcn": self.dcn_grad_dtype}
+            kwargs["stripe_ratio"] = self.stripe_ratio
+        else:
+            kwargs["allreduce_grad_dtype"] = self.allreduce_grad_dtype
+        return kwargs
+
+    def retuned(self, plan):
+        """Apply an agreed autotune plan (the JAX ``retuned``): a clone
+        with the plan's ``bucket_mb`` (a bucketed exchange only),
+        ``stripe_ratio`` and per-hop ``grad_dtype`` (a hierarchical
+        communicator only) in every knob the caller did not set by hand;
+        hand knobs win.  When the plan changes nothing, ``self`` with the
+        plan attached, so a plan equal to the hand knobs runs the very
+        same exchange.  The clone takes over the provenance, the mode,
+        the plan, and the world group if this communicator set it up.
+        Collective when it builds a clone (the plan itself is agreed, so
+        every rank takes the same branch)."""
+        hand = self._hand_knobs
+        kwargs = self._clone_kwargs()
+        changed = False
+        if plan.get("bucket_mb") is not None \
+                and not hand.get("bucket_mb") \
+                and self.batch_collectives == "bucketed":
+            bucket = float(plan["bucket_mb"])
+            if bucket != self.bucket_mb:
+                kwargs["bucket_mb"] = bucket
+                changed = True
+        if plan.get("stripe_ratio") is not None \
+                and not hand.get("stripe_ratio") \
+                and self.hierarchy is not None:
+            ratio = float(plan["stripe_ratio"])
+            if ratio != self.stripe_ratio:
+                kwargs["stripe_ratio"] = ratio
+                changed = True
+        if plan.get("grad_dtype") is not None \
+                and not hand.get("grad_dtype") \
+                and self.hierarchy is not None:
+            want = {hop: resolve_grad_dtype(dt)
+                    for hop, dt in plan["grad_dtype"].items()}
+            have = {"ici": self.allreduce_grad_dtype,
+                    "dcn": self.dcn_grad_dtype}
+            if want != have:
+                kwargs["allreduce_grad_dtype"] = dict(plan["grad_dtype"])
+                changed = True
+        if not changed:
+            self.autotune_plan = plan
+            return self
+        clone = type(self)(**kwargs)
+        # the clone saw the plan's values as explicit arguments; they must
+        # not read as set by hand at the next re-tune
+        clone._hand_knobs = dict(hand)
+        clone._autotune_mode = self._autotune_mode
+        clone.autotune_plan = plan
+        clone._owns_world, self._owns_world = self._owns_world, False
+        return clone
+
     # -- topology manipulation ---------------------------------------------------
     def split(self, color, key):
         """Partition the ranks by ``color`` (MPI_Comm_Split): returns the
@@ -1447,7 +1535,7 @@ class MeshCommunicator(CommunicatorBase):
                 "torch.distributed group orders its members by world rank)")
         group = dist.new_group([self._global(r) for r in ranks],
                                use_local_synchronization=True)
-        return MeshCommunicator(
+        sub = MeshCommunicator(
             device=self.device, group=group,
             allreduce_grad_dtype=self.allreduce_grad_dtype,
             batch_collectives=self.batch_collectives,
@@ -1455,6 +1543,10 @@ class MeshCommunicator(CommunicatorBase):
             # a hierarchical name would build a split over the color's ranks
             name="jax_ici" if self.hierarchy is not None else self.name,
             error_feedback=self.error_feedback)
+        sub._hand_knobs = dict(self._hand_knobs)
+        sub._autotune_mode = self._autotune_mode
+        sub.autotune_plan = self.autotune_plan
+        return sub
 
     def finalize(self):
         """Tear down the process groups this communicator set up (a

@@ -115,6 +115,35 @@ class _Scatter(torch.autograd.Function):
         return None, torch.stack(parts), None
 
 
+class _BcastFromOwner(torch.autograd.Function):
+    """``root``'s ``x`` on every rank (the others pass any tensor that
+    keeps their graph: its value is not read); backward: the mean over
+    the ranks of the output's gradient, on ``root``, zeros elsewhere."""
+
+    @staticmethod
+    def forward(ctx, comm, root, x):
+        ctx.comm, ctx.root, ctx.shape = comm, root, x.shape
+        return comm.bcast(x.detach() if comm.rank == root else None,
+                          root=root)
+
+    @staticmethod
+    def backward(ctx, g):
+        mean = ctx.comm.allreduce(g.contiguous(), op="mean")
+        if ctx.comm.rank != ctx.root:
+            return None, None, mean.new_zeros(ctx.shape)
+        return None, None, mean
+
+
+def _bcast_from_owner(communicator, x, root):
+    """:func:`bcast` for a value every rank then computes the same loss
+    on, replication-aware in reverse (the JAX pipeline's
+    ``_bcast_from_owner``): each rank backpropagates its own copy of the
+    loss, so the owner takes the mean of their gradients, not the sum
+    ``size`` times the single-process one.  Every rank runs the backward
+    (an allreduce)."""
+    return _BcastFromOwner.apply(communicator, root, x)
+
+
 def allreduce(communicator, x, op="sum"):
     """``op`` ("sum" or "mean") of every rank's ``x``, on every rank."""
     if op not in ("sum", "mean"):

@@ -17,7 +17,7 @@ import torch.nn.functional as TF
 from ..core import rng as rng_module
 from ..core.config import config
 
-__all__ = ["relu", "linear", "embed_id", "layer_normalization", "gelu",
+__all__ = ["relu", "sigmoid", "tanh", "linear", "embed_id", "layer_normalization", "gelu",
            "softmax", "log_softmax", "softmax_cross_entropy", "accuracy",
            "dropout", "convolution_2d", "max_pooling_2d",
            "average_pooling_2d", "global_average_pooling_2d",
@@ -29,6 +29,14 @@ def relu(x):
     """``max(x, 0)`` as the JAX function computes it: the gradient at
     exactly 0 is 1/2, as ``torch.maximum`` splits a tie."""
     return torch.maximum(x, x.new_zeros(()))
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def tanh(x):
+    return torch.tanh(x)
 
 
 def linear(x, W, b=None, n_batch_axes=1):
@@ -45,8 +53,16 @@ def linear(x, W, b=None, n_batch_axes=1):
     return TF.linear(x, W, b)
 
 
-def embed_id(x, W):
-    return TF.embedding(x, W)
+def embed_id(x, W, ignore_label=None):
+    """Rows of ``W`` by the ids in ``x``.  An id equal to
+    ``ignore_label`` gathers row 0 and is then zeroed, so it contributes
+    nothing to the output or to ``W``'s gradient (the JAX function's
+    rule)."""
+    if ignore_label is None:
+        return TF.embedding(x, W)
+    ignored = x == ignore_label
+    emb = TF.embedding(torch.where(ignored, torch.zeros_like(x), x), W)
+    return torch.where(ignored.unsqueeze(-1), emb.new_zeros(()), emb)
 
 
 def gelu(x):

@@ -24,7 +24,8 @@ from . import functions as F
 from . import initializers as I
 
 __all__ = ["Linear", "Convolution2D", "BatchNormalization",
-           "LayerNormalization", "EmbedID"]
+           "LayerNormalization", "EmbedID", "StatelessLSTM", "LSTM",
+           "StatelessGRU", "GRU", "NStepLSTM", "NStepGRU"]
 
 _default_rng = np.random.RandomState(817)
 
@@ -227,18 +228,78 @@ class LayerNormalization(Link):
 
 
 class EmbedID(Link):
-    """Embedding lookup, table ``(in_size, out_size)``."""
+    """Embedding lookup, table ``(in_size, out_size)``; ids equal to
+    ``ignore_label`` embed to zeros (:func:`F.embed_id`)."""
 
-    def __init__(self, in_size, out_size, initialW=None, seed=None,
-                 device=None):
+    def __init__(self, in_size, out_size, initialW=None, ignore_label=None,
+                 seed=None, device=None):
         super().__init__()
         device = resolve_device(device)
+        self.ignore_label = ignore_label
         initW = I._get_initializer(initialW, I.Normal(1.0))
         self.W = _param(initW((in_size, out_size), np.float32, _rng(seed)),
                         device)
 
     def forward(self, x):
-        return F.embed_id(x, self.W)
+        return F.embed_id(x, self.W, self.ignore_label)
+
+
+class StatelessLSTM(Link):
+    """One LSTM step, ``(c, h, x) -> (c, h)`` (``L.StatelessLSTM``).  The
+    four gates ``[input, forget, cell, output]`` are packed along axis 1
+    of one ``upward`` product (``in -> 4 out``) plus one ``lateral`` one
+    (``out -> 4 out``, no bias), as in the JAX link; the forget gate's
+    pre-activation gets +1 before its sigmoid.  ``h`` ``None`` skips
+    ``lateral``, ``c`` ``None`` starts from zeros."""
+
+    def __init__(self, in_size, out_size, seed=None, device=None):
+        super().__init__()
+        self.out_size = out_size
+        self.upward = Linear(in_size, 4 * out_size, seed=seed,
+                             device=device)
+        self.lateral = Linear(out_size, 4 * out_size, nobias=True,
+                              seed=None if seed is None else seed + 1,
+                              device=device)
+
+    def forward(self, c, h, x):
+        gates = self.upward(x)
+        if h is not None:
+            gates = gates + self.lateral(h)
+        i, f, g, o = gates.chunk(4, dim=1)
+        i = F.sigmoid(i)
+        f = F.sigmoid(f + 1.0)
+        g = F.tanh(g)
+        o = F.sigmoid(o)
+        if c is None:
+            c = x.new_zeros((x.shape[0], self.out_size))
+        c_next = f * c + i * g
+        return c_next, o * F.tanh(c_next)
+
+
+class LSTM(StatelessLSTM):
+    """The LSTM step holding ``(c, h)`` between calls (``L.LSTM``)."""
+
+    def __init__(self, in_size, out_size, seed=None, device=None):
+        super().__init__(in_size, out_size, seed=seed, device=device)
+        self.c = None
+        self.h = None
+
+    def reset_state(self):
+        self.c = None
+        self.h = None
+
+    def set_state(self, c, h):
+        self.c = c
+        self.h = h
+
+    def forward(self, x):
+        self.c, self.h = super().forward(self.c, self.h, x)
+        return self.h
+
+
+# the recurrent links over sequences (they build on Linear and
+# StatelessLSTM above)
+from .rnn import GRU, NStepGRU, NStepLSTM, StatelessGRU  # noqa: E402
 
 
 def __getattr__(name):

@@ -109,10 +109,38 @@ bucket count, and each bucket leaves a ``train/grad_exchange/bucket{k}``
 instant and adds its payload to
 ``chainermn_tpu_grad_exchange_payload_bytes_total``.
 
-What raises: ``autotune`` waits for ROADMAP A10.
+``autotune`` tunes the communicator's exchange knobs
+(``communicators._autotune``): ``True``/``"startup"`` runs the startup
+micro-bench now, unless the communicator already carries an agreed plan,
+and wraps the re-tuned communicator; ``"online"`` (or an int N, default
+3) re-tunes once, after the first N updates, from the
+``train/grad_exchange`` spans, and swaps the re-tuned communicator in
+through :meth:`change_communicator`.  Online mode reads the tracer, so it
+needs ``CHAINERMN_TPU_TRACE``; with tracing off it warns and runs the
+startup micro-bench instead, as in the JAX package.
+
+:meth:`change_communicator` swaps the communicator (the non-elastic part
+of the JAX method): the gradient in flight is waited for and dropped, the
+double-buffered gradient and the error-feedback residual start again from
+zeros, the exchange plan is made again, and a communicator that carries
+no plan is re-tuned by the micro-bench when the outgoing one was tuned.
+The sharded update's state stays where its flat layout stays; a swap
+that moves the layout raises ``RuntimeError`` (the JAX package re-slices
+it, or resumes it from a checkpoint: ROADMAP A11).
+
+A model whose parameters only some ranks train (a
+``MultiNodeChainList``: each rank runs and trains only the components it
+owns) takes part in the exchange with the parameters that have a
+gradient on this rank after the backward: the others are left out of the
+exchange and the update, as ``Optimizer.update`` leaves them out,
+instead of being moved by a zero gradient (with Adam a zero gradient
+still moves the moments).  Every rank of a data-parallel group owns the
+same components, so the groups' leaves agree.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -146,10 +174,37 @@ def create_multi_node_optimizer(actual_optimizer, communicator,
     ``None`` or ``"allreduce"`` (the per-leaf / flat / bucketed structure
     is the communicator's ``batch_collectives``), or
     ``"reduce_scatter"``."""
+    online_after = 0
+    if autotune not in (None, False, True, "startup", "online") \
+            and not (isinstance(autotune, int)
+                     and not isinstance(autotune, bool) and autotune > 0):
+        raise ValueError(
+            f"autotune must be True/'startup', 'online', or a positive "
+            f"int (online re-tune after N updates); got {autotune!r}")
+    if autotune and not hasattr(communicator, "retuned"):
+        raise ValueError(
+            f"autotune= tunes a mesh communicator, not "
+            f"{type(communicator).__name__} — a silently dropped plan "
+            f"would make an autotune run pass vacuously")
     if autotune:
-        raise NotImplementedError(
-            "autotune: the self-tuning exchange is not ported yet "
-            "(ROADMAP A10)")
+        from .communicators._autotune import retune_communicator
+        if autotune in (True, "startup"):
+            if getattr(communicator, "autotune_plan", None) is None:
+                communicator = retune_communicator(communicator,
+                                                   mode="startup")
+        elif observability.enabled():
+            online_after = autotune if isinstance(autotune, int) \
+                and not isinstance(autotune, bool) else 3
+            communicator._autotune_mode = "online"
+        else:
+            warnings.warn(
+                "autotune='online' reads the span tracer's "
+                "train/grad_exchange spans but tracing is off "
+                "(CHAINERMN_TPU_TRACE): running the startup "
+                "micro-bench instead", UserWarning, stacklevel=2)
+            if getattr(communicator, "autotune_plan", None) is None:
+                communicator = retune_communicator(communicator,
+                                                   mode="startup")
     if exchange is None:
         exchange = "allreduce"
     if exchange not in ("allreduce", "reduce_scatter"):
@@ -201,10 +256,12 @@ def create_multi_node_optimizer(actual_optimizer, communicator,
             raise ValueError(
                 "double buffering requires a fused-bucket communicator "
                 f"(reference: pure_nccl); got {communicator.name!r}")
-    return _MultiNodeOptimizer(actual_optimizer, communicator, zero_fill,
-                               zero_sharding=zero_sharding,
-                               exchange=exchange,
-                               double_buffering=double_buffering)
+    opt = _MultiNodeOptimizer(actual_optimizer, communicator, zero_fill,
+                              zero_sharding=zero_sharding,
+                              exchange=exchange,
+                              double_buffering=double_buffering)
+    opt.__dict__["_autotune_online_after"] = online_after
+    return opt
 
 
 def _observed(fn):
@@ -229,7 +286,8 @@ class _MultiNodeOptimizer:
             exchange=exchange, double_buffering=double_buffering,
             _pending=None, _stale=None, _stale_dcn=None, _layout=None,
             _residual=None, _obs_plan=None, _buffers=[None, None],
-            _slot=0, _lazy_done=False)
+            _slot=0, _lazy_done=False, _autotune_online_after=0,
+            _autotune_steps_done=0)
 
     # -- reference-style delegation ---------------------------------------
     def __getattr__(self, name):
@@ -328,6 +386,77 @@ class _MultiNodeOptimizer:
         self._reset_exchange()
         self.__dict__["_residual"] = None
 
+    # -- the communicator -------------------------------------------------------
+    def _layout_key(self, comm):
+        """What the sharded update's flat layout depends on."""
+        return (comm.size, getattr(comm, "chunk_index", comm.rank),
+                bool(getattr(comm, "striped", False)),
+                getattr(comm, "stripe_ratio", 0.0))
+
+    def change_communicator(self, communicator):
+        """Swap the communicator; returns ``self``.  When the outgoing
+        communicator was tuned (``autotune``) and the new one carries no
+        plan, the new one takes the old one's hand-knob provenance and is
+        re-tuned by the startup micro-bench (collective).  The gradient in
+        flight is waited for; the double-buffered gradient and the
+        residual start again from zeros.  Under the sharded update a
+        communicator that moves this rank's chunk raises
+        ``RuntimeError``."""
+        old = self.communicator
+        if communicator is old:
+            return self
+        if getattr(old, "_autotune_mode", None) \
+                and hasattr(communicator, "retuned") \
+                and communicator.autotune_plan is None:
+            hand = getattr(old, "_hand_knobs", None)
+            if hand is not None:
+                communicator._hand_knobs = dict(hand)
+            communicator._autotune_mode = old._autotune_mode
+            from .communicators._autotune import retune_communicator
+            communicator = retune_communicator(communicator,
+                                               mode="startup")
+        if self._sharded_update and self.actual_optimizer._state \
+                and self._layout_key(old) != self._layout_key(
+                    communicator):
+            raise RuntimeError(
+                "change_communicator under the sharded update: the new "
+                "communicator moves this rank's chunk of the flat state; "
+                "resume the state from a snapshot instead")
+        self._reset_exchange()
+        self.__dict__.update(communicator=communicator, _residual=None,
+                             _obs_plan=None)
+        return self
+
+    def _maybe_online_retune(self):
+        """Online autotune: after the armed number of updates, derive a
+        plan from the tracer's ``train/grad_exchange`` spans, agree it
+        across the ranks and swap the re-tuned communicator in.  Once: the
+        count disarms whether or not the plan changed anything.  A plan
+        the sharded layout cannot take in memory is warned about and
+        skipped."""
+        n = self._autotune_online_after
+        if not n:
+            return
+        done = self._autotune_steps_done + 1
+        self.__dict__["_autotune_steps_done"] = done
+        if done < n:
+            return
+        self.__dict__["_autotune_online_after"] = 0
+        from .communicators._autotune import (agree_exchange_plan,
+                                              measurements_from_trace)
+        comm = self.communicator
+        plan = agree_exchange_plan(comm, measurements_from_trace(
+            observability.tracer().events()))
+        new_comm = comm.retuned(plan)
+        if new_comm is comm:
+            return
+        try:
+            self.change_communicator(new_comm)
+        except RuntimeError as e:
+            warnings.warn(
+                f"online autotune plan {plan.get('fingerprint')} not "
+                f"applied: {e}", RuntimeWarning, stacklevel=2)
+
     # -- update -------------------------------------------------------------
     def update(self, lossfun=None, *args, **kwargs):
         actual = self.actual_optimizer
@@ -341,11 +470,14 @@ class _MultiNodeOptimizer:
                 self._keep_residual(comm.multi_node_mean_grad(
                     actual.target, zero_fill=self.zero_fill,
                     residual=self._residual_in()))
-            return actual.update()
+            out = actual.update()
+            self._maybe_online_retune()
+            return out
         self._prepare(lossfun, args, kwargs)
         loss, observation = self._step(lossfun, args, kwargs,
                                        actual.step_key_scope(comm.rank))
         reporter_module.report(observation)
+        self._maybe_online_retune()
         return loss
 
     def update_scan(self, lossfun, *args, **kwargs):
@@ -485,7 +617,9 @@ class _MultiNodeOptimizer:
         follow."""
         named = sorted(((p, v) for p, v in
                         self.actual_optimizer.target.namedparams()
-                        if not is_lazy(v)), key=lambda kv: kv[0])
+                        if not is_lazy(v)
+                        and not getattr(v, "_mn_not_owned", False)),
+                       key=lambda kv: kv[0])
         return [p for p, _ in named], [v for _, v in named]
 
     def _gradients(self, loss):

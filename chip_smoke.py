@@ -210,6 +210,39 @@ Phases, each printing one JSON line:
     plain DP step; (2) each exchange of phases 24-27, 3 steps on the card
     against the same on the CPU within phase 12's tolerances.  The flash
     kernels' counts stay 0 in phases 24-29.
+30. autotune: startup tuning (``create_communicator(..., autotune=True)``)
+    on a flat communicator and on a 1 x 1 hierarchical one (every hop of
+    size 1: the plan, its fallback notes, its fingerprint and the seconds
+    ``measure_fabric`` took); a recorded plan dict equal to the hand knobs
+    gives the small fp32 ResNet of phase 12 bitwise the hand-knobbed
+    communicator's 3 steps; ``create_multi_node_optimizer(...,
+    autotune=3)`` on ``train_resnet``'s step under
+    ``CHAINERMN_TPU_TRACE=events`` re-tunes after 3 updates from the
+    card's own ``train/grad_exchange`` spans (what it measured for the
+    ``world`` hop, the plan it derived), with the tuned step's images/s
+    beside ``train_resnet``'s;
+31. seq2seq_dp: BASELINE config #3 at the width of Chainer's
+    ``examples/seq2seq`` (3 LSTM layers of 1024 units, vocabularies of
+    40,000, sentences of up to 50 tokens from
+    ``make_synthetic_translation_data``, random weights from seed 0, fp32)
+    through ``create_multi_node_optimizer(Adam(), comm,
+    double_buffering=True)`` and ``Trainer``, batch 64, 12 steps (2 warm
+    up) over 2 batches: sentences/s, target tokens/s, losses (falling),
+    peak memory, then 3 profiled steps (idle share, top device ops) and
+    greedy ``translate`` of 8 sentences (tokens/s);
+32. seq2seq_mp: BASELINE config #4 in a world of one:
+    ``ModelParallelSeq2seq(rank_encoder=0, rank_decoder=0)`` at phase 31's
+    width (the encoder-decoder edge a self-edge): its loss and gradients
+    on one batch against ``Seq2seq``'s on the same weights, then 12 steps
+    of plain ``Adam`` on each in turns (mp, plain, plain, mp; steps/s
+    beside phase 31's); ``gpipe_apply`` and
+    ``one_f_one_b`` at S = 1 with 4 microbatches over a 3-layer stage
+    stack against the plain microbatched step;
+33. model_parallel_parity: a small fp32 seq2seq (the CPU tests') through
+    ``ModelParallelSeq2seq`` and the split MLP of the model-parallel MNIST
+    twin, 3 Adam steps on the card against the same on the CPU (a gloo
+    group beside the NCCL world) within the CPU tests' tolerance.  The
+    flash kernels' counts stay 0 in phases 30-33.
 
 Then the kernels line (launches, error, times, the whole call's device
 time and bound of all five kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
@@ -275,6 +308,31 @@ RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS, RESNET_WARMUP = 64, 224, 12, 2
 RESNET_PARITY = dict(blocks=[1, 1, 1, 1], n_classes=10, batch=8, size=16,
                      lr=1e-3)
 RESNET_PARITY_TOL = {"loss_rel": 1e-4, "state_abs": 1e-3}
+# seq2seq (BASELINE configs #3 and #4): Chainer's examples/seq2seq width
+# (3 layers of 1024 units), the WMT'15 En-Fr vocabularies of 40,000 that
+# its preprocessing keeps, sentences of up to 50 tokens, batch 64 a rank;
+# 12 steps (2 warm up) over 2 batches, fp32
+SEQ2SEQ = dict(n_source_vocab=40000, n_target_vocab=40000, n_units=1024,
+               n_layers=3, seed=0)
+SEQ2SEQ_BATCH, SEQ2SEQ_LEN, SEQ2SEQ_STEPS, SEQ2SEQ_WARMUP = 64, 50, 12, 2
+# the one-batch loss and gradients of ModelParallelSeq2seq (a self-edge)
+# against Seq2seq: the same operations in the same order, plus a zero and
+# a one-rank mean; 1e-6 relative if they are not bitwise
+SEQ2SEQ_MP_TOL = 1e-6
+# the pipelines at S = 1 against the plain microbatched step: per
+# microbatch means averaged in another order, fp32
+PIPELINE_TOL = 1e-5
+# the small models of the CPU tests (tests/test_torch_model_parallel.py),
+# the card against the CPU: 3 Adam steps, 2e-5 absolute (its tolerance)
+SMALL_SEQ2SEQ = dict(n_source_vocab=40, n_target_vocab=40, n_units=16,
+                     n_layers=2, seed=0)
+MP_PARITY_TOL = 2e-5
+# phase 30's recorded plan: the JAX autotune test's fixed measurements,
+# whose plan is the hand knobs {"stripe_ratio": 0.25, "dcn": bfloat16}
+AUTOTUNE_MEASUREMENTS = {
+    "source": "startup", "probe_mb": 1.0, "iters": 4,
+    "hops": {"ici": {"size": 4, "gbps": 3.0, "lat_us": 50.0},
+             "dcn": {"size": 2, "gbps": 1.0, "lat_us": 200.0}}}
 
 
 def fail(msg):
@@ -3081,6 +3139,437 @@ def phase_striped_parity():
         fail("the process group outlived the striped_parity phase")
 
 
+def check_no_flash(phase):
+    launches = read_launches()
+    if launches != expected_launches():
+        fail(f"{phase} launched flash kernels: {launches}")
+    return launches
+
+
+def phase_autotune(plain_row):
+    """Startup tuning on a flat and a 1 x 1 hierarchical communicator; a
+    recorded plan equal to the hand knobs, bitwise the hand-knobbed small
+    ResNet's 3 steps; the online re-tune of ``train_resnet``'s step after
+    3 updates from the card's own spans."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     observability, scatter_dataset)
+    from chainermn_tpu_torch.communicators import _autotune
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.models import Classifier, ResNet50
+    reset_launches()
+    startup = {}
+    for label, name, dtype in (("flat", "pure_nccl", "bfloat16"),
+                               ("hierarchical", "hierarchical",
+                                {"dcn": "bfloat16"})):
+        t0 = time.perf_counter()
+        comm = create_communicator(name, allreduce_grad_dtype=dtype,
+                                   autotune=True)
+        tune_s = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            measurement = _autotune.measure_fabric(comm)
+            measure_s = time.perf_counter() - t0
+            plan = comm.autotune_plan
+            startup[label] = {
+                "tune_s": tune_s, "measure_fabric_s": measure_s,
+                "hops": measurement["hops"],
+                "plan": {k: plan[k] for k in ("bucket_mb", "stripe_ratio",
+                                              "grad_dtype", "axis")},
+                "notes": plan["derivation"]["notes"],
+                "fingerprint": plan["fingerprint"],
+                "communicator": repr(comm)}
+        finally:
+            comm.finalize()
+        if any(h["size"] != 1 or h["gbps"] is not None
+               for h in measurement["hops"].values()):
+            fail(f"autotune: a hop of a world of one measured: "
+                 f"{measurement}")
+
+    # a recorded plan equal to the hand knobs: the same 3 fp32 steps
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hand = create_communicator("hierarchical", stripe_ratio=0.25,
+                               allreduce_grad_dtype={"ici": None,
+                                                     "dcn": "bfloat16"})
+    try:
+        plan = _autotune.derive_exchange_plan(
+            AUTOTUNE_MEASUREMENTS, _autotune.topology_summary(hand))
+        auto = create_communicator("hierarchical", autotune=plan)
+        torch.backends.cudnn.deterministic = True
+        golden = {"hand": resnet_parity_run("cuda", True, hand),
+                  "auto": resnet_parity_run("cuda", True, auto)}
+        knobs = {k: (getattr(hand, k), getattr(auto, k)) for k in (
+            "stripe_ratio", "dcn_grad_dtype", "allreduce_grad_dtype")}
+        auto.finalize()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+        hand.finalize()
+    golden_equal = golden["hand"][0] == golden["auto"][0] and all(
+        torch.equal(v, golden["auto"][1][p])
+        for p, v in golden["hand"][1].items())
+
+    # online: re-tuned after 3 updates from this run's spans
+    prev = observability.set_mode("events")
+    observability.reset_tracer()
+    observability.reset_registry()
+    comm = create_communicator("pure_nccl", allreduce_grad_dtype="bfloat16")
+    opt = None
+    try:
+        model = Classifier(ResNet50(compute_dtype=torch.bfloat16,
+                                    device="cuda", **RESNET))
+        comm.bcast_data(model)
+        opt = create_multi_node_optimizer(
+            MomentumSGD(lr=0.1, momentum=0.9), comm,
+            autotune=3).setup(model)
+        armed = opt._autotune_online_after
+        shard = scatter_dataset(resnet_data(), comm)
+        updater, step_ms, losses, peak, _ = timed_trainer_run(
+            opt, shard, RESNET_BATCH, RESNET_STEPS, "chip_smoke_autotune")
+        online = opt.communicator.autotune_plan
+    finally:
+        observability.set_mode(prev)
+        observability.reset_tracer()
+        observability.reset_registry()
+        comm.finalize()      # a re-tuned clone owns the world after it
+        if opt is not None and opt.communicator is not comm:
+            opt.communicator.finalize()
+    tuned_ms = float(np.median(step_ms[3:]))
+    row = {"phase": "autotune", "startup": startup,
+           "golden_bitwise": golden_equal,
+           "golden_losses": golden["auto"][0], "golden_knobs": {
+               k: [str(a), str(b)] for k, (a, b) in knobs.items()},
+           "recorded_plan_fingerprint": plan["fingerprint"],
+           "online": {
+               "armed_after": armed,
+               "disarmed": opt._autotune_online_after == 0,
+               "world_hop": None if online is None
+               else online["measurements"]["hops"].get("world"),
+               "plan": None if online is None else {
+                   k: online[k] for k in ("bucket_mb", "stripe_ratio",
+                                          "grad_dtype")},
+               "notes": None if online is None
+               else online["derivation"]["notes"],
+               "fingerprint": None if online is None
+               else online["fingerprint"]},
+           "step_ms": step_ms, "tuned_median_step_ms": tuned_ms,
+           "images_per_s": RESNET_BATCH / (tuned_ms * 1e-3),
+           "losses": losses, "peak_bytes": peak,
+           "train_resnet": {k: plain_row[k] for k in (
+               "median_step_ms", "images_per_s", "device_idle_share")},
+           "launches": check_no_flash("autotune")}
+    emit(row)
+    if not golden_equal:
+        fail(f"autotune: a recorded plan equal to the hand knobs left the "
+             f"hand-knobbed trajectory: {golden['hand'][0]} vs "
+             f"{golden['auto'][0]}")
+    if online is None or online["measurements"]["source"] != "online" \
+            or armed != 3 or not row["online"]["disarmed"]:
+        fail(f"autotune: no online re-tune after 3 updates: {row['online']}")
+    if not all(np.isfinite(losses)):
+        fail(f"autotune: ResNet-50 losses {losses}")
+    if dist.is_initialized():
+        fail("the process group outlived the autotune phase")
+    return row
+
+
+def seq2seq_data(n, seed=0):
+    """``make_synthetic_translation_data`` at SEQ2SEQ's vocabularies and
+    length: the dataset and each batch's target tokens (non-PAD)."""
+    from chainermn_tpu_torch.dataset import TupleDataset
+    from chainermn_tpu_torch.models import make_synthetic_translation_data
+    xs, ys_in, ys_out = make_synthetic_translation_data(
+        n=n, src_vocab=SEQ2SEQ["n_source_vocab"],
+        tgt_vocab=SEQ2SEQ["n_target_vocab"], max_len=SEQ2SEQ_LEN, seed=seed)
+    tokens = [int((ys_out[i:i + SEQ2SEQ_BATCH] != -1).sum())
+              for i in range(0, n, SEQ2SEQ_BATCH)]
+    return TupleDataset(xs, ys_in, ys_out), (xs, ys_in, ys_out), tokens
+
+
+def seq2seq_row(name, step_ms, losses, peak, tokens):
+    median_ms = float(np.median(step_ms[SEQ2SEQ_WARMUP:]))
+    return {"phase": name, **SEQ2SEQ, "batch": SEQ2SEQ_BATCH,
+            "max_len": SEQ2SEQ_LEN, "steps": SEQ2SEQ_STEPS,
+            "step_ms": step_ms, "median_step_ms": median_ms,
+            "steps_per_s": 1e3 / median_ms,
+            "sentences_per_s": SEQ2SEQ_BATCH / (median_ms * 1e-3),
+            "target_tokens_per_s": float(np.mean(tokens))
+            / (median_ms * 1e-3),
+            "target_tokens_per_batch": tokens, "losses": losses,
+            "peak_bytes": peak}
+
+
+def phase_seq2seq_dp():
+    """BASELINE config #3 at full width: ``Seq2seq`` through the
+    double-buffered multi-node Adam in a world of one NCCL process."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     scatter_dataset)
+    from chainermn_tpu_torch.core.config import using_config
+    from chainermn_tpu_torch.core.optimizer import Adam
+    from chainermn_tpu_torch.models import Seq2seq
+    reset_launches()
+    dataset, arrays, tokens = seq2seq_data(2 * SEQ2SEQ_BATCH)
+    comm = create_communicator("pure_nccl")
+    try:
+        t0 = time.perf_counter()
+        model = Seq2seq(device="cuda", **SEQ2SEQ)
+        init_s = time.perf_counter() - t0
+        comm.bcast_data(model)
+        opt = create_multi_node_optimizer(
+            Adam(), comm, double_buffering=True).setup(model)
+        shard = scatter_dataset(dataset, comm)
+        comm.calls.clear()
+        updater, step_ms, losses, peak, _ = timed_trainer_run(
+            opt, shard, SEQ2SEQ_BATCH, SEQ2SEQ_STEPS, "chip_smoke_seq2seq")
+        row = {**seq2seq_row("seq2seq_dp", step_ms, losses, peak, tokens),
+               "params": model.count_params(), "init_s": init_s,
+               "exchange": "double_buffering", "world": comm.size,
+               "collectives": dict(comm.calls)}
+        emit(row)
+        prof = profile_steps("seq2seq_dp_profile", updater, top_n=12,
+                             classes_us=op_classes_us)
+        xs = torch.from_numpy(arrays[0][:8]).cuda()
+        with torch.no_grad(), using_config("train", False):
+            model.translate(xs, 0, 1, max_length=SEQ2SEQ_LEN)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = model.translate(xs, 0, 1, max_length=SEQ2SEQ_LEN)
+            torch.cuda.synchronize()
+            translate_s = time.perf_counter() - t0
+        emit({"phase": "seq2seq_translate", "sentences": 8,
+              "max_length": SEQ2SEQ_LEN, "seconds": translate_s,
+              "tokens_per_s": toks.numel() / translate_s,
+              "first_tokens": toks[0, :10].tolist()})
+        opt._reset_exchange()
+    finally:
+        comm.finalize()
+    row["device_idle_share"] = prof["device_idle_share"]
+    check_no_flash("seq2seq_dp")
+    if not all(np.isfinite(losses)) or len(losses) != SEQ2SEQ_STEPS \
+            or not losses[-1] < losses[0]:
+        fail(f"seq2seq_dp: losses {losses}")
+    if dist.is_initialized():
+        fail("the process group outlived seq2seq_dp")
+    return row
+
+
+def stage_stack(width, n_layers, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = []
+    for _ in range(n_layers):
+        params.append((torch.randn((width, width), generator=g,
+                                   device="cuda") / width ** 0.5)
+                      .requires_grad_())
+        params.append((torch.randn((width,), generator=g, device="cuda")
+                       * 0.1).requires_grad_())
+    return params
+
+
+def stack_fn(params, h):
+    for W, b in zip(params[0::2], params[1::2]):
+        h = torch.tanh(h @ W + b)
+    return h
+
+
+def rel_err(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def phase_seq2seq_mp(dp_row):
+    """BASELINE config #4 in a world of one: the self-edge
+    ``ModelParallelSeq2seq`` against ``Seq2seq`` on one batch, its
+    training steps, and both pipelines at S = 1."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.core.optimizer import Adam
+    from chainermn_tpu_torch.models import ModelParallelSeq2seq, Seq2seq
+    from chainermn_tpu_torch.parallel import (gpipe_apply, one_f_one_b,
+                                              split_microbatches)
+    reset_launches()
+    dataset, arrays, tokens = seq2seq_data(2 * SEQ2SEQ_BATCH)
+    batch = [torch.from_numpy(a[:SEQ2SEQ_BATCH]).cuda() for a in arrays]
+    comm = create_communicator("pure_nccl")
+    try:
+        mp = ModelParallelSeq2seq(comm, rank_encoder=0, rank_decoder=0,
+                                  device="cuda", **SEQ2SEQ)
+        ref = Seq2seq(device="cuda", **SEQ2SEQ)
+        mp_params = {p[len("/mn_component_0"):]: v
+                     for p, v in mp.namedparams()}
+        same_init = all(torch.equal(v, mp_params[p])
+                        for p, v in ref.namedparams())
+        loss_mp = mp(*batch)
+        loss_mp.backward()
+        loss_ref = ref(*batch)
+        loss_ref.backward()
+        grads_equal = all(torch.equal(v.grad, mp_params[p].grad)
+                          for p, v in ref.namedparams())
+        grad_err = max(rel_err(mp_params[p].grad, v.grad)
+                       for p, v in ref.namedparams())
+        parity = {"same_init": same_init,
+                  "loss": [loss_mp.item(), loss_ref.item()],
+                  "loss_bitwise": bool(torch.equal(loss_mp, loss_ref)),
+                  "grads_bitwise": grads_equal, "grad_rel_err": grad_err}
+        # plain Adam on the chain list and on Seq2seq in turns (mp, plain,
+        # plain, mp): what the list's transfers and broadcast cost a step
+        opts = {"mp": Adam().setup(mp), "plain": Adam().setup(ref)}
+        comm.calls.clear()
+        turns = []
+        for i, which in enumerate(("mp", "plain", "plain", "mp")):
+            _, ms, run_losses, run_peak, _ = timed_trainer_run(
+                opts[which], dataset, SEQ2SEQ_BATCH, SEQ2SEQ_STEPS,
+                f"chip_smoke_seq2seq_mp_{i}")
+            median = float(np.median(ms[SEQ2SEQ_WARMUP:]))
+            turns.append({"model": which, "median_step_ms": median,
+                          "steps_per_s": 1e3 / median})
+            if i == 0:
+                calls = dict(comm.calls)
+                step_ms, losses, peak = ms, run_losses, run_peak
+        row = {**seq2seq_row("seq2seq_mp", step_ms, losses, peak, tokens),
+               "rank_encoder": 0, "rank_decoder": 0, "parity": parity,
+               "collectives": calls, "turns": turns,
+               "seq2seq_dp": {k: dp_row[k] for k in (
+                   "steps_per_s", "sentences_per_s", "target_tokens_per_s",
+                   "device_idle_share")}}
+        del mp, ref, opts
+        torch.cuda.empty_cache()
+
+        # the pipelines at S = 1: 4 microbatches over a 3-layer stack
+        width, M = 1024, 4
+        params = stage_stack(width, 3, seed=7)
+        g = torch.Generator(device="cuda").manual_seed(8)
+        x = torch.randn((4 * 64, width), generator=g, device="cuda")
+        y = torch.randn((4 * 64, width), generator=g, device="cuda")
+        xm, ym = split_microbatches(x, M), split_microbatches(y, M)
+
+        def loss_fn(out, t):
+            return torch.mean((out - t) ** 2)
+
+        def plain():
+            for p in params:
+                p.grad = None
+            loss = sum(loss_fn(stack_fn(params, xm[i]), ym[i])
+                       for i in range(M)) / M
+            loss.backward()
+            return loss.detach(), [p.grad.clone() for p in params]
+
+        def gpipe():
+            for p in params:
+                p.grad = None
+            out = gpipe_apply(comm, stack_fn, params, xm)
+            loss = torch.mean((out - ym) ** 2)
+            loss.backward()
+            return loss.detach(), [p.grad.clone() for p in params]
+
+        def fb():
+            return one_f_one_b(comm, stack_fn, loss_fn, params, xm, ym)
+
+        ref_loss, ref_grads = plain()
+        pipes = {}
+        for name, fn in (("gpipe", gpipe), ("one_f_one_b", fb)):
+            loss, grads = fn()
+            pipes[name] = {
+                "loss_rel_err": abs(loss.item() - ref_loss.item())
+                / abs(ref_loss.item()),
+                "grad_rel_err": max(rel_err(a, b)
+                                    for a, b in zip(grads, ref_grads)),
+                "ms": time_ms(fn, iters=5, warmup=1)}
+        pipes["plain_ms"] = time_ms(plain, iters=5, warmup=1)
+        row["pipelines"] = {"S": comm.size, "M": M, "layers": 3,
+                            "width": width, "microbatch": 64, **pipes}
+    finally:
+        comm.finalize()
+    row["launches"] = check_no_flash("seq2seq_mp")
+    emit(row)
+    if not (same_init and (grads_equal or grad_err < SEQ2SEQ_MP_TOL)
+            and abs(parity["loss"][0] - parity["loss"][1])
+            <= SEQ2SEQ_MP_TOL * abs(parity["loss"][1])):
+        fail(f"seq2seq_mp: ModelParallelSeq2seq leaves Seq2seq: {parity}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"seq2seq_mp: losses {losses}")
+    for name in ("gpipe", "one_f_one_b"):
+        if not (pipes[name]["loss_rel_err"] < PIPELINE_TOL
+                and pipes[name]["grad_rel_err"] < PIPELINE_TOL):
+            fail(f"seq2seq_mp: {name} at S = 1 leaves the plain "
+                 f"microbatched step: {pipes[name]}")
+    if dist.is_initialized():
+        fail("the process group outlived seq2seq_mp")
+    return row
+
+
+def mp_parity_run(device, comm, which, steps=3):
+    """The CPU tests' small fp32 models, 3 plain Adam steps on ``device``:
+    (losses, parameters on the host)."""
+    from chainermn_tpu_torch.core.optimizer import Adam
+    from chainermn_tpu_torch.examples.train_mnist_model_parallel import \
+        SplitMLP
+    from chainermn_tpu_torch.models import (ModelParallelSeq2seq,
+                                            make_synthetic_translation_data)
+    if which == "seq2seq":
+        model = ModelParallelSeq2seq(comm, rank_encoder=0, rank_decoder=0,
+                                     device=device, **SMALL_SEQ2SEQ)
+        batch = [torch.from_numpy(a[:8]).to(device)
+                 for a in make_synthetic_translation_data()]
+    else:
+        model = SplitMLP(comm, 10, 10, seed=0, device=device)
+        rng = np.random.RandomState(0)
+        batch = [torch.from_numpy(rng.normal(0, 1, (16, 784)).astype(
+                     np.float32)).to(device),
+                 torch.from_numpy(rng.randint(0, 10, 16)).to(device)]
+    opt = Adam().setup(model)
+    losses = [opt.update(model, *batch).item() for _ in range(steps)]
+    return losses, {p: v.detach().cpu() for p, v in model.namedparams()}
+
+
+def phase_model_parallel_parity():
+    """The small fp32 seq2seq and split MLP: 3 Adam steps on the card
+    against the CPU (a gloo group beside the NCCL world), TF32 off."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.communicators import MeshCommunicator
+    reset_launches()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm = create_communicator("pure_nccl")
+    try:
+        cpu_comm = MeshCommunicator(device="cpu",
+                                    group=dist.new_group(backend="gloo"),
+                                    name="pure_nccl")
+        out = {}
+        for which in ("seq2seq", "split_mlp"):
+            card = mp_parity_run("cuda", comm, which)
+            cpu = mp_parity_run("cpu", cpu_comm, which)
+            out[which] = {
+                "losses": card[0], "cpu_losses": cpu[0],
+                "loss_abs_err": max(abs(a - b)
+                                    for a, b in zip(card[0], cpu[0])),
+                "param_abs_err": max((card[1][p] - v).abs().max().item()
+                                     for p, v in cpu[1].items())}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+        comm.finalize()
+    row = {"phase": "model_parallel_parity", **out, "tol": MP_PARITY_TOL,
+           "launches": check_no_flash("model_parallel_parity")}
+    emit(row)
+    for which, errs in out.items():
+        if not (errs["loss_abs_err"] < MP_PARITY_TOL
+                and errs["param_abs_err"] < MP_PARITY_TOL):
+            fail(f"model_parallel_parity: {which} on the card leaves the "
+                 f"CPU's run: {errs}")
+    if dist.is_initialized():
+        fail("the process group outlived model_parallel_parity")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -3163,6 +3652,13 @@ def main():
     torch.cuda.empty_cache()
     phase_train_resnet_traced(resnet_row)
     phase_striped_parity()
+    torch.cuda.empty_cache()
+    phase_autotune(resnet_row)
+    torch.cuda.empty_cache()
+    seq2seq_row = phase_seq2seq_dp()
+    torch.cuda.empty_cache()
+    phase_seq2seq_mp(seq2seq_row)
+    phase_model_parallel_parity()
 
     main_check = next(c for c in checks
                       if c["B"] == 1 and c["T"] == 1024 and c["causal"])

@@ -376,11 +376,12 @@ def test_refusals_without_a_world():
         create_multi_node_optimizer(MomentumSGD(), comm, zero_sharding=True,
                                     exchange="reduce_scatter")
     # the striped exchange's stale variant needs a striped communicator
-    # (tests/test_torch_striped_exchange.py runs it); autotune waits for A10
+    # (tests/test_torch_striped_exchange.py runs it); autotune needs a
+    # communicator it can tune (tests/test_torch_autotune.py runs it)
     with pytest.raises(ValueError, match="stripe_ratio > 0"):
         create_multi_node_optimizer(MomentumSGD(), comm,
                                     double_buffering="dcn")
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="autotune"):
         create_multi_node_optimizer(MomentumSGD(), comm, autotune=True)
     comm.name = "naive"
     with pytest.raises(ValueError, match="fused-bucket"):

@@ -57,3 +57,44 @@ def test_observability_and_profiling_surfaces(module):
     assert getattr(ct, module) is mod
     missing = [n for n in names if getattr(mod, n, None) is None]
     assert not missing, missing
+
+
+#: names of the JAX package's module surfaces still to port, by ROADMAP
+#: item
+NOT_PORTED_IN = {
+    "parallel": {"ring_self_attention": "A9", "ring_attention": "A9",
+                 "ulysses_attention": "A9", "switch_moe": "A9",
+                 "moe_dispatch_combine": "A9"},
+    "models": {"Generator": "A8", "Discriminator": "A8",
+               "DCGANUpdater": "A8", "MoETransformerLM": "A9"},
+}
+
+
+@pytest.mark.parametrize("module", ["functions", "links", "parallel",
+                                    "models"])
+def test_model_parallel_surfaces(module):
+    """The JAX package's ``functions``, ``links``, ``parallel`` and
+    ``models`` names: every one the port has resolves (the
+    point-to-point functions, ``MultiNodeChainList``,
+    ``ParallelConvolution2D``, the pipelines, the mesh, ``Seq2seq``), and
+    the rest are listed by the ROADMAP item that ports them."""
+    names = MODULES[f"chainermn_tpu.{module}"]
+    mod = importlib.import_module(f"chainermn_tpu_torch.{module}")
+    pending = NOT_PORTED_IN.get(module, {})
+    for name in names:
+        assert (getattr(mod, name, None) is not None) \
+            == (name not in pending), f"{module}.{name}"
+    assert set(pending) <= set(names)
+
+
+def test_rnn_functions_and_links():
+    """``F.sigmoid``, ``F.tanh`` and the recurrent links are on the port's
+    ``F`` and ``L`` as on the JAX package's."""
+    from tests.test_public_api import F_FUNCTIONS, L_LINKS
+    for name in ("sigmoid", "tanh", "embed_id"):
+        assert name in F_FUNCTIONS and callable(getattr(ct.F, name))
+    for name in ("LSTM", "StatelessLSTM", "GRU", "StatelessGRU",
+                 "NStepLSTM", "NStepGRU", "EmbedID"):
+        assert name in L_LINKS and getattr(ct.L, name) is not None
+    from chainermn_tpu_torch.nn import rnn
+    assert ct.L.NStepLSTM is rnn.NStepLSTM
