@@ -43,9 +43,16 @@ reference's: differentiable point-to-point transfers
 ``ParallelConvolution2D`` (:mod:`.links`), the GPipe and 1F1B pipelines
 and named mesh axes (:mod:`.parallel`), and the seq2seq model
 (:mod:`.models.seq2seq`) with the LSTM links it runs (:mod:`.nn.rnn`).
+ChainerMN's DCGAN example (:mod:`.models.dcgan`, transposed convolutions
+on cuDNN) trains with the multi-node checkpointer
+(:func:`create_multi_node_checkpointer`: per-rank snapshots, SHA-256
+sidecars, consensus resume; its per-rank DCP sibling in
+:mod:`.extensions.orbax_checkpoint`) and the fail-stop except hook
+(:mod:`.global_except_hook`).
 """
 
-from . import functions, links, observability, parallel, utils
+from . import (functions, global_except_hook, links, observability,
+               parallel, utils)
 from ._device import resolve_device
 from .communicators import (CommunicatorBase, DummyCommunicator,
                             MeshCommunicator, create_communicator)
@@ -53,6 +60,7 @@ from .core import Chain, ChainList, Link, report, using_config
 from .datasets import (create_empty_dataset, get_n_iterations_for_one_epoch,
                        scatter_dataset, scatter_index)
 from .evaluators import create_multi_node_evaluator
+from .extensions.checkpoint import create_multi_node_checkpointer
 from .iterators import create_multi_node_iterator, create_synchronized_iterator
 from .nn import functions as F
 from .nn import links as L
@@ -64,5 +72,7 @@ __all__ = ["functions", "links", "observability", "parallel", "utils", "resolve_
            "create_multi_node_evaluator", "scatter_dataset",
            "create_empty_dataset", "scatter_index",
            "get_n_iterations_for_one_epoch", "create_multi_node_iterator",
-           "create_synchronized_iterator", "Link", "Chain", "ChainList",
-           "report", "using_config", "F", "L"]
+           "create_synchronized_iterator", "create_multi_node_checkpointer",
+           "Link", "Chain", "ChainList", "report", "using_config", "F", "L"]
+
+global_except_hook._add_hook_if_enabled()

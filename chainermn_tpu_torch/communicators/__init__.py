@@ -47,6 +47,7 @@ from __future__ import annotations
 import os
 import warnings
 
+from ..global_except_hook import _add_hook_if_enabled
 from ._communication_utility import init_ranks, initialize_distributed
 from .communicator_base import CommunicatorBase
 from .debug_communicator import DebugCommunicator, SignatureMismatchError
@@ -174,10 +175,12 @@ def create_communicator(communicator_name="jax_ici", device=None,
     if name == "dummy":
         return DummyCommunicator()
     if name == "debug":
-        return DebugCommunicator(device=device, group=group,
+        comm = DebugCommunicator(device=device, group=group,
                                  allreduce_grad_dtype=allreduce_grad_dtype,
                                  batch_collectives=batch_collectives or False,
                                  bucket_mb=bucket_mb)
+        _add_hook_if_enabled()
+        return comm
     if allreduce_grad_dtype is not None and name not in (
             "pure_nccl", "jax_ici", "hierarchical", "two_dimensional"):
         raise ValueError(
@@ -204,6 +207,9 @@ def create_communicator(communicator_name="jax_ici", device=None,
     if name == "single_node" and comm.inter_size != 1:
         raise ValueError("single_node communicator requires one host "
                          f"(the ranks span {comm.inter_size} hosts)")
+    # the process group is up now: a world of more than one rank gets the
+    # fail-stop except hook (the JAX package installs it at import)
+    _add_hook_if_enabled()
     return _apply_autotune(comm, autotune)
 
 

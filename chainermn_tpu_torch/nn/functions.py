@@ -17,9 +17,10 @@ import torch.nn.functional as TF
 from ..core import rng as rng_module
 from ..core.config import config
 
-__all__ = ["relu", "sigmoid", "tanh", "linear", "embed_id", "layer_normalization", "gelu",
-           "softmax", "log_softmax", "softmax_cross_entropy", "accuracy",
-           "dropout", "convolution_2d", "max_pooling_2d",
+__all__ = ["relu", "leaky_relu", "sigmoid", "tanh", "linear", "embed_id",
+           "layer_normalization", "gelu", "softmax", "log_softmax",
+           "softmax_cross_entropy", "sigmoid_cross_entropy", "accuracy",
+           "dropout", "convolution_2d", "deconvolution_2d", "max_pooling_2d",
            "average_pooling_2d", "global_average_pooling_2d",
            "local_response_normalization", "concat", "batch_moments",
            "batch_normalization", "fixed_batch_normalization"]
@@ -29,6 +30,12 @@ def relu(x):
     """``max(x, 0)`` as the JAX function computes it: the gradient at
     exactly 0 is 1/2, as ``torch.maximum`` splits a tie."""
     return torch.maximum(x, x.new_zeros(()))
+
+
+def leaky_relu(x, slope=0.2):
+    """``x`` where ``x >= 0``, else ``slope * x``: the JAX function's
+    ``where``, so the gradient at exactly 0 is 1."""
+    return torch.where(x >= 0, x, slope * x)
 
 
 def sigmoid(x):
@@ -114,6 +121,21 @@ def softmax_cross_entropy(x, t, ignore_label=-1, reduce="mean",
     return nll.sum() / count
 
 
+def sigmoid_cross_entropy(x, t, reduce="mean"):
+    """Elementwise logistic loss of logits ``x`` against 0/1 targets
+    ``t``, in the JAX function's stable form ``max(x, 0) - x t +
+    log1p(exp(-|x|))``; the mean over every element, or with ``reduce="no"``
+    the elementwise losses.  At exactly 0 the gradients are the JAX
+    ones: ``maximum`` splits its tie in halves, as ``jnp.maximum``, and
+    ``|x|`` takes slope 1, as ``jnp.abs``."""
+    t = t.to(x.dtype)
+    loss = (torch.maximum(x, x.new_zeros(())) - x * t
+            + torch.log1p(torch.exp(-torch.where(x >= 0, x, -x))))
+    if reduce == "no":
+        return loss
+    return loss.mean()
+
+
 def accuracy(y, t, ignore_label=None):
     pred = torch.argmax(y, dim=1)
     if ignore_label is not None:
@@ -178,6 +200,29 @@ def convolution_2d(x, W, b=None, stride=1, pad=0, dilate=1, groups=1,
     y = TF.conv2d(_to_nchw(x, layout), W, b, stride=_pair(stride),
                   padding=_pair(pad), dilation=_pair(dilate), groups=groups)
     return _from_nchw(y, layout)
+
+
+def deconvolution_2d(x, W, b=None, stride=1, pad=0, outsize=None):
+    """Transposed convolution of NCHW ``x``, kernel ``(in, out, kh, kw)``
+    (the reference's layout, and ``conv_transpose2d``'s).  ``outsize``
+    ``(oh, ow)`` picks among the output sizes whose forward convolution
+    gives back ``(h, w)``; it becomes ``output_padding``, the rows and
+    columns past ``s (h - 1) + k - 2 p``.  An ``outsize`` whose forward
+    convolution does not give back ``(h, w)`` raises ``ValueError``, as
+    the JAX function's analytic check does."""
+    sy, sx = _pair(stride)
+    ph, pw = _pair(pad)
+    _, _, kh, kw = W.shape
+    h, w = x.shape[2], x.shape[3]
+    base_h, base_w = sy * (h - 1) + kh - 2 * ph, sx * (w - 1) + kw - 2 * pw
+    oh, ow = (base_h, base_w) if outsize is None else _pair(outsize)
+    if (oh + 2 * ph - kh) // sy + 1 != h or (ow + 2 * pw - kw) // sx + 1 != w \
+            or oh + 2 * ph < kh or ow + 2 * pw < kw:
+        raise ValueError(
+            f"invalid outsize {(oh, ow)} for input {(h, w)} with "
+            f"k={(kh, kw)} s={(sy, sx)} p={(ph, pw)}")
+    return TF.conv_transpose2d(x, W, b, stride=(sy, sx), padding=(ph, pw),
+                               output_padding=(oh - base_h, ow - base_w))
 
 
 def _pool_input(x, layout, k, pads, fill):

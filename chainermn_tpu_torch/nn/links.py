@@ -23,7 +23,7 @@ from ..core.link import Link, _copy_array
 from . import functions as F
 from . import initializers as I
 
-__all__ = ["Linear", "Convolution2D", "BatchNormalization",
+__all__ = ["Linear", "Convolution2D", "Deconvolution2D", "BatchNormalization",
            "LayerNormalization", "EmbedID", "StatelessLSTM", "LSTM",
            "StatelessGRU", "GRU", "NStepLSTM", "NStepGRU"]
 
@@ -135,6 +135,37 @@ class Convolution2D(Link):
         b = None if self.b is None else self.b.to(x.dtype)
         return F.convolution_2d(x, W, b, self.stride, self.pad, self.dilate,
                                 self.groups, layout=self.layout)
+
+
+class Deconvolution2D(Link):
+    """Transposed convolution of NCHW activations, kernel ``(in, out, kh,
+    kw)`` as the reference's (:func:`F.deconvolution_2d`); ``outsize``
+    fixes the output's spatial size.  Weights are drawn on the host from
+    ``seed`` (HeNormal over this 4-d shape, as the JAX link draws them)."""
+
+    def __init__(self, in_channels, out_channels, ksize, stride=1, pad=0,
+                 nobias=False, outsize=None, initialW=None,
+                 initial_bias=None, seed=None, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.ksize = ksize
+        self.stride = stride
+        self.pad = pad
+        self.outsize = outsize
+        rng = _rng(seed)
+        kh, kw = F._pair(ksize)
+        initW = I._get_initializer(initialW, I.HeNormal())
+        initb = I._get_initializer(initial_bias, I.Zero())
+        self.W = _param(initW((in_channels, out_channels, kh, kw),
+                              np.float32, rng), device)
+        self.b = None if nobias else _param(
+            initb((out_channels,), np.float32, rng), device)
+
+    def forward(self, x):
+        return F.deconvolution_2d(x, self.W, self.b, self.stride, self.pad,
+                                  self.outsize)
 
 
 class BatchNormalization(Link):

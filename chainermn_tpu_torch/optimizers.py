@@ -287,7 +287,7 @@ class _MultiNodeOptimizer:
             _pending=None, _stale=None, _stale_dcn=None, _layout=None,
             _residual=None, _obs_plan=None, _buffers=[None, None],
             _slot=0, _lazy_done=False, _autotune_online_after=0,
-            _autotune_steps_done=0)
+            _autotune_steps_done=0, _local_state=False)
 
     # -- reference-style delegation ---------------------------------------
     def __getattr__(self, name):
@@ -883,8 +883,16 @@ class _MultiNodeOptimizer:
         under double buffering the mean gradient in flight as
         ``stale_grads/n`` and ``stale_grads/g<i>`` (per parameter in
         sorted path order, or the one flat vector).  Under the sharded
-        update this is a collective: every rank serializes."""
+        update this is a collective: every rank serializes.
+
+        In the per-rank mode (``_local_state``, set by the per-rank DCP
+        checkpointer) the flat vectors are this rank's own chunks, written
+        and read without a collective, beside ``local_chunk``: the world
+        size and this rank's chunk index, which a reader must match."""
         actual = self.actual_optimizer
+        if self._local_state and actual.target is not None \
+                and (self._sharded_update or self._needs_residual):
+            self._check_local_layout(serializer)
         if self._sharded_update:
             actual.serialize_with(serializer, self._save_flat_state,
                                   self._load_flat_state)
@@ -897,9 +905,29 @@ class _MultiNodeOptimizer:
         if self._db_dcn and actual.target is not None:
             self._serialize_stale_dcn(serializer["stale_grads"])
 
+    def _check_local_layout(self, serializer):
+        """The per-rank mode's ``local_chunk`` key: written, or read and
+        held against this rank's (a chunk means nothing in another
+        partition)."""
+        comm = self.communicator
+        mine = np.array([comm.size, getattr(comm, "chunk_index", comm.rank)],
+                        np.int64)
+        if serializer.is_writer:
+            serializer("local_chunk", mine)
+            return
+        saved = serializer("local_chunk", None)
+        if saved is None or not np.array_equal(np.asarray(saved), mine):
+            raise ValueError(
+                f"a per-rank snapshot of (world size, chunk) {saved} "
+                f"cannot resume at {mine.tolist()}; resharding a per-rank "
+                f"snapshot is not ported yet (ROADMAP A11)")
+
     def _whole(self, chunk, key=_FLAT):
         """Every rank's chunk of the flat slice ``key``, gathered in chunk
-        order (the reverse hop chain): the whole slice on the host."""
+        order (the reverse hop chain): the whole slice on the host.  In
+        the per-rank mode, this rank's chunk as it is."""
+        if self._local_state:
+            return chunk.cpu().numpy()
         comm = self.communicator
         if key != _FLAT:
             return comm.allgather_flat({key: chunk})[key].cpu().numpy()
@@ -967,10 +995,15 @@ class _MultiNodeOptimizer:
             return
         whole = np.asarray(sub("r0", None), np.float32).reshape(-1)
         local = self._residual_len()
-        if whole.shape[0] != local * self.communicator.size:
+        if self._local_state:   # this rank's own part
+            if whole.shape[0] != local:
+                return
+            at = 0
+        elif whole.shape[0] != local * self.communicator.size:
             return
-        at = getattr(self.communicator, "chunk_index",
-                     self.communicator.rank) * local
+        else:
+            at = getattr(self.communicator, "chunk_index",
+                         self.communicator.rank) * local
         device = self._sorted_params()[1][0].device
         self.__dict__["_residual"] = torch.from_numpy(
             whole[at:at + local].copy()).to(device)
@@ -981,12 +1014,17 @@ class _MultiNodeOptimizer:
         _, _, n, n_pad, lo, hi = next(seg for seg in self._segments()
                                       if seg[0] == key)
         leaf = np.asarray(leaf, np.float32).reshape(-1)
+        device = self._sorted_params()[1][0].device
+        if self._local_state:   # this rank's chunk, saved as it is
+            if leaf.shape[0] != hi - lo:
+                raise ValueError(f"chunk of {leaf.shape[0]} elements for "
+                                 f"this rank's {hi - lo}")
+            return torch.from_numpy(leaf.copy()).to(device)
         if leaf.shape[0] < n:
             raise ValueError(f"flat vector of {leaf.shape[0]} elements "
                              f"for {n} parameters")
         full = np.zeros(n_pad, np.float32)
         full[:n] = leaf[:n]
-        device = self._sorted_params()[1][0].device
         return torch.from_numpy(full[lo:hi].copy()).to(device)
 
     def _save_flat_state(self):

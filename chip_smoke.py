@@ -24,7 +24,8 @@ Phases, each printing one JSON line:
    ``ServingEngine`` (512 pages of 16, batch 8, context 1024): 16 chat
    requests from 4 tenants (a fixed 64-token system prompt per tenant
    ahead of a random tail, 80-900 prompt tokens, 32 new tokens each);
-   the kernel's launch count is read around this run alone;
+   the kernel's launch count is read around this run alone; then the
+   first 8 of the requests again under the profiler (``serving_profile``);
 4. decode parity: prefill plus 8 decode steps through the engine's
    programs against the one-shot forward, within the bf16 band;
 5. kernel check, training: the lse forward, the delta pass and the fused
@@ -243,6 +244,38 @@ Phases, each printing one JSON line:
     twin, 3 Adam steps on the card against the same on the CPU (a gloo
     group beside the NCCL world) within the CPU tests' tolerance.  The
     flash kernels' counts stay 0 in phases 30-33.
+34. train_dcgan: BASELINE config #5 at the width of Chainer's
+    ``examples/dcgan`` (``Generator(n_hidden=100, ch=512)``, 3,599,363
+    parameters, and ``Discriminator(ch=512)``, 2,660,097; fp32, TF32 off)
+    on batch 50 of synthetic CIFAR-10 (``get_cifar10(withlabel=False)``)
+    through ``create_multi_node_optimizer(Adam(alpha=2e-4, beta1=0.5))``
+    for each net over ``create_communicator("pure_nccl")`` (a world of
+    one) and ``Trainer`` -> ``DCGANUpdater``, 12 iterations (2 warm up)
+    over 2 batches: images/s, iterations/s, MFU against the fp32 peak
+    (``dcgan_flops_per_image``), the two losses, peak memory, the
+    gradient allreduces (two an iteration); then 3 profiled iterations
+    (``train_dcgan_profile``: idle share, device time by op class);
+35. dcgan_checkpoint: the multi-node checkpointer at that width: a
+    snapshot after iterations 2 and 4 (bytes on disk and uncompressed,
+    each save's ms), ``_scan`` with ``_verify`` of the 2, the consensus
+    ``maybe_load`` of a new trainer and 4 more iterations bitwise the
+    uninterrupted 8 (``cudnn.deterministic`` on, the noise drawn per
+    iteration from a seed: the snapshot carries no noise key); a flipped
+    byte in the newest snapshot makes the consensus fall back to the one
+    before; the same resume through the per-rank DCP sibling
+    (``create_multi_node_orbax_checkpointer``), bitwise, with its bytes
+    and times;
+36. train_dcgan_twin: ``python -m chainermn_tpu_torch.examples.
+    train_dcgan --device cuda`` at its defaults for 1 epoch, then for 2
+    into the same ``-o``: the second prints ``resumed from iteration
+    32``;
+37. dcgan_parity: the CPU tests' small DCGAN (n_hidden 16, ch 32, batch
+    8), TF32 off: (a) a world-of-one DP iteration bitwise the plain
+    ``Adam`` iteration (``cudnn.deterministic`` on); (b) 3 iterations on
+    the card against the CPU within ``DCGAN_PARITY_TOL``.  The flash
+    kernels' counts stay 0 in phases 34-37, whose seconds are printed
+    together (``dcgan_phases``), and the script's (``total``) after
+    them.
 
 Then the kernels line (launches, error, times, the whole call's device
 time and bound of all five kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
@@ -293,6 +326,9 @@ MODEL = dict(n_vocab=32768, d_model=768, n_heads=12, n_layers=12,
              max_len=1024, seed=0)
 ENGINE = dict(num_pages=512, page_size=16, max_batch=8, max_context=1024)
 N_REQUESTS, N_TENANTS, SYS_PROMPT, MAX_NEW = 16, 4, 64, 32
+# serving_profile profiles the first 8 of those requests (a full batch):
+# the profiler's trace of all 16 took 47 s of the script's time
+N_PROFILED_REQUESTS = 8
 # training: bench.py's transformer configuration (batch 8 x T 1024, Adam
 # alpha 3e-4); 2 warm-up steps, then the timed ones
 TRAIN_BATCH, TRAIN_ROWS, TRAIN_STEPS, TRAIN_WARMUP = 8, 16, 10, 2
@@ -327,6 +363,26 @@ PIPELINE_TOL = 1e-5
 SMALL_SEQ2SEQ = dict(n_source_vocab=40, n_target_vocab=40, n_units=16,
                      n_layers=2, seed=0)
 MP_PARITY_TOL = 2e-5
+# DCGAN (BASELINE config #5): Chainer's examples/dcgan width (net.py ch
+# 512, bottom width 4; train_dcgan.py --n_hidden 100 --batchsize 50),
+# which ChainerMN's examples/dcgan uses; 12 iterations (2 warm up) over 2
+# batches of synthetic CIFAR-10, fp32, TF32 off as main() sets it
+DCGAN = dict(n_hidden=100, ch=512)
+DCGAN_BATCH, DCGAN_STEPS, DCGAN_WARMUP = 50, 12, 2
+# the bitwise resume: 8 iterations against 4 (a snapshot every 2), a
+# consensus load and 4
+DCGAN_RESUME_STEPS, DCGAN_SAVE_EVERY = 8, 2
+# the CPU tests' small DCGAN; the card against the CPU over 3 Adam(2e-4,
+# beta1 0.5) iterations: the discriminator's first loss comes before any
+# update (1e-5); one Adam step moves a weight by at most alpha, and a
+# gradient at the rounding-noise level (the biases ahead of a batch
+# normalization have an exact gradient of 0) picks its direction, so
+# parameters, moments and running statistics within 2 alpha a step and
+# the later losses 1e-4 relative
+DCGAN_SMALL = dict(n_hidden=16, ch=32)
+DCGAN_SMALL_BATCH, DCGAN_ALPHA = 8, 2e-4
+DCGAN_PARITY_TOL = {"first_dis_loss_rel": 1e-5, "loss_rel": 1e-4,
+                    "state_abs": 3 * 2 * DCGAN_ALPHA}
 # phase 30's recorded plan: the JAX autotune test's fixed measurements,
 # whose plan is the hand knobs {"stripe_ratio": 0.25, "dcn": bfloat16}
 AUTOTUNE_MEASUREMENTS = {
@@ -339,7 +395,13 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+#: the script's start: each phase row carries ``t_s``, the seconds since
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -646,13 +708,15 @@ def phase_serving(model):
              f"{engine.full_prefills} full prefills of the no-grad forward")
     if not engine.allocator.check() or engine.allocator.used_pages:
         fail("page pool not returned in full")
-    # where the time goes: the same load again (prefix pages now cold, so
-    # every tenant's first request misses again) under the profiler
-    for r in chat_requests(Request, MODEL["n_vocab"]):
+    # where the time goes: the first N_PROFILED_REQUESTS of the load again
+    # (prefix pages now cold, so every tenant's first request misses
+    # again) under the profiler
+    for r in chat_requests(Request, MODEL["n_vocab"])[:N_PROFILED_REQUESTS]:
         engine.submit(r)
     wall, busy, by_name = device_profile(engine.drain)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit({"phase": "serving_profile", "wall_s": wall, "device_busy_s": busy,
+    emit({"phase": "serving_profile", "requests": N_PROFILED_REQUESTS,
+          "wall_s": wall, "device_busy_s": busy,
           "device_idle_share": 1.0 - busy / wall,
           "top_kernels_us": [[name[:80], us] for name, us in top]})
     return launches
@@ -1896,8 +1960,9 @@ def twin_args(*flags):
 
 
 def forward_flops(model, x):
-    """2 x the multiply-adds of the convolutions and linears of one
-    forward of ``x``, from their shapes (hooks on a no-grad forward)."""
+    """2 x the multiply-adds of the convolutions, transposed convolutions
+    and linears of one forward of ``x``, from their shapes (hooks on a
+    no-grad forward)."""
     from chainermn_tpu_torch.nn import links as L
     total = [0]
 
@@ -1908,10 +1973,15 @@ def forward_flops(model, x):
     def linear(link, inputs, y):
         total[0] += 2 * y.numel() * link.W.shape[1]
 
-    hooks = [m.register_forward_hook(conv if isinstance(m, L.Convolution2D)
-                                     else linear)
-             for m in model.modules()
-             if isinstance(m, (L.Convolution2D, L.Linear))]
+    def deconv(link, inputs, y):   # each input element times its taps
+        w = link.W
+        total[0] += 2 * inputs[0].numel() * w.shape[1] * w.shape[2] \
+            * w.shape[3]
+
+    kinds = {L.Convolution2D: conv, L.Deconvolution2D: deconv,
+             L.Linear: linear}
+    hooks = [m.register_forward_hook(kinds[type(m)])
+             for m in model.modules() if type(m) in kinds]
     from chainermn_tpu_torch.core.config import using_config
     try:
         with torch.no_grad(), using_config("train", False):
@@ -3570,6 +3640,441 @@ def phase_model_parallel_parity():
         fail("the process group outlived model_parallel_parity")
 
 
+# -- DCGAN (BASELINE config #5) and the multi-node checkpointer --------------
+
+def dcgan_flops_per_image(gen, dis):
+    """Training flops per image of one ``DCGANUpdater`` iteration, from
+    the layer shapes (``forward_flops``, a transposed convolution counted
+    as every input element times its kernel taps): ``3 G + 7 D``, G and
+    D one forward of the generator and of the discriminator.  The
+    generator runs one forward and one backward (2 G: input and weight
+    gradients); the discriminator two forwards and their backwards in its
+    step (2 D + 4 D) and one forward and an input-only backward through
+    the frozen net in the generator's (D + D).  At n_hidden 100 and ch
+    512: G = 0.206 and D = 0.544 GFLOP, 4.43 GFLOP an image, 221 GFLOP
+    an iteration of 50."""
+    z = gen.make_hidden(1, key=np.array([0, 0], np.uint32))
+    g = forward_flops(gen, z)
+    d = forward_flops(dis, torch.zeros(1, 3, 32, 32, device=z.device))
+    return 3 * g + 7 * d, g, d
+
+
+def dcgan_nets(device, n_hidden, ch):
+    from chainermn_tpu_torch.models import Discriminator, Generator
+    return (Generator(n_hidden=n_hidden, ch=ch, seed=0, device=device),
+            Discriminator(ch=ch, seed=100, device=device))
+
+
+def dcgan_updater(comm, gen, dis, data, batch, alpha=2e-4):
+    """The DCGAN example's updater over ``data``: each net under
+    ``create_multi_node_optimizer(Adam(alpha, beta1=0.5), comm)`` (plain
+    ``Adam`` when ``comm`` is None)."""
+    from chainermn_tpu_torch import create_multi_node_optimizer
+    from chainermn_tpu_torch.core.optimizer import Adam
+    from chainermn_tpu_torch.dataset import SerialIterator
+    from chainermn_tpu_torch.models import DCGANUpdater
+
+    def opt(net):
+        o = Adam(alpha=alpha, beta1=0.5)
+        if comm is not None:
+            o = create_multi_node_optimizer(o, comm)
+        return o.setup(net)
+
+    return DCGANUpdater(SerialIterator(data, batch, shuffle=False, seed=0),
+                        opt(gen), opt(dis))
+
+
+def seeded_noise(updater, seed):
+    """Draw the generator's noise from ``seed`` and the updater's
+    iteration, so that a resumed run draws the uninterrupted run's (the
+    snapshot carries no noise key)."""
+    from chainermn_tpu_torch.core import rng
+    gen = updater.get_optimizer("gen").target
+    draw = gen.make_hidden
+    gen.make_hidden = lambda n, key=None: draw(
+        n, rng.fold_in(rng.make_key(seed), updater.iteration))
+
+
+def dcgan_data(n):
+    from chainermn_tpu_torch.dataset import get_cifar10
+    return get_cifar10(withlabel=False, n_train=n, n_test=1)[0]
+
+
+def dcgan_layer_ms(gen, dis):
+    """Device ms of each convolution, transposed convolution and linear
+    link's forward at the input shape the main path gives it (CUDA events
+    around 20 calls, no grad)."""
+    from chainermn_tpu_torch.nn import links as L
+    inputs = {}
+    links = [(f"gen{p}", m) for p, m in gen.namedlinks(skipself=True)] + \
+        [(f"dis{p}", m) for p, m in dis.namedlinks(skipself=True)]
+    links = [(p, m) for p, m in links
+             if isinstance(m, (L.Convolution2D, L.Deconvolution2D, L.Linear))]
+    def keep(path):
+        def hook(mod, args, out):
+            inputs.setdefault(path, args[0].detach())
+        return hook
+
+    hooks = [m.register_forward_hook(keep(p)) for p, m in links]
+    try:
+        with torch.no_grad():
+            dis(gen(gen.make_hidden(DCGAN_BATCH,
+                                    key=np.array([0, 1], np.uint32))))
+    finally:
+        for h in hooks:
+            h.remove()
+    with torch.no_grad():
+        return {p: time_ms(lambda m=m, x=inputs[p]: m(x))
+                for p, m in links}
+
+
+def phase_train_dcgan():
+    """BASELINE config #5 at full width: ``Generator(100, 512)`` and
+    ``Discriminator(512)`` through the multi-node Adam of each net in a
+    world of one NCCL process, ``Trainer`` -> ``DCGANUpdater``."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator, scatter_dataset
+    from chainermn_tpu_torch.training import Trainer
+    reset_launches()
+    comm = create_communicator("pure_nccl")
+    try:
+        gen, dis = dcgan_nets("cuda", **DCGAN)
+        comm.bcast_data(gen)
+        comm.bcast_data(dis)
+        shard = scatter_dataset(dcgan_data(2 * DCGAN_BATCH), comm)
+        updater = dcgan_updater(comm, gen, dis, shard, DCGAN_BATCH)
+        trainer = Trainer(updater, (DCGAN_STEPS, "iteration"),
+                          out=os.path.join("build", "chip_smoke_dcgan"))
+        losses, marks = [], []
+
+        def record(tr):   # no sync: tensors and events, read after
+            losses.append((tr.observation["gen/loss"],
+                           tr.observation["dis/loss"]))
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+
+        trainer.extend(record, name="record")
+        comm.calls.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.run()
+        torch.cuda.synchronize()
+        launches = check_no_flash("train_dcgan")
+        calls = dict(comm.calls)
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = [start.elapsed_time(marks[0])] + [
+            a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        median_ms = float(np.median(step_ms[DCGAN_WARMUP:]))
+        flops, g_flops, d_flops = dcgan_flops_per_image(gen, dis)
+        prof = profile_steps("train_dcgan_profile", updater, top_n=12,
+                             classes_us=op_classes_us)
+        layers_ms = dcgan_layer_ms(gen, dis)
+        world = comm.size
+    finally:
+        comm.finalize()
+    losses = [[float(g), float(d)] for g, d in losses]
+    images_per_s = DCGAN_BATCH / (median_ms * 1e-3)
+    row = {"phase": "train_dcgan", **DCGAN, "batch": DCGAN_BATCH,
+           "steps": DCGAN_STEPS, "world": world,
+           "params": {"gen": gen.count_params(), "dis": dis.count_params()},
+           "step_ms": step_ms, "median_step_ms": median_ms,
+           "images_per_s": images_per_s, "iterations_per_s":
+           1e3 / median_ms, "flops_per_image": flops,
+           "gen_forward_flops": g_flops, "dis_forward_flops": d_flops,
+           "mfu_fp32_peak": flops * images_per_s
+           / PEAK_FLOPS[torch.float32],
+           "tf32": tf32_flags(), "losses": losses, "peak_bytes": peak,
+           "collectives": calls, "launches": launches,
+           "device_idle_share": prof["device_idle_share"],
+           "device_busy_ms_per_step": prof["device_busy_s"] / 3 * 1e3,
+           "layer_forward_ms": layers_ms}
+    # the profiler's own cost stretches the profiled steps' wall: the
+    # busy time a step against the unprofiled median step as well
+    row["device_idle_share_unprofiled"] = \
+        1.0 - row["device_busy_ms_per_step"] / median_ms
+    emit(row)
+    if not np.isfinite(losses).all() or len(losses) != DCGAN_STEPS:
+        fail(f"train_dcgan: losses {losses}")
+    if calls.get("allreduce_grad") != 2 * DCGAN_STEPS:
+        fail(f"train_dcgan: {calls} (one gradient allreduce per net and "
+             f"iteration)")
+    if row["params"] != {"gen": 3599363, "dis": 2660097}:
+        fail(f"train_dcgan: parameters {row['params']}")
+    if not prof["classes_us"]["convolution"]:
+        fail(f"train_dcgan: no convolution on the card: "
+             f"{prof['classes_us']}")
+    if dist.is_initialized():
+        fail("the process group outlived train_dcgan")
+    return row
+
+
+def dcgan_state(updater):
+    """Both nets' parameters, Adam leaves and running statistics, and the
+    iterator's, as the updater serializes them (host arrays)."""
+    from chainermn_tpu_torch.serializers.npz import DictionarySerializer
+    s = DictionarySerializer()
+    updater.serialize(s)
+    return s.target
+
+
+def dcgan_resume_trainer(comm, stop, out):
+    from chainermn_tpu_torch.training import Trainer
+    gen, dis = dcgan_nets("cuda", **DCGAN)
+    updater = dcgan_updater(comm, gen, dis, dcgan_data(2 * DCGAN_BATCH),
+                            DCGAN_BATCH)
+    seeded_noise(updater, seed=13)
+    return Trainer(updater, (stop, "iteration"), out=out)
+
+
+def first_difference(got, want):
+    keys = sorted(set(got) | set(want))
+    for k in keys:
+        if k not in got or k not in want \
+                or not np.array_equal(got[k], want[k]):
+            return k
+    return None
+
+
+def phase_dcgan_checkpoint():
+    """The multi-node checkpointer at full width: a snapshot's bytes and
+    its save (two of them), scan-and-verify and consensus-load times; a
+    bitwise resume
+    (8 iterations against 4, a new trainer's ``maybe_load`` and 4 more,
+    ``cudnn.deterministic`` on, the noise drawn per iteration from a
+    seed); a flipped byte in the newest snapshot makes the consensus fall
+    back a generation; the same resume through the per-rank DCP
+    sibling."""
+    import shutil
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_checkpointer)
+    from chainermn_tpu_torch.extensions import \
+        create_multi_node_orbax_checkpointer
+    reset_launches()
+    half = DCGAN_RESUME_STEPS // 2
+    base = os.path.join("build", "chip_smoke_dcgan_ckpt")
+    shutil.rmtree(base, ignore_errors=True)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    comm = create_communicator("pure_nccl")
+    try:
+        golden = dcgan_resume_trainer(comm, DCGAN_RESUME_STEPS,
+                                      os.path.join(base, "golden"))
+        golden.run()
+        want = dcgan_state(golden.updater)
+        del golden
+        # npz: a snapshot every DCGAN_SAVE_EVERY of the first 4
+        # iterations, timed
+        out = os.path.join(base, "npz")
+        first = dcgan_resume_trainer(comm, half, out)
+        cp = create_multi_node_checkpointer(comm, name="dcgan")
+        save_ms = []
+
+        def timed_save(tr):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cp(tr)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+
+        first.extend(timed_save, name="checkpoint",
+                     trigger=(DCGAN_SAVE_EVERY, "iteration"), priority=-100)
+        first.run()
+        del first
+        files = sorted(f for f in os.listdir(out) if f.startswith("dcgan."))
+        newest = os.path.join(out, f"dcgan.{half}.{cp.rank}")
+        snapshot_bytes = os.path.getsize(newest)
+        with np.load(newest) as z:
+            raw_bytes = sum(z[k].nbytes for k in z.files)
+        t0 = time.perf_counter()
+        verified = cp._scan(out)
+        scan_ms = (time.perf_counter() - t0) * 1e3
+        second = dcgan_resume_trainer(comm, DCGAN_RESUME_STEPS, out)
+        cp2 = create_multi_node_checkpointer(comm, name="dcgan")
+        t0 = time.perf_counter()
+        resumed = cp2.maybe_load(second)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        second.run()
+        npz_diff = first_difference(dcgan_state(second.updater), want)
+        del second
+        # a flipped byte in the newest snapshot: the vote falls back
+        with open(newest, "r+b") as f:
+            f.seek(snapshot_bytes // 2)
+            byte = f.read(1)
+            f.seek(snapshot_bytes // 2)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        third = dcgan_resume_trainer(comm, DCGAN_RESUME_STEPS, out)
+        cp3 = create_multi_node_checkpointer(comm, name="dcgan")
+        fallback = cp3.maybe_load(third)
+        verify_failures = cp3.stats["verify_failures"]
+        del third
+        # the DCP sibling: one snapshot after 4 iterations
+        dcp_dir = os.path.join(base, "dcp")
+        first = dcgan_resume_trainer(comm, half, os.path.join(base, "d1"))
+        dcp = create_multi_node_orbax_checkpointer(comm, dcp_dir)
+        dcp_save_ms = []
+
+        def timed_dcp_save(tr):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dcp(tr)
+            dcp_save_ms.append((time.perf_counter() - t0) * 1e3)
+
+        first.extend(timed_dcp_save, name="dcp", trigger=(half, "iteration"),
+                     priority=-100)
+        first.run()
+        del first
+        dcp_bytes = sum(os.path.getsize(os.path.join(d, f))
+                        for d, _, fs in os.walk(dcp_dir) for f in fs)
+        second = dcgan_resume_trainer(comm, DCGAN_RESUME_STEPS,
+                                      os.path.join(base, "d2"))
+        dcp2 = create_multi_node_orbax_checkpointer(comm, dcp_dir)
+        t0 = time.perf_counter()
+        dcp_resumed = dcp2.maybe_load(second)
+        torch.cuda.synchronize()
+        dcp_load_ms = (time.perf_counter() - t0) * 1e3
+        second.run()
+        dcp_diff = first_difference(dcgan_state(second.updater), want)
+        del second
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+        comm.finalize()
+    row = {"phase": "dcgan_checkpoint", **DCGAN, "batch": DCGAN_BATCH,
+           "files": files, "snapshot_bytes": snapshot_bytes,
+           "uncompressed_bytes": raw_bytes, "save_ms": save_ms,
+           "median_save_ms": float(np.median(save_ms)),
+           "scan_verify_ms": scan_ms, "verified": sorted(verified),
+           "maybe_load_ms": load_ms, "resumed": resumed,
+           "resume_bitwise": npz_diff is None, "first_difference": npz_diff,
+           "fallback": fallback, "verify_failures": verify_failures,
+           "dcp_bytes": dcp_bytes, "dcp_save_ms": dcp_save_ms,
+           "dcp_load_ms": dcp_load_ms, "dcp_resumed": dcp_resumed,
+           "dcp_resume_bitwise": dcp_diff is None,
+           "dcp_first_difference": dcp_diff,
+           "launches": check_no_flash("dcgan_checkpoint")}
+    emit(row)
+    if resumed != half or npz_diff is not None:
+        fail(f"dcgan_checkpoint: resumed from {resumed}, first difference "
+             f"from the uninterrupted run {npz_diff}")
+    if fallback != half - DCGAN_SAVE_EVERY or verify_failures != 1:
+        fail(f"dcgan_checkpoint: with the newest snapshot corrupt the "
+             f"consensus gave {fallback} ({verify_failures} failures)")
+    if dcp_resumed != half or dcp_diff is not None:
+        fail(f"dcgan_checkpoint: the DCP resume from {dcp_resumed} left "
+             f"the uninterrupted run at {dcp_diff}")
+    if dist.is_initialized():
+        fail("the process group outlived dcgan_checkpoint")
+    return row
+
+
+def phase_train_dcgan_twin():
+    """``python -m chainermn_tpu_torch.examples.train_dcgan --device
+    cuda`` at its defaults for one epoch, then again into the same ``-o``
+    for a second: it resumes from the first run's snapshot."""
+    import shutil
+    out = os.path.join("build", "chip_smoke_dcgan_twin")
+    shutil.rmtree(out, ignore_errors=True)
+    runs = []
+    for epochs in ("1", "2"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "chainermn_tpu_torch.examples.train_dcgan",
+             "--device", "cuda", "-e", epochs, "-o", out],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        runs.append({"epochs": int(epochs), "rc": proc.returncode,
+                     "wall_s": time.perf_counter() - t0,
+                     "stdout_tail": proc.stdout.strip().splitlines()[-3:],
+                     "stderr_tail": proc.stderr.strip().splitlines()[-3:]})
+        if proc.returncode != 0:
+            emit({"phase": "train_dcgan_twin", "runs": runs})
+            fail(f"train_dcgan_twin: -e {epochs} exited "
+                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        runs[-1]["stdout"] = proc.stdout
+    resumed = [line for line in runs[1].pop("stdout").splitlines()
+               if line.startswith("resumed from iteration")]
+    runs[0].pop("stdout")
+    emit({"phase": "train_dcgan_twin", "runs": runs, "resumed": resumed,
+          "files": sorted(os.listdir(out))})
+    if resumed != ["resumed from iteration 32"]:
+        fail(f"train_dcgan_twin: the second run printed {resumed}")
+
+
+def dcgan_small_run(device, comm, steps, z):
+    """The small DCGAN from seeds, ``steps`` iterations of the noise
+    ``z`` on ``device``: (losses, state)."""
+    from chainermn_tpu_torch.core import reporter
+    gen, dis = dcgan_nets(device, **DCGAN_SMALL)
+    data = np.random.RandomState(0).normal(
+        0, 0.5, (2 * DCGAN_SMALL_BATCH, 3, 32, 32)).astype(np.float32)
+    updater = dcgan_updater(comm, gen, dis, data, DCGAN_SMALL_BATCH,
+                            alpha=DCGAN_ALPHA)
+    noise = iter(z)
+    gen.make_hidden = lambda n, key=None: torch.from_numpy(
+        next(noise)).to(device)
+    losses = []
+    for _ in range(steps):
+        obs = {}
+        with reporter.Reporter().scope(obs):
+            updater.update()
+        losses.append([float(obs["gen/loss"]), float(obs["dis/loss"])])
+    return losses, dcgan_state(updater)
+
+
+def phase_dcgan_parity():
+    """The small DCGAN, TF32 off: (a) a world-of-one DP iteration bitwise
+    the plain ``Adam`` iteration (``cudnn.deterministic`` on); (b) 3
+    iterations on the card against the CPU."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    reset_launches()
+    rng = np.random.RandomState(1)
+    z = [rng.normal(0, 1, (DCGAN_SMALL_BATCH, DCGAN_SMALL["n_hidden"]))
+         .astype(np.float32) for _ in range(3)]
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    comm = create_communicator("pure_nccl")
+    try:
+        plain = dcgan_small_run("cuda", None, 1, z)
+        dp = dcgan_small_run("cuda", comm, 1, z)
+    finally:
+        torch.backends.cudnn.deterministic = flags
+        comm.finalize()
+    a_diff = first_difference(dp[1], plain[1])
+    card = dcgan_small_run("cuda", None, 3, z)
+    cpu = dcgan_small_run("cpu", None, 3, z)
+    state_err = max(float(np.abs(card[1][k] - v).max())
+                    for k, v in cpu[1].items()
+                    if v.dtype.kind == "f" and v.size)
+    loss_rel = [[abs(a - b) / abs(b) for a, b in zip(x, y)]
+                for x, y in zip(card[0], cpu[0])]
+    row = {"phase": "dcgan_parity", **DCGAN_SMALL,
+           "batch": DCGAN_SMALL_BATCH,
+           "a_bitwise_equal": a_diff is None and dp[0] == plain[0],
+           "a_first_difference": a_diff, "losses": card[0],
+           "cpu_losses": cpu[0], "loss_rel_err": loss_rel,
+           "state_abs_err": state_err, "tol": DCGAN_PARITY_TOL,
+           "launches": check_no_flash("dcgan_parity")}
+    emit(row)
+    if not row["a_bitwise_equal"]:
+        fail(f"dcgan_parity: the world-of-one DP iteration left the plain "
+             f"one at {a_diff}")
+    if loss_rel[0][1] > DCGAN_PARITY_TOL["first_dis_loss_rel"] \
+            or max(max(r) for r in loss_rel) > DCGAN_PARITY_TOL["loss_rel"] \
+            or state_err > DCGAN_PARITY_TOL["state_abs"]:
+        fail(f"dcgan_parity: the card left the CPU: losses {loss_rel}, "
+             f"state {state_err}")
+    if dist.is_initialized():
+        fail("the process group outlived dcgan_parity")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -3659,6 +4164,15 @@ def main():
     torch.cuda.empty_cache()
     phase_seq2seq_mp(seq2seq_row)
     phase_model_parallel_parity()
+    torch.cuda.empty_cache()
+    t_dcgan = time.perf_counter()
+    phase_train_dcgan()
+    torch.cuda.empty_cache()
+    phase_dcgan_checkpoint()
+    phase_train_dcgan_twin()
+    phase_dcgan_parity()
+    emit({"phase": "dcgan_phases", "seconds":
+          time.perf_counter() - t_dcgan})
 
     main_check = next(c for c in checks
                       if c["B"] == 1 and c["T"] == 1024 and c["causal"])
@@ -3694,6 +4208,7 @@ def main():
          "chainermn_tpu/ops/flash_attention.py:146"),
         ("dkv", "chainermn_tpu_torch/csrc/flash_bwd_sm90.cu",
          "chainermn_tpu/ops/flash_attention.py:187")]]})
+    emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

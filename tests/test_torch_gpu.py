@@ -10,7 +10,8 @@ exchange, and the quantization functions on the card against the CPU; the ResNet
 its fp32 step against the CPU's and its remat step against the plain
 one; and the ImageNet example's input pipeline and dropout on the card:
 the device-feed stage's batches and copy stream, masks per step and per
-seed, and the native loader's build.
+seed, and the native loader's build; the DCGAN's transposed convolution
+(cuDNN) and one DCGAN iteration on the card against the CPU.
 
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -1084,3 +1085,97 @@ def test_full_mode_ranges_hold_the_steps_device_work(cuda_device,
             "mn_stripe_rs_ici", "mn_stripe_allreduce_ici",
             "mn_stripe_allreduce_dcn", "mn_stripe_ag_dcn",
             "mn_stripe_ag_ici"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride,pad,outsize", [(1, 1, None), (2, 1, None),
+                                                (2, 1, (9, 9))])
+def test_deconvolution_on_the_card_equals_the_cpu(cuda_device, stride, pad,
+                                                  outsize):
+    """``F.deconvolution_2d`` through cuDNN against the CPU, output and
+    the three gradients, TF32 off: 1e-5 absolute (another summation
+    order)."""
+    from chainermn_tpu_torch.nn import functions as F
+    rng = np.random.RandomState(5)
+    host = [rng.normal(0, 1, (4, 16, 4, 4)).astype(np.float32),
+            rng.normal(0, 0.2, (16, 8, 4, 4)).astype(np.float32),
+            rng.normal(0, 1, (8,)).astype(np.float32)]
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for device in (cuda_device, torch.device("cpu")):
+            args = [torch.from_numpy(a).to(device).requires_grad_()
+                    for a in host]
+            y = F.deconvolution_2d(*args, stride=stride, pad=pad,
+                                   outsize=outsize)
+            g = torch.from_numpy(np.random.RandomState(6).normal(
+                0, 1, tuple(y.shape)).astype(np.float32)).to(device)
+            (y * g).sum().backward()
+            runs.append([y.detach().cpu()] + [a.grad.cpu() for a in args])
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for got, want in zip(*runs):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_dcgan_iteration_on_the_card_matches_the_cpu(cuda_device):
+    """One ``DCGANUpdater`` iteration of the CPU tests' small DCGAN (n_hidden
+    16, ch 32, batch 8, ``Adam(2e-4, beta1=0.5)``) on the card against the
+    CPU from the same seeds and noise, TF32 off.  The discriminator's
+    loss, gradients (Adam's first moment) and both nets' running
+    statistics come before any update: 1e-5.  One Adam step moves a
+    weight by at most alpha, and a gradient at the rounding-noise level
+    (the biases ahead of a batch normalization have an exact gradient of
+    0) picks its direction: parameters within 2 alpha.  The generator's
+    loss and gradients are taken through the updated discriminator:
+    1e-4 relative and 1e-3 absolute."""
+    from chainermn_tpu_torch.core import reporter
+    from chainermn_tpu_torch.core.optimizer import Adam
+    from chainermn_tpu_torch.dataset import SerialIterator
+    from chainermn_tpu_torch.models import (DCGANUpdater, Discriminator,
+                                            Generator)
+    from chainermn_tpu_torch.serializers.npz import DictionarySerializer
+    alpha = 2e-4
+    rng = np.random.RandomState(0)
+    data = rng.normal(0, 0.5, (8, 3, 32, 32)).astype(np.float32)
+    z = rng.normal(0, 1, (8, 16)).astype(np.float32)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for device in (cuda_device, torch.device("cpu")):
+            gen = Generator(n_hidden=16, ch=32, seed=0, device=device)
+            dis = Discriminator(ch=32, seed=1, device=device)
+            gen.make_hidden = lambda n, key=None, d=device: \
+                torch.from_numpy(z).to(d)
+            updater = DCGANUpdater(
+                SerialIterator(data, 8, shuffle=False),
+                Adam(alpha=alpha, beta1=0.5).setup(gen),
+                Adam(alpha=alpha, beta1=0.5).setup(dis))
+            obs = {}
+            with reporter.Reporter().scope(obs):
+                updater.update()
+            s = DictionarySerializer()
+            updater.serialize(s)
+            runs.append(({k: float(v) for k, v in obs.items()}, s.target))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    (obs, state), (ref_obs, ref_state) = runs
+    np.testing.assert_allclose(obs["dis/loss"], ref_obs["dis/loss"],
+                               rtol=1e-5)
+    np.testing.assert_allclose(obs["gen/loss"], ref_obs["gen/loss"],
+                               rtol=1e-4)
+    for key, want in ref_state.items():
+        if not key.startswith("optimizer:") or want.dtype.kind != "f":
+            continue
+        if "avg_" in key or key.startswith("optimizer:dis/opt_state"):
+            atol = 1e-5
+        elif "opt_state" in key:
+            atol = 1e-3
+        else:
+            atol = 2 * alpha
+        np.testing.assert_allclose(state[key], want, rtol=0, atol=atol,
+                                   err_msg=key)

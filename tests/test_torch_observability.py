@@ -589,11 +589,12 @@ def _data(n=32, d=12, k=3, seed=0):
             rng.randint(0, k, n).astype(np.int32))
 
 
-def _train(out, iterator, n_iter=3, updater_cls=None, **updater_kw):
-    """``test_instrumentation.py``'s ``_trainer`` (without the
-    checkpointer, ROADMAP A8), run; the world of one is torn down after
-    it."""
+def _train(out, iterator, n_iter=3, with_checkpoint=True, updater_cls=None,
+           **updater_kw):
+    """``test_instrumentation.py``'s ``_trainer``, with its checkpointer
+    every 2 iterations, run; the world of one is torn down after it."""
     from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_checkpointer,
                                      create_multi_node_optimizer)
     from chainermn_tpu_torch.core.optimizer import MomentumSGD
     from chainermn_tpu_torch.models import MLP, Classifier
@@ -606,6 +607,9 @@ def _train(out, iterator, n_iter=3, updater_cls=None, **updater_kw):
         updater_cls = updater_cls or StandardUpdater
         trainer = Trainer(updater_cls(iterator, opt, **updater_kw),
                           (n_iter, "iteration"), out=str(out))
+        if with_checkpoint:
+            trainer.extend(create_multi_node_checkpointer(
+                comm, name="obs", path=str(out)), trigger=(2, "iteration"))
         trainer.run()
         return trainer
     finally:
@@ -620,8 +624,9 @@ def test_trainer_run_produces_schema_valid_trace(events_mode, tmp_path):
     """A traced run leaves ``trace-rank0.jsonl`` in ``out``, valid under
     the port's validator and the JAX package's, with the trainer's span
     taxonomy: one ``train/optimizer_update``, ``train/grad_exchange`` and
-    ``train/input_stall`` per iteration, the per-bucket instants, and
-    the payload counter."""
+    ``train/input_stall`` per iteration, the per-bucket instants, the
+    checkpointer's ``train/checkpoint_serialize``, and the payload
+    counter."""
     import chainermn_tpu.observability as jax_obs
     from chainermn_tpu_torch.dataset import SerialIterator, TupleDataset
     x, t = _data()
@@ -634,7 +639,8 @@ def test_trainer_run_produces_schema_valid_trace(events_mode, tmp_path):
     jax_obs.validate_events(events)
     names = _span_names(events)
     assert {"train/input_stall", "train/optimizer_update",
-            "train/grad_exchange", "train/grad_exchange/bucket0"} <= names
+            "train/grad_exchange", "train/grad_exchange/bucket0",
+            "train/checkpoint_serialize"} <= names
     for name in ("train/input_stall", "train/optimizer_update",
                  "train/grad_exchange"):
         assert sum(e["name"] == name and e["ph"] == "B"
@@ -690,11 +696,12 @@ def test_input_stall_counter_every_iterator_kind_both_updaters(
 
     observed = {}
     for name, it, kw in kinds():
-        trainer = _train(tmp_path / f"std-{name}", it, n_iter=2, **kw)
+        trainer = _train(tmp_path / f"std-{name}", it, n_iter=2,
+                         with_checkpoint=False, **kw)
         observed[name] = dict(trainer.observation)
     it = SerialIterator(TupleDataset(x, t), 8, shuffle=False)
-    _train(tmp_path / "fused", it, n_iter=2, updater_cls=FusedUpdater,
-           n_fused=2)
+    _train(tmp_path / "fused", it, n_iter=2, with_checkpoint=False,
+           updater_cls=FusedUpdater, n_fused=2)
     counter = obs.registry().get("chainermn_tpu_input_stall_ms_total")
     labels = [dict(k) for k in counter.labels()]
     assert {("SerialIterator", "StandardUpdater"),

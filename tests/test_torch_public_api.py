@@ -12,8 +12,7 @@ import chainermn_tpu_torch as ct
 from tests.test_public_api import MODULES, TOP_LEVEL
 
 #: top-level names still to port, by ROADMAP item
-NOT_PORTED = {"create_multi_node_checkpointer": "A8",
-              "rescatter_dataset": "A11",
+NOT_PORTED = {"rescatter_dataset": "A11",
               "Parameter": "A3", "Sequential": "A3"}
 
 
@@ -65,19 +64,23 @@ NOT_PORTED_IN = {
     "parallel": {"ring_self_attention": "A9", "ring_attention": "A9",
                  "ulysses_attention": "A9", "switch_moe": "A9",
                  "moe_dispatch_combine": "A9"},
-    "models": {"Generator": "A8", "Discriminator": "A8",
-               "DCGANUpdater": "A8", "MoETransformerLM": "A9"},
+    "models": {"MoETransformerLM": "A9"},
+    "extensions": {"FailureRecovery": "A11", "RecoveryGivingUp": "A11",
+                   "ElasticRecovery": "A11", "ElasticConfigError": "A11",
+                   "create_elastic_membership": "A11",
+                   "global_batch_plan": "A11"},
 }
 
 
 @pytest.mark.parametrize("module", ["functions", "links", "parallel",
-                                    "models"])
+                                    "models", "extensions"])
 def test_model_parallel_surfaces(module):
-    """The JAX package's ``functions``, ``links``, ``parallel`` and
-    ``models`` names: every one the port has resolves (the
-    point-to-point functions, ``MultiNodeChainList``,
-    ``ParallelConvolution2D``, the pipelines, the mesh, ``Seq2seq``), and
-    the rest are listed by the ROADMAP item that ports them."""
+    """The JAX package's ``functions``, ``links``, ``parallel``,
+    ``models`` and ``extensions`` names: every one the port has resolves
+    (the point-to-point functions, ``MultiNodeChainList``,
+    ``ParallelConvolution2D``, the pipelines, the mesh, ``Seq2seq``, the
+    DCGAN, the checkpointers), and the rest are listed by the ROADMAP
+    item that ports them."""
     names = MODULES[f"chainermn_tpu.{module}"]
     mod = importlib.import_module(f"chainermn_tpu_torch.{module}")
     pending = NOT_PORTED_IN.get(module, {})
@@ -98,3 +101,19 @@ def test_rnn_functions_and_links():
         assert name in L_LINKS and getattr(ct.L, name) is not None
     from chainermn_tpu_torch.nn import rnn
     assert ct.L.NStepLSTM is rnn.NStepLSTM
+
+
+def test_dcgan_functions_and_links():
+    """``F.leaky_relu``, ``F.sigmoid_cross_entropy``,
+    ``F.deconvolution_2d`` and ``L.Deconvolution2D`` are on the port's
+    ``F`` and ``L`` as on the JAX package's, and the checkpointer is the
+    extension module's."""
+    import chainermn_tpu as jct
+    from tests.test_public_api import F_FUNCTIONS, L_LINKS
+    for name in ("sigmoid_cross_entropy", "deconvolution_2d"):
+        assert name in F_FUNCTIONS and callable(getattr(ct.F, name))
+    assert callable(jct.F.leaky_relu) and callable(ct.F.leaky_relu)
+    assert "Deconvolution2D" in L_LINKS and ct.L.Deconvolution2D is not None
+    from chainermn_tpu_torch.extensions import checkpoint
+    assert ct.create_multi_node_checkpointer \
+        is checkpoint.create_multi_node_checkpointer
