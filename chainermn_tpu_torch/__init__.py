@@ -48,7 +48,11 @@ on cuDNN) trains with the multi-node checkpointer
 (:func:`create_multi_node_checkpointer`: per-rank snapshots, SHA-256
 sidecars, consensus resume; its per-rank DCP sibling in
 :mod:`.extensions.orbax_checkpoint`) and the fail-stop except hook
-(:mod:`.global_except_hook`).
+(:mod:`.global_except_hook`).  Sequence parallelism (ring attention with
+the naive and zigzag schedules, Ulysses) shards a long sequence over the
+ranks (``TransformerLM(sp_comm=...)``), and the mixture of experts routes
+tokens to one expert a rank over all-to-all, two-stage on a hierarchical
+communicator (:mod:`.parallel`, :class:`~.models.MoETransformerLM`).
 """
 
 from . import (functions, global_except_hook, links, observability,
@@ -56,7 +60,7 @@ from . import (functions, global_except_hook, links, observability,
 from ._device import resolve_device
 from .communicators import (CommunicatorBase, DummyCommunicator,
                             MeshCommunicator, create_communicator)
-from .core import Chain, ChainList, Link, report, using_config
+from .core import Chain, ChainList, Link, Parameter, report, using_config
 from .datasets import (create_empty_dataset, get_n_iterations_for_one_epoch,
                        scatter_dataset, scatter_index)
 from .evaluators import create_multi_node_evaluator
@@ -73,6 +77,6 @@ __all__ = ["functions", "links", "observability", "parallel", "utils", "resolve_
            "create_empty_dataset", "scatter_index",
            "get_n_iterations_for_one_epoch", "create_multi_node_iterator",
            "create_synchronized_iterator", "create_multi_node_checkpointer",
-           "Link", "Chain", "ChainList", "report", "using_config", "F", "L"]
+           "Parameter", "Link", "Chain", "ChainList", "report", "using_config", "F", "L"]
 
 global_except_hook._add_hook_if_enabled()

@@ -138,9 +138,10 @@ def create_communicator(communicator_name="jax_ici", device=None,
     if name not in _NAMES:
         raise ValueError(
             f"unknown communicator {name!r}; choose from {_NAMES}")
-    if name in ("hierarchical", "two_dimensional") \
-            and os.environ.get("CHAINERMN_TPU_HIERARCHY", "") \
-            .strip().lower() in ("flat", "off", "0"):
+    flattened = name in ("hierarchical", "two_dimensional") \
+        and os.environ.get("CHAINERMN_TPU_HIERARCHY", "") \
+        .strip().lower() in ("flat", "off", "0")
+    if flattened:
         # the escape hatch: the flat one-hop exchange, split dropped
         intra_size = inter_size = None
         if isinstance(allreduce_grad_dtype, dict):
@@ -204,6 +205,11 @@ def create_communicator(communicator_name="jax_ici", device=None,
                             intra_size=intra_size, inter_size=inter_size,
                             error_feedback=error_feedback,
                             stripe_ratio=stripe_ratio)
+    if flattened:
+        # the hatch degraded a requested hierarchy: the MoE dispatch
+        # warns when it drops its two-stage exchange on this mark (a
+        # communicator that was never hierarchical never warns)
+        comm._hierarchy_flattened_by_env = True
     if name == "single_node" and comm.inter_size != 1:
         raise ValueError("single_node communicator requires one host "
                          f"(the ranks span {comm.inter_size} hosts)")
@@ -231,10 +237,30 @@ def _apply_autotune(comm, autotune):
 
 
 #: per-hop dicts and stripe ratios already warned about under the flat
-#: escape hatch (once each: a loop that builds communicators must not
-#: repeat it)
+#: escape hatch, and whether the MoE two-stage drop was (once each: a
+#: loop that builds communicators must not repeat it)
 _WARNED_FLAT_DICTS = set()
 _WARNED_FLAT_STRIPES = set()
+_WARNED_FLAT_TWO_STAGE = set()
+
+
+def _warn_hierarchy_flat_two_stage_dropped():
+    """``CHAINERMN_TPU_HIERARCHY=flat`` is set and an MoE dispatch that
+    would have run the two-stage (intra-node, then inter-node) token
+    exchange runs the flat single all-to-all instead.  Once a process
+    (``parallel.moe`` calls it when it resolves the dispatch: the factory
+    cannot know that a communicator will carry MoE traffic)."""
+    if _WARNED_FLAT_TWO_STAGE:
+        return
+    _WARNED_FLAT_TWO_STAGE.add(True)
+    warnings.warn(
+        "CHAINERMN_TPU_HIERARCHY=flat drops two-stage MoE routing: the "
+        "flat one-axis alias has a single fabric, so token dispatch "
+        "runs the flat single-axis all_to_all (on-host tokens ride the "
+        "same collective as off-host ones and the DCN crossing cannot "
+        "be compressed separately).  Unset CHAINERMN_TPU_HIERARCHY to "
+        "restore the two-stage ici × dcn dispatch.",
+        UserWarning, stacklevel=4)
 
 
 def _warn_hierarchy_flat_stripe_dropped(stripe_ratio):

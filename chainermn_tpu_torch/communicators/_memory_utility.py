@@ -2,7 +2,8 @@
 
 The port of the pure parts of ``chainermn_tpu.communicators._memory_utility``:
 :func:`tree_pack`/:func:`tree_unpack`, :func:`plan_buckets`,
-:func:`hop_schedule` (its ``"hierarchical"`` and ``"striped"`` modes),
+:func:`hop_schedule` (its ``"hierarchical"``, ``"striped"`` and ``"moe"``
+modes),
 the striped split (:func:`stripe_plan`, :func:`derived_stripe_ratio`,
 :func:`stripe_plan_from_measurement`), the measured bucket bound
 (:func:`derived_bucket_bytes`), :func:`pad_to_multiple`,
@@ -10,12 +11,13 @@ the striped split (:func:`stripe_plan`, :func:`derived_stripe_ratio`,
 the sharded update's flat layout (:func:`padded_length`,
 :func:`chunk_bounds`, :func:`chain_chunk_index`), the quantized wire
 (:func:`quantize_symmetric` and its inverse, the error-feedback residual,
-:func:`dequantize_sum`) and the wire-byte accounting
+:func:`dequantize_sum`, the MoE crossing's per-segment
+:func:`quantize_symmetric_segments`) and the wire-byte accounting
 (:func:`exchanged_bytes`, :func:`hierarchical_exchanged_bytes`,
-:func:`striped_exchanged_bytes`, :func:`quantized_hop_bytes`).
+:func:`striped_exchanged_bytes`, :func:`quantized_hop_bytes`,
+:func:`moe_dispatch_exchanged_bytes`).
 A "tree" here is a sequence of tensors (the port's gradients are
-``Parameter.grad`` tensors, not a pytree).  The MoE schedule and byte
-accounting wait for ROADMAP A9.
+``Parameter.grad`` tensors, not a pytree).
 """
 
 from __future__ import annotations
@@ -30,10 +32,10 @@ __all__ = ["pack_params", "unpack_params", "tree_pack", "tree_unpack",
            "plan_buckets", "hop_schedule", "pad_to_multiple",
            "resolve_grad_dtype", "is_quantized_dtype", "QUANTIZED_DTYPES",
            "quantize_symmetric", "dequantize_symmetric",
-           "quantization_residual", "quantize_with_feedback",
+           "quantize_symmetric_segments", "quantization_residual", "quantize_with_feedback",
            "dequantize_sum", "exchanged_bytes",
            "hierarchical_exchanged_bytes", "striped_exchanged_bytes",
-           "quantized_hop_bytes", "padded_length", "chunk_bounds",
+           "quantized_hop_bytes", "moe_dispatch_exchanged_bytes", "padded_length", "chunk_bounds",
            "chain_chunk_index", "stripe_plan",
            "derived_stripe_ratio", "stripe_plan_from_measurement",
            "derived_bucket_bytes", "DEFAULT_BUCKET_MB", "DEFAULT_STRIPE_RATIO"]
@@ -144,12 +146,28 @@ def hop_schedule(n_buckets, mode="hierarchical"):
     order, and both paths' scatters and exchanges of every bucket come
     before any gather.
 
-    The ``"moe"`` schedule comes with its caller (ROADMAP A9)."""
+    ``"moe"``: the two-stage token exchange of ``parallel.moe``, one
+    "bucket" per MoE layer's dispatch buffer.  Per bucket
+    ``"ici_dispatch"`` (fast hop: tokens regroup by destination slot
+    within the node, so tokens whose expert is on the node finish here),
+    then ``"dcn_dispatch"`` (slow hop: only the off-node remainder
+    crosses); then per bucket the combine, the transposed reverse with
+    the slow hop first: ``"dcn_combine"``, ``"ici_combine"``.  The two
+    stages act on disjoint buffer dimensions, so the order is a schedule
+    choice with the same result."""
     if n_buckets < 0:
         raise ValueError(f"n_buckets must be >= 0, got {n_buckets}")
-    if mode not in ("hierarchical", "striped"):
+    if mode not in ("hierarchical", "striped", "moe"):
         raise ValueError(f"unknown hop_schedule mode {mode!r}")
     schedule = []
+    if mode == "moe":
+        for b in range(n_buckets):
+            schedule.append(("ici_dispatch", b))
+            schedule.append(("dcn_dispatch", b))
+        for b in range(n_buckets):
+            schedule.append(("dcn_combine", b))
+            schedule.append(("ici_combine", b))
+        return schedule
     if mode == "striped":
         for b in range(n_buckets):
             schedule.append(("dcn_path_scatter", b))
@@ -319,6 +337,18 @@ def dequantize_symmetric(q, scale):
     return q.float() * scale
 
 
+def quantize_symmetric_segments(v, wire_dtype):
+    """Per-segment symmetric quantization along the leading axis: one
+    :func:`quantize_symmetric` per ``v[i]`` (the JAX function maps it
+    over the axis), so each destination block of the MoE crossing takes
+    its own scale and a hot block cannot flatten a quiet one's
+    codewords.  Returns ``(q [S, ...], scales [S])``; bitwise the JAX
+    function's, segment by segment."""
+    pairs = [quantize_symmetric(seg, wire_dtype) for seg in v.unbind(0)]
+    return (torch.stack([q for q, _ in pairs]),
+            torch.stack([s for _, s in pairs]))
+
+
 def quantization_residual(v, q, scale):
     """The error-feedback residual ``v - Q(v)``, 0 wherever ``v`` (or the
     difference) is not finite: carrying inf or NaN forward would poison
@@ -455,6 +485,27 @@ def quantized_hop_bytes(chunk_elems, size, collective, wire_dtype):
     if collective == "reduce_scatter":
         return int(n_bytes * (size - 1) / size)
     raise ValueError(f"unknown quantized collective {collective!r}")
+
+
+def moe_dispatch_exchanged_bytes(n_bytes, intra_size, inter_size,
+                                 two_stage=True, dcn_n_bytes=None):
+    """Per-replica wire bytes of one MoE layer's token exchange, the
+    dispatch and combine round trip on an ``n_bytes`` capacity buffer
+    (``[E, C, D]`` at the wire dtype).  Two-stage: an all-to-all over the
+    intra-node group each way (``n (intra-1)/intra``) and one over the
+    inter-node group each way carrying the off-node remainder (``n
+    (inter-1)/inter``; ``dcn_n_bytes`` prices a compressed slow crossing,
+    the per-segment scales left out): ``{"ici", "dcn"}``.  Flat: one
+    all-to-all each way over all ``intra * inter`` ranks:
+    ``{"world"}``."""
+    if two_stage:
+        ici = exchanged_bytes(n_bytes, intra_size, "all_to_all")
+        dcn = exchanged_bytes(
+            n_bytes if dcn_n_bytes is None else dcn_n_bytes,
+            inter_size, "all_to_all")
+        return {"ici": 2 * ici, "dcn": 2 * dcn}
+    return {"world": 2 * exchanged_bytes(n_bytes, intra_size * inter_size,
+                                         "all_to_all")}
 
 
 def pack_params(params, attr="grad", dtype=None):

@@ -423,6 +423,15 @@ class MeshCommunicator(CommunicatorBase):
         plan's ``axis`` label and artifact name)."""
         return self.hierarchy if self.hierarchy is not None else "mn_world"
 
+    def axis_in_scope(self):
+        """The JAX query "are this communicator's mesh axes bound here?",
+        which its model code asks before taking a parallel layer's
+        collective path.  A rank of the port is a process inside its
+        world, so it is True while the process group is up; layers never
+        fall back to a single-device path on a communicator of the
+        port."""
+        return dist.is_initialized()
+
     @property
     def rank(self):
         return dist.get_rank(self.group)

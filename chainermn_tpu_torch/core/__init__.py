@@ -1,5 +1,5 @@
 from .config import config, global_config, using_config
-from .link import Chain, ChainList, Link
+from .link import Chain, ChainList, Link, Parameter
 from .optimizer import (SGD, AdaDelta, AdaGrad, Adam, AdamW, GradientClipping,
                         GradientHardClipping, GradientMethod, GradientScaling,
                         Lasso, MomentumSGD, NesterovAG, Optimizer, RMSprop,
@@ -7,7 +7,7 @@ from .optimizer import (SGD, AdaDelta, AdaGrad, Adam, AdamW, GradientClipping,
 from .reporter import (DictSummary, Reporter, Summary, get_current_reporter,
                        report, report_scope)
 
-__all__ = ["Link", "Chain", "ChainList", "Optimizer", "GradientMethod",
+__all__ = ["Parameter", "Link", "Chain", "ChainList", "Optimizer", "GradientMethod",
            "SGD", "MomentumSGD", "NesterovAG", "Adam", "AdamW", "RMSprop",
            "AdaGrad", "AdaDelta", "WeightDecay", "Lasso", "GradientClipping",
            "GradientHardClipping", "GradientScaling", "Reporter", "report",

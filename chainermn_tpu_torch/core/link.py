@@ -22,7 +22,47 @@ import torch
 from torch import nn
 from torch.nn.parameter import is_lazy
 
-__all__ = ["Link", "Chain", "ChainList"]
+__all__ = ["Parameter", "Link", "Chain", "ChainList"]
+
+
+class Parameter(nn.Parameter):
+    """A trainable array (``chainer.Parameter``; the JAX package's
+    ``Parameter(array, name=None)``): a ``torch.nn.Parameter`` made from
+    a host array (or a tensor) on ``device``, fp32 as given.  A link that
+    holds raw parameters (the MoE layer's expert bank) assigns them as
+    attributes, and their paths are the attribute names, as in the JAX
+    package.  ``array`` is the tensor itself; the gradient is ``.grad``.
+    ``name`` is kept as ``param_name`` (a tensor's ``name`` is torch's
+    named-dimension attribute)."""
+
+    def __new__(cls, array=None, name=None, device=None,
+                requires_grad=True):
+        if array is None:
+            data = torch.empty(0, device=device)
+        elif isinstance(array, torch.Tensor):
+            data = array.detach().to(device)
+        else:
+            data = torch.from_numpy(np.array(array)).to(device)
+        self = super().__new__(cls, data, requires_grad)
+        self.param_name = name
+        return self
+
+    def __deepcopy__(self, memo):
+        if id(self) not in memo:
+            memo[id(self)] = type(self)(
+                self.data.clone(memory_format=torch.preserve_format),
+                name=self.param_name, requires_grad=self.requires_grad)
+        return memo[id(self)]
+
+    @property
+    def array(self):
+        return self
+
+    def cleargrad(self):
+        self.grad = None
+
+    def zerograd(self):
+        self.grad = torch.zeros_like(self)
 
 
 def _copy_array(dst, data, name):

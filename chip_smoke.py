@@ -274,8 +274,44 @@ Phases, each printing one JSON line:
     ``Adam`` iteration (``cudnn.deterministic`` on); (b) 3 iterations on
     the card against the CPU within ``DCGAN_PARITY_TOL``.  The flash
     kernels' counts stay 0 in phases 34-37, whose seconds are printed
-    together (``dcgan_phases``), and the script's (``total``) after
-    them.
+    together (``dcgan_phases``);
+38. train_sp: the LM of phase 7 (``MODEL``, bf16, batch 8 x T 1024, Adam
+    alpha 3e-4 through ``create_multi_node_optimizer`` over NCCL in a
+    world of one) without sequence parallelism, then through
+    ``TransformerLM(sp_comm=..., sp_mode=...)`` for ``ring`` (one
+    diagonal block), ``zigzag`` (three half-blocks merged) and
+    ``ulysses`` (an identity all-to-all), 6 steps each on the same seeded
+    weights (checked bitwise) and batches, then 2 profiled: step ms,
+    tokens/s, MFU, idle share, peak memory, launches (12 lse forwards,
+    backwards and delta passes a step, 36 for zigzag; the no-grad forward
+    0), each mode's losses against the non-SP run's, and its first step
+    on the first batch (last hidden states and every gradient) against
+    the non-SP model's;
+39. ring_replay: a 4-rank ring over one sequence (B 2, H 12, D 64, T
+    4096: chunks of 1024, half-chunks of 512; bf16, causal) replayed in
+    one process (``parallel.ring_attention._ring_replay``: every rank's
+    chunk against every step's KV chunk, merged), for the naive and
+    zigzag schedules, with the fused and then the split backward, and
+    one ``_FlashDiff`` call over the whole sequence: out, dq, dk, dv
+    against the plain attention on the card (fp32, autograd) in segments
+    of 512 rows, each in the 2-norm relative to its own, and the
+    launches; then
+    each branch's kernels at its chunk shapes (device us of the lse
+    forward, the fused backward, the dq and dk/dv passes, each beside its
+    bound, timed after phase 6: late profiles miss launches);
+40. train_moe: bench.py's MoE vertical (``MoETransformerLM(32768, d 512,
+    8 heads, 6 layers, T 512, capacity factor 1.25, top-1, bf16)``,
+    batch 8, Adam alpha 3e-4 through the multi-node optimizer) on the
+    dispatch route over NCCL in a world of one (one expert), 8 steps then
+    2 profiled: tokens/s, MFU, idle share, peak memory, ``moe_aux`` (1)
+    and ``moe_dropped`` (0) each step, the all-to-alls and the
+    attention's launches;
+41. sp_moe_parity: the CPU tests' small models at head width 64, fp32,
+    TF32 off: the SP LM in each mode, the MoE LM's dispatch and its dense
+    route with 4 experts, 3 SGD steps on the card against the CPU (a gloo
+    group beside the NCCL world) within ``SP_PARITY_TOL``.  The seconds
+    of phases 38-41 are printed together (``sp_moe_phases``), and the
+    script's (``total``) after them.
 
 Then the kernels line (launches, error, times, the whole call's device
 time and bound of all five kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
@@ -283,6 +319,7 @@ exits non-zero before the last line.  Needs one CUDA card; fails without
 one.
 """
 
+import collections
 import importlib
 import json
 import os
@@ -506,10 +543,14 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn):
-    """Run ``fn`` under ``torch.profiler``: wall seconds, the device's
-    busy seconds (union of kernel intervals) and per-kernel device
-    microseconds by name."""
+#: how many of kernel_device_ms's profiles missed how many launches of
+#: their kernel (``{missed: profiles}``), reported in the last row
+PROFILE_MISSED = collections.Counter()
+
+
+def profiled(fn):
+    """``(prof, wall seconds of fn)`` with ``fn`` run under
+    ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -518,6 +559,14 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def device_profile(fn):
+    """Run ``fn`` under ``torch.profiler``: wall seconds, the device's
+    busy seconds (union of kernel intervals) and per-kernel device
+    microseconds by name."""
+    prof, wall = profiled(fn)
     busy, by_name = profile_summary(prof)
     return wall, busy, by_name
 
@@ -575,12 +624,23 @@ def kernel_base_name(name):
 
 def kernel_device_ms(fn, kernel, iters=20):
     """Mean device time of one kernel alone (profiler), without the
-    host-side cost of each call that the event timing includes."""
+    host-side cost of each call that the event timing includes.  ``fn``
+    launches ``kernel`` once a call.  A profile can miss launches at the
+    start of its window (on the H100 0-2 early in this script, up to
+    every launch after phases 1-37), so the window opens with ``warm``
+    more calls and the time is the mean of the kernel's last ``iters``
+    events; None (not measured) when fewer were recorded."""
+    warm = 4
     fn()
-    _, _, by_name = device_profile(lambda: [fn() for _ in range(iters)])
-    us = sum(t for name, t in by_name.items()
-             if kernel_base_name(name) == kernel)
-    return us / iters * 1e-3 if us else None
+    prof, _ = profiled(lambda: [fn() for _ in range(warm + iters)])
+    events = sorted((e.time_range.start, e.time_range.end - e.time_range.start)
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and kernel_base_name(e.name) == kernel)
+    PROFILE_MISSED[warm + iters - len(events)] += 1
+    if len(events) < iters:
+        return None
+    return sum(us for _, us in events[-iters:]) / iters * 1e-3
 
 
 def device_ops_us(fn, iters=20):
@@ -1069,11 +1129,12 @@ def expected_launches(**counts):
     return {key: counts.get(key, 0) for key in LAUNCH_COUNTERS}
 
 
-def train_rows():
+def train_rows(n_vocab=MODEL["n_vocab"], n_rows=TRAIN_ROWS,
+               T=MODEL["max_len"], seed=0):
     """bench.py's transformer data, cut: 16 random token rows (numpy seed
     0) and their next-token targets, repeating every 2 steps."""
-    rows = np.random.RandomState(0).randint(
-        0, MODEL["n_vocab"], (TRAIN_ROWS, MODEL["max_len"])).astype(np.int64)
+    rows = np.random.RandomState(seed).randint(
+        0, n_vocab, (n_rows, T)).astype(np.int64)
     return rows, [(x, np.roll(x, -1)) for x in rows]
 
 
@@ -4075,6 +4136,491 @@ def phase_dcgan_parity():
         fail("the process group outlived dcgan_parity")
 
 
+
+# -- sequence parallelism and the mixture of experts (ROADMAP A9) -------------
+
+#: phase 38: the non-SP run and each SP mode, 6 steps each (the first a
+#: warm-up) then 2 profiled
+SP_MODES = ("ring", "zigzag", "ulysses")
+SP_STEPS, SP_PROFILED = 6, 2
+#: an SP mode's losses against the non-SP run's on the same weights and
+#: batches, relative: bf16 activations; zigzag merges three half-blocks
+#: in fp32 and rounds once where the plain call rounds one block, and the
+#: fused backward's dq adds its tiles in a varying order, so the runs part
+#: by a few bf16 ulps (2^-8 relative) over 6 Adam steps
+SP_LOSS_RTOL = 1e-2
+#: an SP mode's first step on the first batch against the non-SP model's
+#: on the same weights, as ``rel_norm``: the last hidden states, and each
+#: parameter's gradient (the worst parameter).  On random next tokens the
+#: loss cannot tell a broken attention; these can (the qkv weights'
+#: gradients flow only through it).  Beside them the non-SP step run again
+#: (the fused backward adds dq in a varying order, and 12 bf16 layers
+#: spread that: on the H100 it read 8.1e-3 on the gradients, the SP modes
+#: 8.1e-3 to 1.1e-2, zigzag's hidden states 6.8e-3) and the non-SP step
+#: with the mask off, what a wrong attention reads (0.31 and 0.97)
+SP_FIRST_STEP_TOL = {"hidden": 3e-2, "grad": 5e-2}
+#: phase 39: a 4-rank ring over one sequence of T 4096 (chunks of 1024,
+#: half-chunks of 512), B 2, H 12, D 64, bf16, causal
+REPLAY = dict(B=2, H=12, T=4096, D=64, n=4)
+#: the replay, and one kernel call over the whole sequence, against the
+#: plain attention on the card (fp32 on the upcast inputs, autograd), in
+#: segments of REPLAY_SEGMENT rows, each as ``rel_norm`` (the 2-norm of
+#: the error over the segment's): out is rounded to bf16 once (2^-9 of
+#: each value at most); dq, dk, dv leave each block's kernel in bf16 and
+#: autograd adds up to n = 4 of them in bf16.  A segment that a branch
+#: left at zero reads 1
+REPLAY_TOL = {"out": 1e-2, "grad": 1e-2}
+REPLAY_SEGMENT = 512
+#: each ring branch's kernel calls at the replay's shapes: (Tq, Tk, causal)
+REPLAY_BRANCHES = {
+    "naive": {"dense": [(1024, 1024, False)], "diag": [(1024, 1024, True)]},
+    "zigzag": {"past": [(1024, 512, False)], "future": [(512, 1024, False)],
+               "diagonal": [(512, 512, True), (512, 512, False),
+                            (512, 512, True)]}}
+#: the replay's lse-forward launches (= backward calls): naive, every
+#: rank's live steps (1 + 2 + 3 + 4); zigzag, 3 for the diagonal and 1
+#: for each of the other 3 steps on every rank
+REPLAY_CALLS = {"naive": 10, "zigzag": 24}
+#: phase 40: bench.py's MoE vertical (BENCH_MODEL=moe: vocab 32768, d 512,
+#: heads of 64, 6 layers, seq 512, capacity factor 1.25, top-1, bf16,
+#: Adam 3e-4, batch 8 a chip) in a world of one: one expert
+MOE = dict(n_vocab=32768, d_model=512, n_heads=8, n_layers=6, max_len=512,
+           capacity_factor=1.25, topk=1, seed=0)
+MOE_BATCH, MOE_STEPS, MOE_PROFILED = 8, 8, 2
+#: phase 41: the CPU tests' small models at the head width the kernels
+#: take (64), fp32, TF32 off, 3 SGD steps on the card against the CPU:
+#: losses relative and parameters absolute (the kernels sum and take exp
+#: in another order than the plain versions)
+SP_SMALL = dict(n_vocab=50, d_model=128, n_heads=2, n_layers=2, max_len=32,
+                seed=7)
+MOE_SMALL = dict(n_vocab=64, d_model=128, n_heads=2, n_layers=2, max_len=16,
+                 seed=0)
+SMALL_LR = 0.5
+SP_PARITY_TOL = {"loss_rel": 1e-4, "param_abs": 1e-4}
+
+
+def lm_batches(n_vocab, rows, T, batch, device="cuda", seed=0):
+    """:func:`train_rows` at another size, as ``batch``-row batches on
+    ``device``."""
+    x, pairs = train_rows(n_vocab, rows, T, seed)
+    t = np.stack([target for _, target in pairs])
+    return [(torch.from_numpy(x[i:i + batch]).to(device),
+             torch.from_numpy(t[i:i + batch]).to(device))
+            for i in range(0, rows, batch)]
+
+
+def observed_steps(opt, model, batches, steps, keys=("main/loss",)):
+    """``steps`` updates of ``opt`` over ``batches`` in turn, with the
+    model's reports collected and CUDA events after each step (no host
+    sync in the loop), the launch counts and peak memory read around the
+    run alone: ``(step_ms, {key: values}, peak_bytes, launches)``."""
+    from chainermn_tpu_torch.core import reporter
+    rep = reporter.Reporter()
+    rep.add_observer("main", model)
+    seen, marks = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(steps):
+        obs = {}
+        with rep.scope(obs):
+            opt.update(model, *batches[i % len(batches)])
+        seen.append(obs)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    step_ms = [start.elapsed_time(marks[0])] + [
+        a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return (step_ms, {k: [float(o[k]) for o in seen] for k in keys},
+            torch.cuda.max_memory_allocated(), launches)
+
+
+def lm_step_row(step_ms, tokens, flops_tok, peak, launches, wall, busy):
+    median_ms = float(np.median(step_ms[1:]))
+    tokens_per_s = tokens / (median_ms * 1e-3)
+    return {"step_ms": step_ms, "median_step_ms": median_ms,
+            "tokens_per_s": tokens_per_s, "flops_per_token": flops_tok,
+            "mfu": flops_tok * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
+            "device_idle_share": 1.0 - busy / wall, "peak_bytes": peak,
+            "launches": launches}
+
+
+def rel_norm(got, ref):
+    """``|got - ref| / |ref|`` in the 2-norm over all elements."""
+    ref = ref.float()
+    return ((got.float() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def first_step(model, x, t, causal=True):
+    """The model's last hidden states, loss and parameter gradients on one
+    batch (the loss as ``TransformerLM.forward`` takes it); the gradients
+    cleared after.  ``causal=False`` runs the non-SP attention unmasked."""
+    from chainermn_tpu_torch.models import transformer as tm
+    from chainermn_tpu_torch.nn import functions as F
+    B, T = x.shape
+    masked = tm.fused_attention
+    if not causal:
+        tm.fused_attention = lambda q, k, v, causal: masked(q, k, v)
+    try:
+        h = model.hidden(x)
+    finally:
+        tm.fused_attention = masked
+    loss = F.softmax_cross_entropy(model.head(h.reshape(B * T, -1)),
+                                   t.reshape(-1), ignore_label=-1)
+    loss.backward()
+    grads = {p: a.grad.detach().clone() for p, a in model.namedparams()}
+    model.cleargrads()
+    return h.detach(), loss.item(), grads
+
+
+def first_step_errs(step, ref):
+    """:func:`first_step` against another: the loss's absolute error,
+    ``rel_norm`` of the hidden states and of the worst parameter's
+    gradient, and that parameter."""
+    h, loss, grads = step
+    worst = max(ref[2], key=lambda p: rel_norm(grads[p], ref[2][p]))
+    return {"first_loss_abs_err": abs(loss - ref[1]),
+            "first_hidden_err": rel_norm(h, ref[0]),
+            "first_grad_err": rel_norm(grads[worst], ref[2][worst]),
+            "first_grad_worst": worst}
+
+
+def phase_train_sp():
+    """Phase 38: the full-width LM through ``TransformerLM(sp_comm=...)``
+    in each SP mode over NCCL in a world of one, beside the non-SP model
+    on the same seeded weights and batches."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer)
+    from chainermn_tpu_torch.core.optimizer import Adam
+    from chainermn_tpu_torch.models import TransformerLM
+    n_layers, T = MODEL["n_layers"], MODEL["max_len"]
+    batches = lm_batches(MODEL["n_vocab"], TRAIN_ROWS, T, TRAIN_BATCH)
+    flops_tok = transformer_flops_per_token(
+        MODEL["d_model"], n_layers, MODEL["n_vocab"], T)
+    comm = create_communicator("pure_nccl")
+    rows = {}
+    try:
+        runs = [("plain", None)] + [(m, m) for m in SP_MODES]
+        first = ref0 = None
+        for label, mode in runs:
+            kw = {} if mode is None else dict(sp_comm=comm, sp_mode=mode)
+            model = TransformerLM(compute_dtype=torch.bfloat16,
+                                  device="cuda", **MODEL, **kw)
+            if first is None:
+                first = {p: a.detach().clone()
+                         for p, a in model.namedparams()}
+            same = all(torch.equal(a, first[p])
+                       for p, a in model.namedparams())
+            step0 = first_step(model, *batches[0])
+            if ref0 is None:
+                ref0, step0_errs = step0, {
+                    "first_step_again": first_step_errs(
+                        first_step(model, *batches[0]), step0),
+                    "first_step_unmasked": first_step_errs(
+                        first_step(model, *batches[0], causal=False), step0)}
+            else:
+                step0_errs = first_step_errs(step0, ref0)
+            del step0
+            opt = create_multi_node_optimizer(Adam(alpha=3e-4),
+                                              comm).setup(model)
+            step_ms, seen, peak, launches = observed_steps(
+                opt, model, batches, SP_STEPS)
+            wall, busy, _ = device_profile(lambda: [
+                opt.update(model, *batches[i % 2])
+                for i in range(SP_PROFILED)])
+            rows[label] = {"mode": mode, "same_initial_weights": same,
+                           **step0_errs, "losses": seen["main/loss"],
+                           **lm_step_row(step_ms, TRAIN_BATCH * T, flops_tok,
+                                         peak, launches, wall, busy)}
+            del model, opt
+            torch.cuda.empty_cache()
+    finally:
+        comm.finalize()
+    del ref0
+    ref = rows["plain"]["losses"]
+    for label in SP_MODES:
+        rows[label]["loss_rel_err"] = max(
+            abs(a - b) / abs(b) for a, b in zip(rows[label]["losses"], ref))
+    emit({"phase": "train_sp", "batch": TRAIN_BATCH, "T": T,
+          "steps": SP_STEPS, "tol": SP_LOSS_RTOL,
+          "first_step_tol": SP_FIRST_STEP_TOL, **rows})
+    for label, row in rows.items():
+        calls = n_layers * (3 if label == "zigzag" else 1) * SP_STEPS
+        want = expected_launches(fwd_lse=calls, bwd=calls, bwd_delta=calls)
+        if row["launches"] != want:
+            fail(f"train_sp {label}: launches {row['launches']}, expected "
+                 f"{want}")
+        if not row["same_initial_weights"] \
+                or not np.isfinite(row["losses"]).all():
+            fail(f"train_sp {label}: {row}")
+        if label != "plain" and not row["loss_rel_err"] < SP_LOSS_RTOL:
+            fail(f"train_sp {label}: losses {row['losses']} leave the "
+                 f"non-SP run's {ref}")
+        if label != "plain" and not (
+                row["first_hidden_err"] < SP_FIRST_STEP_TOL["hidden"]
+                and row["first_grad_err"] < SP_FIRST_STEP_TOL["grad"]):
+            fail(f"train_sp {label}: the first step's hidden states or "
+                 f"gradients leave the non-SP model's: {row}")
+    if dist.is_initialized():
+        fail("the process group outlived train_sp")
+    return rows
+
+
+def replay_branch_times():
+    """Each ring branch's kernels at the replay's chunk shapes: device
+    microseconds of the lse forward, the fused backward and the split
+    backward's two passes, each beside its bound (bytes over the HBM rate
+    or operations over the bf16 peak, the live (q, k) pairs only).
+    ``main`` takes them after phase 6, where profiles miss few launches
+    (``kernel_device_ms``), for phase 39 to report."""
+    fa = flash_module()
+    B, H, D = REPLAY["B"], REPLAY["H"], REPLAY["D"]
+    shapes = {}
+    for branches in REPLAY_BRANCHES.values():
+        for calls in branches.values():
+            for Tq, Tk, causal in calls:
+                if (Tq, Tk, causal) in shapes:
+                    continue
+                q, k, v, g = train_inputs(B, Tq, Tk, D, torch.bfloat16, 43)
+                out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+                delta = fa.flash_attention_bwd_delta(g, out)
+                args = (q, k, v, g, lse, delta)
+                kw = {"causal": causal}
+                row = {}
+                for part, fn, kernel in (
+                        ("fwd", lambda: fa.flash_attention_fwd(
+                            q, k, v, **kw), FWD_KERNEL),
+                        ("bwd", lambda: fa._fused_bwd(
+                            q, k, v, out, lse, g, causal,
+                            fa._scale(None, D), None), BWD_KERNEL),
+                        ("dq", lambda: fa.flash_attention_bwd_dq(*args, **kw),
+                         SPLIT_KERNELS["dq"]),
+                        ("dkv", lambda: fa.flash_attention_bwd_dkv(
+                            *args, **kw), SPLIT_KERNELS["dkv"])):
+                    ms = kernel_device_ms(fn, kernel)
+                    row[f"{part}_us"] = None if ms is None else 1e3 * ms
+                    if part == "fwd":
+                        nbytes = fa.attention_bytes(B, H, Tq, Tk, D, 2) \
+                            + B * H * Tq * 4
+                        ops = fa.attention_flops(B, H, Tq, Tk, D, causal)
+                    else:
+                        w = "fused" if part == "bwd" else part
+                        nbytes = fa.attention_bwd_bytes(B, H, Tq, Tk, D, 2,
+                                                        part=w)
+                        ops = fa.attention_bwd_flops(B, H, Tq, Tk, D, causal,
+                                                     part=w)
+                    ms, by = bound_of(nbytes, ops)
+                    row[f"{part}_bound_us"] = ms * 1e3
+                    row[f"{part}_bound_by"] = by
+                shapes[(Tq, Tk, causal)] = row
+    out = {}
+    for schedule, branches in REPLAY_BRANCHES.items():
+        for name, calls in branches.items():
+            rows = [shapes[c] for c in calls]
+            out[f"{schedule}.{name}"] = {
+                "calls": [list(c) for c in calls],
+                **{key: None if any(r[key] is None for r in rows)
+                   else sum(r[key] for r in rows) for key in rows[0]
+                   if key.endswith("_us")}}
+    return out
+
+
+def segment_err(got, ref, dim=2, rows=REPLAY_SEGMENT):
+    """``got`` against ``ref`` in segments of ``rows`` along ``dim``, each
+    as ``rel_norm``: the worst segment's."""
+    return max(rel_norm(a, b) for a, b in zip(got.split(rows, dim),
+                                              ref.split(rows, dim)))
+
+
+def phase_ring_replay(branches):
+    """Phase 39: a 4-rank ring over one T 4096 sequence replayed in one
+    process through the lse forward and the backward kernels (Tq != Tk,
+    half-chunk diagonals, a non-zero lse cotangent in every block), for
+    both schedules and both backward lowerings, and one kernel call over
+    the whole sequence, each against the plain attention on the card;
+    reported with ``branches``, each branch's kernel times beside its
+    bounds (``replay_branch_times``)."""
+    fa = flash_module()
+    from chainermn_tpu_torch.parallel import zigzag_shard, zigzag_unshard
+    from chainermn_tpu_torch.parallel.ring_attention import _ring_replay
+    B, H, T, D, n = (REPLAY[k] for k in ("B", "H", "T", "D", "n"))
+    q, k, v, g = train_inputs(B, T, T, D, torch.bfloat16, 41)
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    ref = fa.xla_attention(*leaves, causal=True)
+    ref.backward(g.float())
+    refs = [ref.detach()] + [x.grad for x in leaves]
+    del ref, leaves
+    torch.cuda.empty_cache()
+    saved = fa._FLASH_BWD
+    runs = {}
+    try:
+        for bwd in ("fused", "split"):
+            fa._FLASH_BWD = bwd
+            for schedule in ("naive", "zigzag", "whole"):
+                if schedule == "whole" and bwd == "split":
+                    continue
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                torch.cuda.synchronize()
+                reset_launches()
+                if schedule == "whole":
+                    out = fa._FlashDiff.apply(*leaves, True, None)
+                elif schedule == "zigzag":
+                    out = zigzag_unshard(_ring_replay(
+                        *(zigzag_shard(x, n) for x in leaves), n, schedule,
+                        causal=True), n)
+                else:
+                    out = _ring_replay(*leaves, n, schedule, causal=True)
+                out.backward(g)
+                torch.cuda.synchronize()
+                launches = read_launches()
+                got = [out.detach()] + [x.grad for x in leaves]
+                errs = [segment_err(a, b) for a, b in zip(got, refs)]
+                runs[f"{schedule}_{bwd}"] = {
+                    "launches": launches, "out_rel_err": errs[0],
+                    "dq_dk_dv_rel_err": errs[1:],
+                    "finite": all(bool(torch.isfinite(x.float()).all())
+                                  for x in got)}
+    finally:
+        fa._FLASH_BWD = saved
+    del refs
+    emit({"phase": "ring_replay", **REPLAY, "dtype": "bfloat16",
+          "causal": True, "segment": REPLAY_SEGMENT, "tol": REPLAY_TOL,
+          "runs": runs, "branches": branches})
+    for label, row in runs.items():
+        schedule, bwd = label.split("_")
+        c = REPLAY_CALLS.get(schedule, 0)
+        want = expected_launches(fwd_lse=c, bwd_delta=c, **(
+            {"bwd": c} if bwd == "fused" else {"bwd_dq": c, "bwd_dkv": c}))
+        if schedule != "whole" and row["launches"] != want:
+            fail(f"ring_replay {label}: launches {row['launches']}, "
+                 f"expected {want}")
+        if not (row["finite"] and row["out_rel_err"] < REPLAY_TOL["out"]
+                and max(row["dq_dk_dv_rel_err"]) < REPLAY_TOL["grad"]):
+            fail(f"ring_replay {label} leaves the plain attention: {row}")
+    return runs, branches
+
+
+def phase_train_moe():
+    """Phase 40: bench.py's MoE vertical through the dispatch route (an
+    expert on each of the world's one rank, NCCL), Adam through the
+    multi-node optimizer, 8 steps then 2 profiled."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer)
+    from chainermn_tpu_torch.core.optimizer import Adam
+    from chainermn_tpu_torch.models import MoETransformerLM
+    T, L = MOE["max_len"], MOE["n_layers"]
+    batches = lm_batches(MOE["n_vocab"], 2 * MOE_BATCH, T, MOE_BATCH)
+    comm = create_communicator("pure_nccl")
+    try:
+        model = MoETransformerLM(ep_comm=comm, compute_dtype=torch.bfloat16,
+                                 device="cuda", **MOE)
+        opt = create_multi_node_optimizer(Adam(alpha=3e-4),
+                                          comm).setup(model)
+        comm.calls.clear()
+        step_ms, seen, peak, launches = observed_steps(
+            opt, model, batches, MOE_STEPS,
+            keys=("main/loss", "main/moe_aux", "main/moe_dropped"))
+        calls = dict(comm.calls)
+        wall, busy, by_name = device_profile(lambda: [
+            opt.update(model, *batches[i % 2]) for i in range(MOE_PROFILED)])
+        n_params = model.count_params()
+    finally:
+        comm.finalize()
+    flops_tok = transformer_flops_per_token(MOE["d_model"], L,
+                                            MOE["n_vocab"], T)
+    row = {"phase": "train_moe", **MOE, "batch": MOE_BATCH,
+           "steps": MOE_STEPS, "params": n_params,
+           "losses": seen["main/loss"], "moe_aux": seen["main/moe_aux"],
+           "moe_dropped": seen["main/moe_dropped"], "collectives": calls,
+           **lm_step_row(step_ms, MOE_BATCH * T, flops_tok, peak, launches,
+                         wall, busy),
+           "top_kernels_us": [[k[:80], us] for k, us in sorted(
+               by_name.items(), key=lambda kv: -kv[1])[:8]]}
+    emit(row)
+    calls_per = L * MOE_STEPS
+    want = expected_launches(fwd_lse=calls_per, bwd=calls_per,
+                             bwd_delta=calls_per)
+    if launches != want:
+        fail(f"train_moe launches {launches}, expected {want}")
+    if calls.get("moe_alltoall") != 2 * calls_per:
+        fail(f"train_moe did not take the dispatch route: {calls}")
+    if not np.isfinite(row["losses"]).all() \
+            or any(d != 0 for d in row["moe_dropped"]) \
+            or any(abs(a - 1.0) > 1e-6 for a in row["moe_aux"]):
+        fail(f"train_moe: at one expert nothing drops and the aux loss is "
+             f"1: {row}")
+    if dist.is_initialized():
+        fail("the process group outlived train_moe")
+    return row
+
+
+def small_lm_run(device, comm, which, mode=None, steps=3):
+    """The small fp32 model ``which`` ("sp", "moe" dispatch or "dense"
+    with 4 experts) for 3 SGD steps on ``device``: (losses, parameters on
+    the host)."""
+    from chainermn_tpu_torch import create_multi_node_optimizer
+    from chainermn_tpu_torch.core.optimizer import SGD
+    from chainermn_tpu_torch.models import MoETransformerLM, TransformerLM
+    if which == "sp":
+        model = TransformerLM(sp_comm=comm, sp_mode=mode, device=device,
+                              **SP_SMALL)
+        batch = lm_batches(SP_SMALL["n_vocab"], 2, 32, 2, device, seed=4)[0]
+    else:
+        model = MoETransformerLM(ep_comm=comm if which == "moe" else 4,
+                                 device=device, **MOE_SMALL)
+        batch = lm_batches(MOE_SMALL["n_vocab"], 8, 16, 8, device)[0]
+    opt = create_multi_node_optimizer(SGD(lr=SMALL_LR), comm).setup(model)
+    losses = [float(opt.update(model, *batch)) for _ in range(steps)]
+    return losses, {p: a.detach().cpu() for p, a in model.namedparams()}
+
+
+def phase_sp_moe_parity():
+    """Phase 41: the small fp32 SP LM in each mode, the MoE LM's dispatch
+    and its dense route with 4 experts, 3 SGD steps on the card against
+    the CPU (a gloo group beside the NCCL world), TF32 off."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.communicators import MeshCommunicator
+    comm = create_communicator("pure_nccl")
+    out = {}
+    try:
+        cpu_comm = MeshCommunicator(device="cpu",
+                                    group=dist.new_group(backend="gloo"),
+                                    name="pure_nccl")
+        reset_launches()
+        for which, mode in [("sp", m) for m in SP_MODES] + [("moe", None),
+                                                            ("dense", None)]:
+            card = small_lm_run("cuda", comm, which, mode)
+            cpu = small_lm_run("cpu", cpu_comm, which, mode)
+            out[mode or which] = {
+                "losses": card[0], "cpu_losses": cpu[0],
+                "loss_rel_err": max(abs(a - b) / abs(b)
+                                    for a, b in zip(card[0], cpu[0])),
+                "param_abs_err": max((card[1][p] - v).abs().max().item()
+                                     for p, v in cpu[1].items())}
+        launches = read_launches()
+    finally:
+        comm.finalize()
+    emit({"phase": "sp_moe_parity", "runs": out, "tol": SP_PARITY_TOL,
+          "launches": launches})
+    for label, errs in out.items():
+        if not (errs["loss_rel_err"] < SP_PARITY_TOL["loss_rel"]
+                and errs["param_abs_err"] < SP_PARITY_TOL["param_abs"]):
+            fail(f"sp_moe_parity: {label} on the card leaves the CPU's "
+                 f"run: {errs}")
+    if not (launches["fwd_lse"] and launches["bwd"]) or launches["fwd"]:
+        fail(f"sp_moe_parity launches {launches}: the lse forward and the "
+             "backward on the card, never the no-grad forward")
+    if dist.is_initialized():
+        fail("the process group outlived sp_moe_parity")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -4121,6 +4667,7 @@ def main():
     torch.cuda.empty_cache()
     train_times = phase_kernel_train()
     split_times = phase_kernel_split()
+    branches = replay_branch_times()
     train_launches, _ = phase_train()
     dp_launches, _ = phase_train_dp()
     phase_train_parity()
@@ -4173,6 +4720,13 @@ def main():
     phase_dcgan_parity()
     emit({"phase": "dcgan_phases", "seconds":
           time.perf_counter() - t_dcgan})
+    torch.cuda.empty_cache()
+    t_sp = time.perf_counter()
+    phase_train_sp()
+    phase_ring_replay(branches)
+    phase_train_moe()
+    phase_sp_moe_parity()
+    emit({"phase": "sp_moe_phases", "seconds": time.perf_counter() - t_sp})
 
     main_check = next(c for c in checks
                       if c["B"] == 1 and c["T"] == 1024 and c["causal"])
@@ -4208,7 +4762,8 @@ def main():
          "chainermn_tpu/ops/flash_attention.py:146"),
         ("dkv", "chainermn_tpu_torch/csrc/flash_bwd_sm90.cu",
          "chainermn_tpu/ops/flash_attention.py:187")]]})
-    emit({"phase": "total", "seconds": time.perf_counter() - T_START})
+    emit({"phase": "total", "seconds": time.perf_counter() - T_START,
+          "profile_missed_launches": dict(PROFILE_MISSED)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -566,6 +566,7 @@ def _two_rank_worker(rank, out_dir):
     comm.allreduce(torch.zeros(1))     # both ranks have written
     r["files"] = sorted(f for f in os.listdir(shared)
                         if f.startswith("c."))
+    comm.allreduce(torch.zeros(1))     # both ranks have listed
     if rank == 1:
         os.remove(os.path.join(shared, "c.12.1"))
     comm.allreduce(torch.zeros(1))

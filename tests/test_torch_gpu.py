@@ -1179,3 +1179,111 @@ def test_dcgan_iteration_on_the_card_matches_the_cpu(cuda_device):
             atol = 2 * alpha
         np.testing.assert_allclose(state[key], want, rtol=0, atol=atol,
                                    err_msg=key)
+
+
+# -- sequence parallelism and the mixture of experts --------------------------
+
+def _rel_err(got, ref):
+    """Largest |got - ref| relative to the largest |ref|."""
+    ref = ref.float().cpu()
+    return ((got.float().cpu() - ref).abs().max()
+            / ref.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", ["naive", "zigzag"])
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+def test_ring_replay_on_the_card_matches_the_cpu(cuda_device, monkeypatch,
+                                                 schedule, bwd):
+    """A 4-rank ring schedule replayed in one process (``_ring_replay``:
+    every rank's chunk against every step's, merged) through the lse
+    forward and the backward kernels (Tq != Tk and half-chunk diagonals
+    in zigzag, a non-zero lse cotangent in every block) against the same
+    replay through the plain versions on the CPU: bf16 at T 512 (chunks
+    of 128, half-chunks of 64), causal, out and dq, dk, dv relative to
+    their largest |ref| (the CPU backward keeps ds in fp32 where the
+    kernels cast it to bf16: AUTOGRAD_TOL)."""
+    from chainermn_tpu_torch.parallel.ring_attention import _ring_replay
+    monkeypatch.setattr(fa, "_FLASH_BWD", bwd)
+    q, k, v, g = _train_inputs(1, 2, 512, 512, 64, torch.bfloat16,
+                               torch.device("cpu"), 21)
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        leaves = [x.to(device).requires_grad_() for x in (q, k, v)]
+        out = _ring_replay(*leaves, 4, schedule, causal=True)
+        out.backward(g.to(device))
+        runs.append([out.detach()] + [x.grad for x in leaves])
+    for got, ref in zip(*runs):
+        assert torch.isfinite(got.float()).all()
+        assert _rel_err(got, ref) < AUTOGRAD_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["ring", "zigzag", "ulysses"])
+def test_sequence_parallel_attention_at_a_world_of_one(cuda_device, mode):
+    """Ring (one diagonal block), zigzag (three half-blocks merged) and
+    Ulysses (an identity all-to-all) over NCCL with one rank: fp32 out
+    and gradients equal attention through the plain version on the
+    CPU."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.parallel import (ring_self_attention,
+                                              ulysses_attention)
+    q, k, v, g = _train_inputs(2, 4, 128, 128, 64, torch.float32,
+                               torch.device("cpu"), 22)
+    comm = create_communicator("pure_nccl")
+    try:
+        leaves = [x.to(cuda_device).requires_grad_() for x in (q, k, v)]
+        if mode == "ulysses":
+            out = ulysses_attention(comm, *leaves, causal=True)
+        else:
+            out = ring_self_attention(
+                comm, *leaves, causal=True,
+                schedule="zigzag" if mode == "zigzag" else "naive")
+        out.backward(g.to(cuda_device))
+    finally:
+        comm.finalize()
+    ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = xla_attention(*ref_leaves, causal=True)
+    ref.backward(g)
+    assert _rel_err(out.detach(), ref.detach()) < 1e-4
+    for x, r in zip(leaves, ref_leaves):
+        assert _rel_err(x.grad, r.grad) < 1e-4
+
+
+@pytest.mark.gpu
+def test_moe_lm_dispatch_at_a_world_of_one_matches_the_cpu(cuda_device):
+    """The MoE LM's dispatch route over NCCL with one rank (one expert,
+    a flat all-to-all of one) on the card, fp32 with TF32 off, against
+    the dense route with one expert on the CPU (the same routing: at
+    capacity factor 1.25 nothing is dropped): the loss, ``moe_aux`` 1 and
+    ``moe_dropped`` 0, and every gradient."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.core import reporter
+    from chainermn_tpu_torch.models import MoETransformerLM
+    kw = dict(n_vocab=97, d_model=64, n_heads=1, n_layers=2, max_len=32,
+              seed=0)
+    x = torch.from_numpy(np.random.RandomState(7).randint(0, 97, (2, 32)))
+    t = torch.roll(x, -1, 1)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm = create_communicator("pure_nccl")
+    try:
+        runs = []
+        for ep, device in ((comm, cuda_device), (1, torch.device("cpu"))):
+            model = MoETransformerLM(ep_comm=ep, device=device, **kw)
+            obs, rep = {}, reporter.Reporter()
+            rep.add_observer("main", model)
+            with rep.scope(obs):
+                loss = model(x.to(device), t.to(device))
+            loss.backward()
+            runs.append((loss.item(), {k: float(v) for k, v in obs.items()},
+                         {p: a.grad for p, a in model.namedparams()}))
+    finally:
+        comm.finalize()
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    (loss, obs, grads), (ref_loss, ref_obs, ref_grads) = runs
+    assert loss == pytest.approx(ref_loss, rel=1e-5)
+    assert obs["main/moe_dropped"] == 0 == ref_obs["main/moe_dropped"]
+    assert obs["main/moe_aux"] == pytest.approx(1.0, abs=1e-6)
+    for p, r in ref_grads.items():
+        assert _rel_err(grads[p], r) < 1e-4, p

@@ -12,8 +12,7 @@ import chainermn_tpu_torch as ct
 from tests.test_public_api import MODULES, TOP_LEVEL
 
 #: top-level names still to port, by ROADMAP item
-NOT_PORTED = {"rescatter_dataset": "A11",
-              "Parameter": "A3", "Sequential": "A3"}
+NOT_PORTED = {"rescatter_dataset": "A11", "Sequential": "A3"}
 
 
 @pytest.mark.parametrize("name", TOP_LEVEL)
@@ -34,6 +33,8 @@ def test_top_level_names_are_the_ported_objects():
     assert (ct.CommunicatorBase, ct.MeshCommunicator, ct.DummyCommunicator) \
         == (CommunicatorBase, MeshCommunicator, DummyCommunicator)
     assert (ct.Link, ct.Chain, ct.ChainList) == (Link, Chain, ChainList)
+    from chainermn_tpu_torch.core.link import Parameter
+    assert ct.Parameter is Parameter
     assert ct.report is report and ct.using_config is using_config
     assert ct.F is functions and ct.L is links
 
@@ -61,10 +62,6 @@ def test_observability_and_profiling_surfaces(module):
 #: names of the JAX package's module surfaces still to port, by ROADMAP
 #: item
 NOT_PORTED_IN = {
-    "parallel": {"ring_self_attention": "A9", "ring_attention": "A9",
-                 "ulysses_attention": "A9", "switch_moe": "A9",
-                 "moe_dispatch_combine": "A9"},
-    "models": {"MoETransformerLM": "A9"},
     "extensions": {"FailureRecovery": "A11", "RecoveryGivingUp": "A11",
                    "ElasticRecovery": "A11", "ElasticConfigError": "A11",
                    "create_elastic_membership": "A11",
@@ -78,9 +75,10 @@ def test_model_parallel_surfaces(module):
     """The JAX package's ``functions``, ``links``, ``parallel``,
     ``models`` and ``extensions`` names: every one the port has resolves
     (the point-to-point functions, ``MultiNodeChainList``,
-    ``ParallelConvolution2D``, the pipelines, the mesh, ``Seq2seq``, the
-    DCGAN, the checkpointers), and the rest are listed by the ROADMAP
-    item that ports them."""
+    ``ParallelConvolution2D``, the pipelines, the mesh, ring attention,
+    Ulysses, the MoE dispatch, ``Seq2seq``, the DCGAN,
+    ``MoETransformerLM``, the checkpointers), and the rest are listed by
+    the ROADMAP item that ports them."""
     names = MODULES[f"chainermn_tpu.{module}"]
     mod = importlib.import_module(f"chainermn_tpu_torch.{module}")
     pending = NOT_PORTED_IN.get(module, {})

@@ -239,9 +239,10 @@ def test_hop_schedule_and_padding_match_jax():
         assert mu.hop_schedule(k) == jmu.hop_schedule(k)
         assert mu.hop_schedule(k, mode="striped") \
             == jmu.hop_schedule(k, mode="striped")
-    # the MoE schedule comes with its caller (ROADMAP A9)
+        assert mu.hop_schedule(k, mode="moe") \
+            == jmu.hop_schedule(k, mode="moe")
     with pytest.raises(ValueError):
-        mu.hop_schedule(2, mode="moe")
+        mu.hop_schedule(2, mode="spiral")
     for n, m in ((10, 4), (12, 4), (1, 3)):
         v = np.arange(n, dtype=np.float32)
         got, n_true = mu.pad_to_multiple(torch.from_numpy(v), m)

@@ -188,10 +188,14 @@ def test_remat_gives_the_same_loss_and_gradients(remat):
 
 
 def test_unknown_remat_policy_and_sequence_parallelism_raise():
+    """An unknown remat policy and an unknown sequence-parallel mode
+    raise at construction (sequence parallelism itself is tested in
+    ``tests/test_torch_sequence_parallel.py``)."""
     with pytest.raises(ValueError, match="remat"):
         TransformerLM(seed=0, remat="everything", device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="A9"):
-        TransformerLM(seed=0, sp_comm=object(), device="cpu", **KW)
+    with pytest.raises(ValueError, match="sp_mode"):
+        TransformerLM(seed=0, sp_comm=object(), sp_mode="spiral",
+                      device="cpu", **KW)
 
 
 # -- optimizer rules and hooks ----------------------------------------------
