@@ -53,6 +53,14 @@ the naive and zigzag schedules, Ulysses) shards a long sequence over the
 ranks (``TransformerLM(sp_comm=...)``), and the mixture of experts routes
 tokens to one expert a rank over all-to-all, two-stage on a hierarchical
 communicator (:mod:`.parallel`, :class:`~.models.MoETransformerLM`).
+Resilience and elasticity: the object channel over the job's
+``torch.distributed`` store with deadlines, heartbeats and the abort
+flag, seeded fault injection (``create_communicator("fault")``), in-place
+recovery (:class:`~.extensions.FailureRecovery` under ``Trainer.run``'s
+supervisor loop), and elastic shrink and grow
+(:class:`~.extensions.ElasticRecovery` over the membership protocol,
+:class:`~.communicators.ElasticMeshCommunicator`,
+:func:`rescatter_dataset`).
 """
 
 from . import (functions, global_except_hook, links, observability,
@@ -62,7 +70,7 @@ from .communicators import (CommunicatorBase, DummyCommunicator,
                             MeshCommunicator, create_communicator)
 from .core import Chain, ChainList, Link, Parameter, report, using_config
 from .datasets import (create_empty_dataset, get_n_iterations_for_one_epoch,
-                       scatter_dataset, scatter_index)
+                       rescatter_dataset, scatter_dataset, scatter_index)
 from .evaluators import create_multi_node_evaluator
 from .extensions.checkpoint import create_multi_node_checkpointer
 from .iterators import create_multi_node_iterator, create_synchronized_iterator
@@ -74,7 +82,7 @@ __all__ = ["functions", "links", "observability", "parallel", "utils", "resolve_
            "create_communicator", "CommunicatorBase", "MeshCommunicator",
            "DummyCommunicator", "create_multi_node_optimizer",
            "create_multi_node_evaluator", "scatter_dataset",
-           "create_empty_dataset", "scatter_index",
+           "rescatter_dataset", "create_empty_dataset", "scatter_index",
            "get_n_iterations_for_one_epoch", "create_multi_node_iterator",
            "create_synchronized_iterator", "create_multi_node_checkpointer",
            "Parameter", "Link", "Chain", "ChainList", "report", "using_config", "F", "L"]

@@ -38,8 +38,20 @@ name                 port realization
                      either hierarchical name runs the striped exchange:
                      that share of each bucket takes the transposed,
                      slow-hop-major chain, concurrently with the rest
-``fault``            raises ``NotImplementedError`` (fault injection, A11)
+``fault``            the fused flat communicator (``jax_ici``) wrapped in a
+                     :class:`FaultInjectionCommunicator` driven by
+                     ``fault_schedule=`` (or ``CHAINERMN_TPU_FAULT_SCHEDULE``);
+                     the host channel's transport hook gets a clone of the
+                     schedule, and the object calls ride that channel
 ===================  ========================================================
+
+Resilience and elasticity: :mod:`._host_channel` (an object channel over
+the job's ``torch.distributed`` store, with deadlines, retry, heartbeats,
+generations and the fail-stop abort flag), :mod:`.fault_schedule` and
+:mod:`.fault_injection_communicator` (seeded chaos), :mod:`._membership`
+(who is in the job, decided over the store) and
+:class:`ElasticMeshCommunicator` (a communicator over the live members,
+one default process group per membership epoch).
 """
 
 from __future__ import annotations
@@ -50,14 +62,27 @@ import warnings
 from ..global_except_hook import _add_hook_if_enabled
 from ._communication_utility import init_ranks, initialize_distributed
 from .communicator_base import CommunicatorBase
+from ._host_channel import (ChannelError, ChannelTimeoutError, HostChannel,
+                            PeerLostError, StoreKV, get_host_channel)
+from ._membership import ElasticMembership, MembershipView, multicast_tree_plan
 from .debug_communicator import DebugCommunicator, SignatureMismatchError
 from .dummy_communicator import DummyCommunicator
+from .fault_injection_communicator import (FaultInjectionCommunicator,
+                                           bind_host_channel)
+from .fault_schedule import (FaultSchedule, FaultSpec, InjectedFault,
+                             RankPreempted, schedule_from_env)
 from .mesh_communicator import ElasticMeshCommunicator, MeshCommunicator
 
 __all__ = ["create_communicator", "CommunicatorBase", "MeshCommunicator",
            "ElasticMeshCommunicator", "DummyCommunicator",
-           "DebugCommunicator", "SignatureMismatchError", "EXCHANGES",
-           "exchange_knobs", "init_ranks", "initialize_distributed"]
+           "DebugCommunicator", "SignatureMismatchError",
+           "FaultInjectionCommunicator", "FaultSchedule", "FaultSpec",
+           "InjectedFault", "RankPreempted", "schedule_from_env",
+           "bind_host_channel", "HostChannel", "StoreKV",
+           "get_host_channel", "ChannelError", "ChannelTimeoutError",
+           "PeerLostError", "ElasticMembership", "MembershipView",
+           "multicast_tree_plan", "EXCHANGES", "exchange_knobs",
+           "init_ranks", "initialize_distributed"]
 
 _NAMES = ("naive", "flat", "hierarchical", "two_dimensional", "single_node",
           "non_cuda_aware", "pure_nccl", "jax_ici", "dummy", "debug",
@@ -96,7 +121,7 @@ def create_communicator(communicator_name="jax_ici", device=None,
                         allreduce_grad_dtype=None, batch_collectives=None,
                         bucket_mb=None, intra_size=None, inter_size=None,
                         error_feedback=True, stripe_ratio=None,
-                        autotune=None, group=None):
+                        autotune=None, group=None, fault_schedule=None):
     """Create a communicator by reference name.
 
     ``device``: where this rank's tensors live, as every entry point of
@@ -133,11 +158,23 @@ def create_communicator(communicator_name="jax_ici", device=None,
     multi-node optimizer, which re-tunes after its first steps from the
     ``train/grad_exchange`` spans; a dict is a recorded plan, applied as
     it is.  A plan fills only the knobs not set here by hand (an argument
-    or its environment variable)."""
+    or its environment variable).
+
+    ``fault_schedule`` (the ``fault`` name only): a :class:`FaultSchedule`
+    or its spec dict; ``CHAINERMN_TPU_FAULT_SCHEDULE`` (inline JSON or
+    ``@file``) when not given.  The wrapped communicator is ``jax_ici``
+    with the other arguments; the host channel's transport hook gets a
+    clone of the schedule (same specs and seed, its own counters: a
+    rank's transport calls are not lock-step, its API calls are)."""
     name = communicator_name
     if name not in _NAMES:
         raise ValueError(
             f"unknown communicator {name!r}; choose from {_NAMES}")
+    if fault_schedule is not None and name != "fault":
+        raise ValueError(
+            f"fault_schedule= is only honored by the 'fault' "
+            f"communicator, not {name!r} — a silently dropped schedule "
+            f"would make a chaos run pass vacuously")
     flattened = name in ("hierarchical", "two_dimensional") \
         and os.environ.get("CHAINERMN_TPU_HIERARCHY", "") \
         .strip().lower() in ("flat", "off", "0")
@@ -169,12 +206,33 @@ def create_communicator(communicator_name="jax_ici", device=None,
             f"autotune= is a mesh-communicator knob, not {name!r} — a "
             f"silently dropped plan would make an autotune run pass "
             f"vacuously")
-    if name == "fault":
-        raise NotImplementedError(
-            "communicator 'fault': fault injection is not ported yet "
-            "(ROADMAP A11)")
     if name == "dummy":
         return DummyCommunicator()
+    if name == "fault":
+        schedule = fault_schedule if fault_schedule is not None \
+            else schedule_from_env()
+        if schedule is None:
+            raise ValueError(
+                "communicator 'fault' needs fault_schedule= or the "
+                "CHAINERMN_TPU_FAULT_SCHEDULE env var")
+        if isinstance(schedule, dict):
+            schedule = FaultSchedule.from_dict(schedule)
+        base = create_communicator(
+            "jax_ici", device=device,
+            allreduce_grad_dtype=allreduce_grad_dtype,
+            batch_collectives=batch_collectives, bucket_mb=bucket_mb,
+            intra_size=intra_size, inter_size=inter_size,
+            error_feedback=error_feedback, stripe_ratio=stripe_ratio,
+            autotune=autotune, group=group)
+        comm = FaultInjectionCommunicator(base, schedule)
+        channel = base._host_channel()
+        if channel is not None:
+            # the clone binds the wrapper's rank: to_dict carries the
+            # specs' targeting, a schedule's own binding is per process
+            comm.hc_schedule = bind_host_channel(
+                channel, FaultSchedule.from_dict(schedule.to_dict())
+                .bind_rank(schedule.rank))
+        return comm
     if name == "debug":
         comm = DebugCommunicator(device=device, group=group,
                                  allreduce_grad_dtype=allreduce_grad_dtype,

@@ -85,8 +85,21 @@ communicator through :meth:`MeshCommunicator.retuned`, which fills only
 the knobs the caller did not set by hand (``_hand_knobs``, recorded at
 construction and carried across clones and :meth:`MeshCommunicator.split`).
 
-Not ported yet (it raises ``NotImplementedError``): the elastic subclass
-(A11).
+The object calls (``send_obj``, ``recv_obj``, ``bcast_obj``,
+``allgather_obj``, ``gather_obj``) go over the process group's object
+collectives.  :meth:`MeshCommunicator._host_channel` gives the host
+channel (:mod:`._host_channel`, over the job's ``torch.distributed``
+store) of a communicator over the default world of more than one process:
+the control plane that recovery (the abort flag, the generation) and the
+elastic membership use.  The object calls ride it only where a
+communicator asks for it: :class:`ElasticMeshCommunicator`'s members-only
+channel, and the fault-injection wrapper, whose transport faults act on
+that channel.
+
+:class:`ElasticMeshCommunicator` is a communicator over the live members
+of an elastic job: each membership epoch gets a default process group of
+its own, built over a prefix of the job's store, so that no call of it
+touches a departed rank.
 """
 
 from __future__ import annotations
@@ -112,6 +125,7 @@ from ._memory_utility import (DEFAULT_BUCKET_MB, chain_chunk_index,
                               plan_buckets, quantize_with_feedback,
                               resolve_grad_dtype, stripe_plan, tree_pack,
                               tree_unpack)
+from ._host_channel import HostChannel, get_host_channel, reset_host_channel
 from .communicator_base import CommunicatorBase
 
 __all__ = ["MeshCommunicator", "ElasticMeshCommunicator", "PendingExchange",
@@ -667,6 +681,19 @@ class MeshCommunicator(CommunicatorBase):
     # ``tag`` is accepted for the reference's signature.
     def _object_device(self):
         return self.device if self.device.type == "cuda" else None
+
+    def _host_channel(self):
+        """The host channel of this communicator's ranks: the process-
+        global one when this communicator spans the default world of more
+        than one process (the channel's process ids are this world's
+        ranks), else None."""
+        if self.group is not None or dist.get_world_size() == 1:
+            return None
+        ch = get_host_channel()
+        if ch is None or (ch.process_id, ch.num_processes) != (
+                dist.get_rank(), dist.get_world_size()):
+            return None
+        return ch
 
     def send_obj(self, obj, dest, tag=0):
         dist.send_object_list([obj], dst=self._global(dest),
@@ -1560,8 +1587,15 @@ class MeshCommunicator(CommunicatorBase):
     def finalize(self):
         """Tear down the process groups this communicator set up (a
         split's group, the hierarchy's subgroups, or the world group it
-        initialized); the communicator is unusable afterwards."""
+        initialized, with the host channel over its store); the
+        communicator is unusable afterwards.  Point-to-point sends still
+        in flight (``functions.send`` never waits) are waited for first,
+        as ``MPI_Finalize`` does: torn down under them, a send is lost
+        and its receiver fails on a closed connection."""
+        for work, _ in self.__dict__.pop("_p2p_pending", ()):
+            work.wait()
         if self._owns_world:
+            reset_host_channel()
             dist.destroy_process_group()
         else:
             for group in (*self._hop_groups, *self._path_groups,
@@ -1583,11 +1617,182 @@ class MeshCommunicator(CommunicatorBase):
                 f"grad_dtype={self.allreduce_grad_dtype}{split}>")
 
 
-class ElasticMeshCommunicator(MeshCommunicator):
-    """The elastic communicator (membership epochs, resize) of the JAX
-    package; not ported yet."""
+#: the elastic world this process's default process group is, as
+#: ``(store namespace, epoch, members)``; None when it is not one
+_elastic_world = None
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ElasticMeshCommunicator (elastic membership and resize) is "
-            "not ported yet (ROADMAP A11)")
+
+def _replace_world(store, slot, n, backend, epoch_key):
+    """Make the default process group a new world of ``n`` ranks over
+    ``store``, this process at ``slot``: the old default world and every
+    group of it are torn down first (aborted on NCCL, whose destroy can
+    block on a dead peer).  Collective over the new world's ranks only."""
+    global _elastic_world
+    from torch.distributed import distributed_c10d as c10d
+
+    from ._communication_utility import TIMEOUT
+    if dist.is_initialized():
+        abort = getattr(c10d, "_abort_process_group", None)
+        if "nccl" in str(dist.get_backend()) and abort is not None:
+            abort()
+        else:
+            dist.destroy_process_group()
+    _elastic_world = None
+    dist.init_process_group(backend, store=store, rank=slot, world_size=n,
+                            timeout=TIMEOUT)
+    _elastic_world = epoch_key
+
+
+class ElasticMeshCommunicator(MeshCommunicator):
+    """A :class:`MeshCommunicator` over the live subset of the job's
+    processes (the JAX ``ElasticMeshCommunicator``): the rebuilt transport
+    after an elastic shrink or grow.
+
+    ``members`` are stable ranks (the boot world's ranks, the identities
+    membership decides over); the communicator maps them to dense slots
+    0..n-1: ``rank`` is the slot, :attr:`stable_rank` the identity
+    (checkpoint files key on it, so a process reads its own snapshots
+    across any number of resizes).  ``epoch`` is the membership epoch the
+    set was decided at.
+
+    ``torch.distributed.new_group`` is collective over the boot world and
+    hangs once a member is gone, so each epoch gets a default world of its
+    own: the process's old default world is torn down (aborted on NCCL)
+    and ``init_process_group`` builds the members' world over
+    ``PrefixStore("<ns>/el<epoch>/pg", store)``, where ``store`` is the
+    job's store, which must outlive every rank (under ``torchrun`` the
+    agent hosts it; the job ends with it).  ``group=None`` then means the
+    members' world, and the hierarchical subgroups are built inside it.
+    Construction is collective over the members (every live member builds
+    the communicator for the same view); a departed rank takes no part.
+    A clone of the same epoch (``retuned``) keeps the world.
+
+    ``channel``: a :class:`~._host_channel.HostChannel` over the job's
+    store, the template of the members-only object channel (namespace
+    ``<ns>/el<epoch>``, process ids remapped to slots) and the source of
+    the store and of this process's stable rank (its ``stable_rank``, else
+    its ``process_id``); default: the process-global channel.  With one
+    member the object channel is the process group's.  ``device`` and the
+    other arguments are :class:`MeshCommunicator`'s.
+    """
+
+    def __init__(self, members, epoch=0, channel=None, device=None,
+                 **kwargs):
+        members = tuple(sorted(int(m) for m in members))
+        if not members:
+            raise ValueError("an elastic communicator needs >= 1 member")
+        if len(set(members)) != len(members):
+            raise ValueError(f"duplicate members: {members!r}")
+        template = channel if channel is not None else get_host_channel()
+        if template is None or not hasattr(template._client, "store"):
+            raise ValueError(
+                "an elastic communicator needs a host channel over the "
+                "job's torch.distributed store (channel=, or a default "
+                "world of more than one process)")
+        me = int(getattr(template, "stable_rank", template.process_id))
+        if me not in members:
+            raise ValueError(
+                f"process {me} is not in the elastic view {members}; "
+                f"non-members must re-join through the membership "
+                f"protocol before constructing the communicator")
+        self.members = members
+        self.epoch = int(epoch)
+        self._member_slot = members.index(me)
+        self._stable_rank = me
+        self._template = template
+        self._elastic_channel = self._derive_channel(template)
+        ns_root = template._ns.split("/el", 1)[0]
+        key = (ns_root, self.epoch, members)
+        dev = resolve_device(device)
+        if _elastic_world != key or not dist.is_initialized():
+            if dev.type == "cuda":
+                torch.cuda.set_device(dev.index if dev.index is not None
+                                      else torch.cuda.current_device())
+            _replace_world(
+                dist.PrefixStore(f"{ns_root}/el{self.epoch}/pg",
+                                 template._client.store),
+                self._member_slot, len(members), backend_for(dev), key)
+        super().__init__(device=device, group=None, **kwargs)
+        self._owns_world = True
+
+    def _derive_channel(self, template):
+        """Members-only sub-channel: the template's store and tolerance
+        knobs, its namespace scoped by the membership epoch (keys of any
+        other incarnation never match), process ids remapped to the view's
+        slots.  None for a single member."""
+        if len(self.members) <= 1:
+            return None
+        client = template._client
+        if hasattr(client, "with_parties"):
+            client = client.with_parties(len(self.members))
+        ns_root = template._ns.split("/el", 1)[0]
+        ch = HostChannel(
+            namespace=f"{ns_root}/el{self.epoch}", client=client,
+            chunk_bytes=template._chunk, timeout_ms=template._timeout_ms,
+            op_timeouts=dict(template._op_timeouts),
+            max_retries=template.max_retries,
+            backoff_base_s=template.backoff_base_s,
+            backoff_max_s=template.backoff_max_s,
+            clock=template._clock, sleep=template._sleep,
+            process_id=self._member_slot, num_processes=len(self.members))
+        ch.stable_rank = self._stable_rank
+        return ch
+
+    def _host_channel(self):
+        return self._elastic_channel
+
+    # the object calls ride the members' channel (slots are its process
+    # ids): a departed member surfaces as a typed channel error there
+    def send_obj(self, obj, dest, tag=0):
+        if self._elastic_channel is None:
+            return super().send_obj(obj, dest, tag)
+        self._elastic_channel.send_obj(obj, dest, tag)
+        self.calls["send_obj"] += 1
+
+    def recv_obj(self, source, tag=0):
+        if self._elastic_channel is None:
+            return super().recv_obj(source, tag)
+        obj = self._elastic_channel.recv_obj(source, tag)
+        self.calls["recv_obj"] += 1
+        return obj
+
+    def bcast_obj(self, obj, root=0):
+        if self._elastic_channel is None:
+            return super().bcast_obj(obj, root)
+        out = self._elastic_channel.bcast(obj, root=root)
+        self.calls["bcast_obj"] += 1
+        return out
+
+    def allgather_obj(self, obj):
+        if self._elastic_channel is None:
+            return super().allgather_obj(obj)
+        out = self._elastic_channel.allgather(obj)
+        self.calls["allgather_obj"] += 1
+        return out
+
+    def _clone_kwargs(self):
+        # a retuned clone is the same incarnation (members, epoch, world)
+        # with other exchange knobs
+        kwargs = super()._clone_kwargs()
+        kwargs.pop("group", None)
+        kwargs.update(members=self.members, epoch=self.epoch,
+                      channel=self._template)
+        return kwargs
+
+    @property
+    def stable_rank(self):
+        """This process's boot rank: the same across resizes (snapshot
+        files and membership announcements key on it, never on the
+        slot)."""
+        return self._stable_rank
+
+    def finalize(self):
+        global _elastic_world
+        if self._owns_world:
+            _elastic_world = None
+        super().finalize()
+
+    def __repr__(self):
+        return (f"<ElasticMeshCommunicator epoch={self.epoch} "
+                f"members={self.members} size={self.size} "
+                f"device={self.device}>")

@@ -327,8 +327,17 @@ class Optimizer:
                     raise ValueError(
                         f"{slot} of {path}: leaf shape {leaf.shape} does "
                         f"not match the parameter's {tuple(p.shape)}")
-                state[path][slot] = torch.from_numpy(
-                    np.array(leaf, np.float32)).to(p.device)
+                value = torch.from_numpy(np.array(leaf, np.float32))
+                held = self._state.get(path, {}).get(slot)
+                if held is not None and held.shape == value.shape \
+                        and held.dtype == torch.float32:
+                    # a resume mid-run (failure recovery): into the
+                    # tensors the rule already holds
+                    with torch.no_grad():
+                        held.copy_(value)
+                    state[path][slot] = held
+                else:
+                    state[path][slot] = value.to(p.device)
         self._state = state
 
     def serialize(self, serializer):

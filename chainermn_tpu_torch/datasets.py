@@ -8,7 +8,8 @@ The split follows the reference's MPMD contract: each RANK gets its
 contiguous slice of the padded order (the JAX package gives each host one
 slice covering all the devices it drives, and splits the batch across
 them inside its compiled step).  So a rank iterates its shard with its
-own, per-rank batch size.
+own, per-rank batch size.  :func:`rescatter_dataset` re-slices a shard
+for a resized world (an elastic shrink or grow), per rank as well.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import numpy as np
 
 from .dataset.datasets import SubDataset
 
-__all__ = ["scatter_dataset", "create_empty_dataset", "scatter_index",
-           "get_n_iterations_for_one_epoch"]
+__all__ = ["scatter_dataset", "rescatter_dataset", "create_empty_dataset",
+           "scatter_index", "get_n_iterations_for_one_epoch"]
 
 
 def scatter_dataset(dataset, comm, root=0, shuffle=False, seed=None,
@@ -60,6 +61,39 @@ def scatter_dataset(dataset, comm, root=0, shuffle=False, seed=None,
         order = order[:per_rank * size]
     start = comm.rank * per_rank
     return SubDataset(dataset, start, start + per_rank, order=order)
+
+
+def rescatter_dataset(shard, comm):
+    """Re-slice an already-scattered shard for a resized communicator
+    (the JAX ``rescatter_dataset``, per rank).
+
+    ``shard`` is a :class:`SubDataset` that :func:`scatter_dataset` made
+    (its order is the permutation every rank agreed on); ``comm`` is the
+    rebuilt communicator.  The same order is padded again by wrap-around
+    to a multiple of the new ``comm.size`` and cut into ``comm.size``
+    contiguous slices, this rank taking slice ``comm.rank``: a pure
+    function of (order, new world), so every member computes its slice
+    with no collective, and the union of the new shards is the union of
+    the old ones (no sample dropped, none counted twice beyond the
+    wrap-around padding).  The iterator's position is trainer state and
+    rides the checkpoint."""
+    if not isinstance(shard, SubDataset):
+        raise TypeError(
+            f"rescatter_dataset re-slices a SubDataset produced by "
+            f"scatter_dataset, got {type(shard).__name__}; for a raw "
+            f"dataset call scatter_dataset with the same seed instead")
+    base = shard._dataset
+    order = shard._order
+    n = len(base) if order is None else len(np.unique(order))
+    # the agreed permutation is the first n entries: scatter_dataset
+    # appends its padding after it
+    order = np.arange(n) if order is None else np.asarray(order)[:n]
+    per_rank = -(-n // comm.size)
+    total = per_rank * comm.size
+    if total > n:
+        order = np.concatenate([order, order[: total - n]])
+    start = comm.rank * per_rank
+    return SubDataset(base, start, start + per_rank, order=order)
 
 
 def scatter_index(n_total, comm, root=0):

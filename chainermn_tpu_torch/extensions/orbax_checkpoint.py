@@ -28,14 +28,22 @@ generations kept, and ``maybe_load`` resuming every rank from the newest
 step present on all of them, that step pinned against GC.  Under the
 multi-node optimizer's sharded update each rank saves its own chunk of the
 flat optimizer state (``_MultiNodeOptimizer``'s per-rank mode), never the
-gathered vector, so a save is no collective; such a snapshot resumes only
-at the world size and chunk layout that wrote it (``ValueError``
-otherwise).
+gathered vector, so a save is no collective.  Each step also records who
+wrote it (``meta.json``: the world size and the writers' file ranks), so
+that such a snapshot resumes at any world size: a step is offered to the
+consensus by a rank that wrote it at the current size, or by any rank
+when every writer's directory holds it (a shared file system).  A rank
+whose optimizers' layouts (:meth:`_MultiNodeOptimizer.local_layout`)
+differ from the step's ``local_chunk`` reads every writer's tree, puts
+each chunked key (``local_chunk_keys``) together into its whole vector,
+and restores from that in the optimizers' plain mode, which takes this
+rank's chunk of the new layout.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import re
 import shutil
@@ -114,15 +122,19 @@ class OrbaxCheckpointer:
         shutil.rmtree(self._step_dir(step))
 
     # -- raw pytrees -------------------------------------------------------
-    def save(self, step, pytree):
+    def save(self, step, pytree, meta=None):
         """Write ``pytree`` as step ``step`` (replacing an older write of
-        that step): to a tmp directory, then renamed into place."""
+        that step): to a tmp directory, then renamed into place.
+        ``meta``: a JSON-able dict kept beside it (:meth:`read_meta`)."""
         tmp = tempfile.mkdtemp(prefix=f".tmp-{int(step)}-",
                                dir=self.directory)
         try:
             with _quiet():
                 _dcp().save(_to_state_dict(pytree), checkpoint_id=tmp,
                             no_dist=True)
+            if meta is not None:
+                with open(os.path.join(tmp, "meta.json"), "w") as f:
+                    json.dump(meta, f)
             final = self._step_dir(step)
             if os.path.isdir(final):
                 shutil.rmtree(final)
@@ -150,6 +162,14 @@ class OrbaxCheckpointer:
             return state
         return {k: v.numpy() if isinstance(v, torch.Tensor) else v
                 for k, v in state.items()}
+
+    def read_meta(self, step):
+        """The ``meta`` dict saved with step ``step``, or None."""
+        try:
+            with open(os.path.join(self._step_dir(step), "meta.json")) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
 
     def latest_step(self):
         steps = self.all_steps()
@@ -191,11 +211,10 @@ def _link_tree(link, copy=False):
 
 @contextlib.contextmanager
 def _per_rank_state(trainer):
-    """The trainer's sharded multi-node optimizers in their per-rank
+    """The trainer's multi-node optimizers in their per-rank
     serialization mode (each rank's own chunk, no collective) inside the
     block."""
-    opts = [opt for opt in trainer.updater.get_all_optimizers().values()
-            if isinstance(opt, _MultiNodeOptimizer)]
+    opts = _multi_node_optimizers(trainer)
     for opt in opts:
         opt.__dict__["_local_state"] = True
     try:
@@ -203,6 +222,40 @@ def _per_rank_state(trainer):
     finally:
         for opt in opts:
             opt.__dict__["_local_state"] = False
+
+
+def _multi_node_optimizers(trainer):
+    return [opt for opt in trainer.updater.get_all_optimizers().values()
+            if isinstance(opt, _MultiNodeOptimizer)]
+
+
+def _layout_sections(tree):
+    """The per-rank optimizer sections of a step's tree: ``{path prefix:
+    local_chunk as a tuple}``."""
+    return {k[:-len("local_chunk")]: tuple(np.asarray(v).tolist())
+            for k, v in tree.items()
+            if k.rsplit("/", 1)[-1] == "local_chunk"}
+
+
+def _whole_vectors(tree, trees):
+    """``tree`` with every per-rank section's chunks put together from
+    the writers' ``trees``: each key of ``local_chunk_keys`` as the
+    writers' chunks concatenated in the order of their ``local_chunk``
+    entry, and the per-rank keys dropped."""
+    merged = dict(tree)
+    for prefix in _layout_sections(tree):
+        layouts = [np.asarray(t[prefix + "local_chunk"]).tolist()
+                   for t in trees]
+        for key, entry in json.loads(
+                str(np.asarray(tree[prefix + "local_chunk_keys"]))):
+            order = sorted(range(len(trees)),
+                           key=lambda w: layouts[w][entry])
+            merged[prefix + key] = np.concatenate(
+                [np.asarray(trees[w][prefix + key]).reshape(-1)
+                 for w in order])
+        del merged[prefix + "local_chunk"], \
+            merged[prefix + "local_chunk_keys"]
+    return merged
 
 
 def create_multi_node_orbax_checkpointer(comm, directory, cp_interval=5):
@@ -242,7 +295,14 @@ class _MultiNodeOrbaxCheckpointer(Extension):
             s = DictionarySerializer()
             with _per_rank_state(trainer):
                 trainer.serialize(s)
-            self._ckpt.save(iteration, s.target)
+            comm = self.comm
+            writers = getattr(comm, "members", None)
+            if writers is None:
+                writers = [file_rank(comm)] if comm.size == 1 else \
+                    range(comm.size)
+            self._ckpt.save(iteration, s.target,
+                            meta={"world_size": comm.size,
+                                  "writers": [int(w) for w in writers]})
             self.stats["snapshots"] += 1
             self._gc()
 
@@ -256,24 +316,90 @@ class _MultiNodeOrbaxCheckpointer(Extension):
 
     # -- consensus resume -------------------------------------------------
     def maybe_load(self, trainer, optimizer=None):
-        """Resume from the newest step *every* rank has (allgather of the
-        step sets, the maximum of their intersection, this rank's own
-        restore through the serializer protocol).  Returns the resumed
-        iteration or None."""
+        """Resume from the newest step *every* rank can read (allgather of
+        the readable step sets, the maximum of their intersection, this
+        rank's restore through the serializer protocol).  Returns the
+        resumed iteration or None."""
         with observability.span("recover/consensus_load"):
-            local = self._ckpt.all_steps()
-            all_sets = self.comm.allgather_obj(local)
+            local = self._readable_steps()
+            all_sets = self.comm.allgather_obj(sorted(local))
             common = set(all_sets[0])
             for s in all_sets[1:]:
                 common &= set(s)
             if not common:
                 return None
             iteration = max(common)
-            tree = self._ckpt.restore(iteration)
-            with _per_rank_state(trainer):
+            writers = self._writers(iteration)
+            own = iteration in self._ckpt.all_steps()
+            reader = self._ckpt if own or not writers else \
+                self._rank_ckpt(self.rank if self.rank in writers
+                                else writers[0])
+            tree = reader.restore(iteration)
+            saved = set(_layout_sections(tree).values())
+            mine = {tuple(layout.tolist())
+                    for layout in (opt.local_layout() for opt in
+                                   _multi_node_optimizers(trainer))
+                    if layout is not None}
+            if saved and saved != mine and writers:
+                # another world size or split: the whole vectors, read in
+                # the optimizers' plain mode
+                tree = _whole_vectors(tree, [
+                    self._rank_ckpt(w).restore(iteration) for w in writers])
                 trainer.serialize(NpzDeserializer(tree, strict=False))
+            else:
+                with _per_rank_state(trainer):
+                    trainer.serialize(NpzDeserializer(tree, strict=False))
             self._protected_iteration = iteration
             return iteration
+
+    def _rank_ckpt(self, rank):
+        if rank == self.rank:
+            return self._ckpt
+        return OrbaxCheckpointer(os.path.join(self.directory, f"rank{rank}"),
+                                 max_to_keep=None)
+
+    def _rank_dirs(self):
+        """``{file rank: steps}`` of every rank directory here."""
+        out = {}
+        for d in os.listdir(self.directory):
+            m = re.match(r"^rank(\d+)$", d)
+            if m:
+                out[int(m.group(1))] = set(
+                    self._rank_ckpt(int(m.group(1))).all_steps())
+        return out
+
+    def _writers(self, step):
+        """The file ranks that wrote ``step`` (its ``meta.json``, read
+        from this rank's directory or any other holding it), or None."""
+        dirs = self._rank_dirs()
+        for rank in [self.rank] + sorted(dirs):
+            if step in dirs.get(rank, ()):
+                meta = self._rank_ckpt(rank).read_meta(step)
+                if meta is not None:
+                    return [int(w) for w in meta["writers"]]
+        return None
+
+    def _readable_steps(self):
+        """The steps this rank can resume from: its own steps written at
+        the current world size (or before steps recorded their writers),
+        and any step every writer's directory holds."""
+        own = set(self._ckpt.all_steps())
+        dirs = self._rank_dirs()
+        out = set()
+        for step in set().union(*dirs.values()) if dirs else ():
+            meta = None
+            for rank in [self.rank] + sorted(dirs):
+                if step in dirs.get(rank, ()):
+                    meta = self._rank_ckpt(rank).read_meta(step)
+                    break
+            if meta is None:
+                if step in own:
+                    out.add(step)
+            elif step in own and meta["world_size"] == self.comm.size:
+                out.add(step)
+            elif all(step in dirs.get(w, ()) for w in meta["writers"]):
+                out.add(step)
+        return out
 
     def finalize(self):
         self._ckpt.close()

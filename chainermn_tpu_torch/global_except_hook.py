@@ -8,10 +8,10 @@ peers blocked in a collective.  Under ``torchrun`` the agent sees the
 failed rank and stops the others; recovery is a relaunch and the
 checkpointer's consensus ``maybe_load`` (:mod:`.extensions.checkpoint`).
 The hook makes no teardown call that can block on NCCL (no
-``destroy_process_group``): it only prints, flushes and exits.  The
-host channel's ``post_abort``, which the JAX hook also calls to wake
-peers waiting on the coordination store, comes with the port of
-``_host_channel.py`` (ROADMAP A11).
+``destroy_process_group``): it prints, posts the abort flag on the host
+channel (``HostChannel.post_abort``: peers blocked in a channel get raise
+at once instead of waiting out their deadline, the store's counterpart of
+``MPI_Abort``), flushes and exits.
 
 Where it installs: the JAX package installs the hook at import when its
 distributed client is already up.  No process group exists when this
@@ -74,6 +74,14 @@ def add_hook():
                 original(exc_type, exc_value, exc_traceback)
             except BaseException:  # noqa: BLE001
                 pass
+        try:
+            from .communicators._host_channel import get_host_channel
+            ch = get_host_channel()
+            if ch is not None:
+                ch.post_abort(f"rank {rank}: {exc_type.__name__}: "
+                              f"{exc_value}")
+        except Exception:  # noqa: BLE001 (the abort path must not raise)
+            pass
         if exc_type is KeyboardInterrupt:
             return
         try:

@@ -119,14 +119,14 @@ through :meth:`change_communicator`.  Online mode reads the tracer, so it
 needs ``CHAINERMN_TPU_TRACE``; with tracing off it warns and runs the
 startup micro-bench instead, as in the JAX package.
 
-:meth:`change_communicator` swaps the communicator (the non-elastic part
-of the JAX method): the gradient in flight is waited for and dropped, the
-double-buffered gradient and the error-feedback residual start again from
-zeros, the exchange plan is made again, and a communicator that carries
-no plan is re-tuned by the micro-bench when the outgoing one was tuned.
-The sharded update's state stays where its flat layout stays; a swap
-that moves the layout raises ``RuntimeError`` (the JAX package re-slices
-it, or resumes it from a checkpoint: ROADMAP A11).
+:meth:`change_communicator` swaps the communicator after an elastic
+resize (the JAX method's contract): the gradient in flight is waited for
+and dropped, the double-buffered gradient and the error-feedback residual
+start again from zeros, the exchange plan and the flat layout are made
+again at the new size, the sharded update's state is re-sliced in memory
+(or, ``via_checkpoint=True``, dropped for the consensus resume), and a
+communicator that carries no plan is re-tuned by the micro-bench when the
+outgoing one was tuned.
 
 A model whose parameters only some ranks train (a
 ``MultiNodeChainList``: each rank runs and trains only the components it
@@ -140,6 +140,7 @@ same components, so the groups' leaves agree.
 
 from __future__ import annotations
 
+import json
 import warnings
 
 import numpy as np
@@ -393,15 +394,34 @@ class _MultiNodeOptimizer:
                 bool(getattr(comm, "striped", False)),
                 getattr(comm, "stripe_ratio", 0.0))
 
-    def change_communicator(self, communicator):
-        """Swap the communicator; returns ``self``.  When the outgoing
-        communicator was tuned (``autotune``) and the new one carries no
-        plan, the new one takes the old one's hand-knob provenance and is
-        re-tuned by the startup micro-bench (collective).  The gradient in
-        flight is waited for; the double-buffered gradient and the
-        residual start again from zeros.  Under the sharded update a
-        communicator that moves this rank's chunk raises
-        ``RuntimeError``."""
+    def change_communicator(self, communicator, via_checkpoint=False):
+        """Swap the communicator, re-planning every piece of state whose
+        layout depends on the world (the JAX elastic contract); returns
+        ``self``.
+
+        * The parameters and the replicated (per-parameter) state are
+          kept: every rank holds them whole.
+        * The exchange plan and the sharded update's flat layout (its
+          padding and this rank's chunk) are derived again at the next
+          step.
+        * The gradient in flight is waited for and dropped; the
+          double-buffered gradient and the error-feedback residual start
+          again from zeros (per-rank content with no meaning in another
+          partition: one step of staleness or correction, never
+          correctness).
+        * The sharded update's state is re-sliced in memory at the new
+          layout: its whole flat vectors are gathered over the OUTGOING
+          communicator (a collective over the old world, which must still
+          be up; none for an old world of one), then this rank takes its
+          new chunk.  With ``via_checkpoint=True`` it is dropped instead,
+          for the checkpointer's consensus ``maybe_load`` to restore (an
+          elastic rebuild: the old world spans departed ranks and is
+          already torn down).  A change of the striped layout (striped to
+          flat, or another ``stripe_ratio``) needs ``via_checkpoint``.
+        * When the outgoing communicator was tuned (``autotune``) and the
+          new one carries no plan, the new one takes the old one's
+          hand-knob provenance and is re-tuned by the startup micro-bench
+          (collective over the new world)."""
         old = self.communicator
         if communicator is old:
             return self
@@ -415,16 +435,38 @@ class _MultiNodeOptimizer:
             from .communicators._autotune import retune_communicator
             communicator = retune_communicator(communicator,
                                                mode="startup")
-        if self._sharded_update and self.actual_optimizer._state \
+        actual = self.actual_optimizer
+        leaves = None
+        if self._sharded_update and actual._state \
                 and self._layout_key(old) != self._layout_key(
                     communicator):
-            raise RuntimeError(
-                "change_communicator under the sharded update: the new "
-                "communicator moves this rank's chunk of the flat state; "
-                "resume the state from a snapshot instead")
+            striped_change = (
+                (bool(getattr(old, "striped", False)),
+                 getattr(old, "stripe_ratio", 0.0))
+                != (bool(getattr(communicator, "striped", False)),
+                    getattr(communicator, "stripe_ratio", 0.0)))
+            if striped_change and not via_checkpoint:
+                raise RuntimeError(
+                    "change_communicator across a striped-layout change "
+                    "(striped<->flat chunking or a different "
+                    "stripe_ratio) needs via_checkpoint=True: the "
+                    "sharded flat state cannot be re-sliced in memory "
+                    "across split layouts")
+            if not via_checkpoint:
+                # whole vectors, gathered over the old world (a world of
+                # one holds them already: no collective)
+                local = old.size == 1
+                self.__dict__["_local_state"] = local
+                try:
+                    leaves = self._save_flat_state()
+                finally:
+                    self.__dict__["_local_state"] = False
+            actual._state = {}
         self._reset_exchange()
         self.__dict__.update(communicator=communicator, _residual=None,
                              _obs_plan=None)
+        if leaves is not None:
+            self._load_flat_state(leaves)
         return self
 
     def _maybe_online_retune(self):
@@ -887,11 +929,17 @@ class _MultiNodeOptimizer:
 
         In the per-rank mode (``_local_state``, set by the per-rank DCP
         checkpointer) the flat vectors are this rank's own chunks, written
-        and read without a collective, beside ``local_chunk``: the world
-        size and this rank's chunk index, which a reader must match."""
+        and read without a collective, beside ``local_chunk`` (the world
+        size and this rank's chunk index, and, striped, its DCN-path chunk
+        index: :meth:`local_layout`) and ``local_chunk_keys`` (each chunked
+        key with the entry of ``local_chunk`` that orders it).  A per-rank
+        read holds ``local_chunk`` to this rank's layout; a reader at
+        another layout is given the whole vectors instead (every writer's
+        chunks in that order) and reads them in the plain mode."""
         actual = self.actual_optimizer
-        if self._local_state and actual.target is not None \
-                and (self._sharded_update or self._needs_residual):
+        local = self._local_state and actual.target is not None \
+            and (self._sharded_update or self._needs_residual)
+        if local:
             self._check_local_layout(serializer)
         if self._sharded_update:
             actual.serialize_with(serializer, self._save_flat_state,
@@ -904,23 +952,58 @@ class _MultiNodeOptimizer:
             self._serialize_stale(serializer["stale_grads"])
         if self._db_dcn and actual.target is not None:
             self._serialize_stale_dcn(serializer["stale_grads"])
+        if local and serializer.is_writer:
+            serializer("local_chunk_keys", json.dumps(self._chunk_keys()))
+
+    def local_layout(self):
+        """``local_chunk`` of the per-rank mode (world size, chunk index,
+        and on a striped communicator the DCN-path chunk index), or None
+        when this optimizer writes no per-rank state."""
+        comm = self.communicator
+        if self.actual_optimizer.target is None \
+                or not (self._sharded_update or self._needs_residual):
+            return None
+        mine = [comm.size, getattr(comm, "chunk_index", comm.rank)]
+        if self._striped_update:
+            mine.append(comm.striped_chunk_index)
+        return np.array(mine, np.int64)
 
     def _check_local_layout(self, serializer):
         """The per-rank mode's ``local_chunk`` key: written, or read and
-        held against this rank's (a chunk means nothing in another
-        partition)."""
-        comm = self.communicator
-        mine = np.array([comm.size, getattr(comm, "chunk_index", comm.rank)],
-                        np.int64)
+        held against this rank's layout."""
+        mine = self.local_layout()
         if serializer.is_writer:
             serializer("local_chunk", mine)
             return
         saved = serializer("local_chunk", None)
         if saved is None or not np.array_equal(np.asarray(saved), mine):
             raise ValueError(
-                f"a per-rank snapshot of (world size, chunk) {saved} "
-                f"cannot resume at {mine.tolist()}; resharding a per-rank "
-                f"snapshot is not ported yet (ROADMAP A11)")
+                f"per-rank optimizer state of layout {saved} read at "
+                f"layout {mine.tolist()}: a reader at another world size "
+                f"or split takes the whole vectors (every writer's chunks "
+                f"in chunk order) in the plain mode")
+
+    def _chunk_keys(self):
+        """``[key, entry]`` of every leaf this rank has just written as its
+        own chunk: the entry of ``local_chunk`` that orders the writers'
+        chunks of it (1, the chunk index; 2, the DCN-path one)."""
+        actual = self.actual_optimizer
+        segs = [seg[0] for seg in self._segments()]
+
+        def entry(key):
+            return 2 if key == "dcn" else 1
+        out = []
+        if self._sharded_update and all(k in actual._state for k in segs):
+            start = int(actual._has_count)
+            out += [[f"opt_state_{start + i}", entry(segs[i % len(segs)])]
+                    for i in range(len(actual._slots) * len(segs))]
+        if self._sharded_update and self._stale_exchange \
+                and self._stale is not None:
+            out += [[f"stale_grads/g{i}", entry(k)]
+                    for i, k in enumerate(segs)]
+        if self._needs_residual and self._residual is not None:
+            out.append(["ef_residual/r0", 1])
+        return out
 
     def _whole(self, chunk, key=_FLAT):
         """Every rank's chunk of the flat slice ``key``, gathered in chunk

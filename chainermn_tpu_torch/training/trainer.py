@@ -11,8 +11,15 @@ extension's ``initialize(trainer)`` once before the first iteration
 failure is raised after every finalizer and the updater's have run,
 unless the loop is already raising).  With tracing on
 (``CHAINERMN_TPU_TRACE``) a run leaves its rank's Chrome-trace shard,
-``trace-rank{r}.jsonl``, in ``out``.  Failure recovery is not ported yet
-(ROADMAP A11).
+``trace-rank{r}.jsonl``, in ``out``.
+
+``run`` is also the supervisor of the JAX trainer: when an extension can
+recover (``can_recover`` and ``recover``, i.e.
+:class:`~..extensions.FailureRecovery` or its elastic subclass) and the
+exception escaping the loop is one it can recover, every extension's
+``on_error`` fires, the extension recovers (consensus resume, transport
+quiesce, an optional rebuild) and the loop is entered again; any other
+failure fires ``on_error`` and is raised.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import collections
 import os
 import sys
 import time
+import traceback
 
 from .. import observability
 from ..core import reporter as reporter_module
@@ -135,9 +143,33 @@ class Trainer:
     def get_extension(self, name):
         return self._extensions[name].extension
 
-    def run(self):
+    def _fire_on_error(self, extensions, exc):
+        """Every extension's ``on_error``, each in its own ``try``: a
+        failing handler is reported and must not mask the failure or stop
+        the recovery."""
+        for entry in extensions:
+            on_error = getattr(entry.extension, "on_error", None)
+            if on_error:
+                try:
+                    on_error(self, exc, exc.__traceback__)
+                except Exception as handler_exc:
+                    print(f"Exception in on_error of extension "
+                          f"{entry.name}: {handler_exc}", file=sys.stderr)
+
+    @staticmethod
+    def _find_recovery(extensions):
+        for entry in extensions:
+            ext = entry.extension
+            if hasattr(ext, "can_recover") and hasattr(ext, "recover"):
+                return ext
+        return None
+
+    def run(self, show_loop_exception_msg=True):
         """Run the training loop until ``stop_trigger`` fires.  A failure
-        is passed to every extension's ``on_error``, then raised."""
+        is passed to every extension's ``on_error``; then, when a
+        recovery extension can recover it, recovered and the loop entered
+        again, else raised (after the message and traceback when
+        ``show_loop_exception_msg``)."""
         if self._done:
             raise RuntimeError("cannot run training loop multiple times")
         os.makedirs(self.out, exist_ok=True)
@@ -151,25 +183,32 @@ class Trainer:
         for entry in extensions:
             if entry.call_before_training:
                 entry.extension(self)
+        recovery = self._find_recovery(extensions)
         try:
-            while not self.stop_trigger(self):
-                self.observation = {}
-                with self.reporter.scope(self.observation):
-                    self.updater.update()
-                    for entry in extensions:
-                        if entry.trigger is None or entry.trigger(self):
-                            entry.extension(self)
-        except Exception as e:
-            for entry in extensions:
-                on_error = getattr(entry.extension, "on_error", None)
-                if on_error:
-                    try:
-                        on_error(self, e, e.__traceback__)
-                    except Exception as handler_exc:
-                        print(f"Exception in on_error of extension "
-                              f"{entry.name}: {handler_exc}",
+            while True:
+                try:
+                    while not self.stop_trigger(self):
+                        self.observation = {}
+                        with self.reporter.scope(self.observation):
+                            self.updater.update()
+                            for entry in extensions:
+                                if entry.trigger is None \
+                                        or entry.trigger(self):
+                                    entry.extension(self)
+                    break
+                except Exception as e:
+                    self._fire_on_error(extensions, e)
+                    if recovery is not None and recovery.can_recover(e):
+                        if show_loop_exception_msg:
+                            print("Recoverable exception in main training "
+                                  "loop:", e, file=sys.stderr)
+                        recovery.recover(self, e)
+                        continue
+                    if show_loop_exception_msg:
+                        print("Exception in main training loop:", e,
                               file=sys.stderr)
-            raise
+                        traceback.print_exc()
+                    raise
         finally:
             self._finalize(extensions)
 

@@ -324,6 +324,7 @@ import importlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -4621,6 +4622,324 @@ def phase_sp_moe_parity():
         fail("the process group outlived sp_moe_parity")
 
 
+#: phases 42-43: 12 iterations, a DCP snapshot every 4, one fault
+#: injected at the 7th gradient exchange (the 7th iteration, after its
+#: backward): the rollback resumes from iteration 4
+RECOVER_STEPS, RECOVER_EVERY, RECOVER_FAULT_AT = 12, 4, 7
+#: host-channel round trips timed over the script's TCPStore
+CHANNEL_ROUNDS = 200
+
+
+def recover_trainer(comm, out, sharded=False, checkpoint=True):
+    """The full-width LM (bf16, split backward) on ``comm``'s multi-node
+    Adam for RECOVER_STEPS iterations of train_rows, with the per-rank DCP
+    checkpointer every RECOVER_EVERY when ``checkpoint``: ``(model,
+    trainer, checkpointer, step_marks)``; ``step_marks`` collects
+    ``(iteration, perf_counter after a sync)`` after each iteration."""
+    from chainermn_tpu_torch import create_multi_node_optimizer
+    from chainermn_tpu_torch.core.optimizer import Adam
+    from chainermn_tpu_torch.dataset import SerialIterator
+    from chainermn_tpu_torch.extensions import \
+        create_multi_node_orbax_checkpointer
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.training import StandardUpdater, Trainer
+    model = TransformerLM(compute_dtype=torch.bfloat16, remat=False,
+                          device="cuda", **MODEL)
+    comm.bcast_data(model)
+    adam = Adam(alpha=3e-4)
+    adam.seed = 0
+    opt = create_multi_node_optimizer(adam, comm, zero_sharding=sharded)
+    opt.setup(model)
+    _, data = train_rows()
+    trainer = Trainer(StandardUpdater(
+        SerialIterator(data, TRAIN_BATCH, shuffle=False), opt),
+        (RECOVER_STEPS, "iteration"), out=os.path.join("build", out))
+    marks = []
+
+    def mark(tr):
+        torch.cuda.synchronize()
+        marks.append((tr.updater.iteration, time.perf_counter()))
+
+    trainer.extend(mark, name="mark")
+    cp = None
+    if checkpoint:
+        directory = os.path.join("build", out, "dcp")
+        shutil.rmtree(directory, ignore_errors=True)
+        cp = create_multi_node_orbax_checkpointer(comm, directory)
+        trainer.extend(cp, trigger=(RECOVER_EVERY, "iteration"))
+    return model, trainer, cp, marks
+
+
+def timed_checkpointer(cp):
+    """Wrap ``cp``'s save and consensus load with wall-clock timers (the
+    save copies the state to the host: it syncs); returns the dict they
+    fill."""
+    t = {"save_ms": [], "load_ms": [], "load_at": []}
+    save, load = cp.save, cp.maybe_load
+
+    def timed_save(trainer, iteration):
+        t0 = time.perf_counter()
+        save(trainer, iteration)
+        t["save_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def timed_load(trainer, optimizer=None):
+        t0 = time.perf_counter()
+        t["load_at"].append(t0)
+        out = load(trainer)
+        torch.cuda.synchronize()
+        t["load_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    cp.save, cp.maybe_load = timed_save, timed_load
+    return t
+
+
+def params_of(model):
+    return {p: v.detach().clone() for p, v in model.namedparams()}
+
+
+def recovery_timeline(fault_at, marks, t, resumed):
+    """Seconds from the fault (the supervisor catching it) to the end of
+    the first resumed step: quiesce (to the consensus load), the load,
+    and the first step."""
+    load_at = t["load_at"][0]
+    load_end = load_at + t["load_ms"][0] / 1e3
+    first = next(m for i, m in marks if m > load_end and i == resumed + 1)
+    return {"fault_to_first_step_s": first - fault_at,
+            "quiesce_s": load_at - fault_at,
+            "consensus_load_s": t["load_ms"][0] / 1e3,
+            "first_step_s": first - load_end}
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_train_recover():
+    """Phase 42: FailureRecovery on the full-width LM (bf16, split
+    backward, Adam 3e-4, batch 8 x T 1024) in a world of one on NCCL: the
+    'fault' communicator over the bf16 flat wire raises at the 7th
+    gradient exchange; the supervisor rolls back to the DCP snapshot of
+    iteration 4 and the run ends at 12, bitwise on an uninterrupted run
+    in this call."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.extensions import FailureRecovery
+    from chainermn_tpu_torch.training.trainer import Extension
+    fa = flash_module()
+    saved = fa._FLASH_BWD
+    fa._FLASH_BWD = "split"
+
+    def comm_with(faults):
+        return create_communicator(
+            "fault", allreduce_grad_dtype="bfloat16",
+            fault_schedule={"seed": 0, "faults": faults})
+
+    try:
+        comm = comm_with([])
+        model, trainer, _, _ = recover_trainer(comm, "chip_smoke_recover_gold",
+                                               checkpoint=False)
+        trainer.run()
+        gold = params_of(model)
+        comm.finalize()
+        del model, trainer
+        torch.cuda.empty_cache()
+
+        comm = comm_with([{"op": "multi_node_mean_grad",
+                           "nth": RECOVER_FAULT_AT}])
+        model, trainer, cp, marks = recover_trainer(
+            comm, "chip_smoke_recover")
+        t = timed_checkpointer(cp)
+        fault = {}
+
+        class FaultClock(Extension):
+            trigger = (10 ** 9, "iteration")
+
+            def __call__(self, trainer):
+                pass
+
+            def on_error(self, trainer, exc, tb):
+                fault.setdefault("at", time.perf_counter())
+                fault.setdefault("exc", type(exc).__name__)
+
+        trainer.extend(FaultClock(), name="fault_clock")
+        rec = FailureRecovery(checkpointer=cp, verbose=False)
+        trainer.extend(rec)
+        reset_launches()
+        trainer.run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        final = params_of(model)
+        bitwise = all(torch.equal(final[p], v) for p, v in gold.items())
+        resumed = rec.stats["resumed_iterations"]
+        steps = sorted(int(d) for d in os.listdir(cp._ckpt.directory)
+                       if d.isdigit())
+        row = {"phase": "train_recover", "communicator": "fault",
+               "backend": dist.get_backend(), "world": comm.size,
+               "wire_dtype": str(comm.allreduce_grad_dtype),
+               "fault": fault.get("exc"),
+               "fault_at_exchange": RECOVER_FAULT_AT,
+               "recoveries": rec.stats["recoveries"],
+               "resumed_iterations": resumed,
+               "iteration": trainer.updater.iteration,
+               "final_bitwise": bitwise,
+               **recovery_timeline(fault["at"], marks, t, resumed[0]),
+               "save_ms": t["save_ms"], "load_ms": t["load_ms"],
+               "snapshot_bytes": dir_bytes(cp._ckpt._step_dir(steps[-1])),
+               "snapshots": steps, "launches": launches,
+               "exchanges": comm.calls["allreduce_grad"]}
+        comm.finalize()
+    finally:
+        fa._FLASH_BWD = saved
+    emit(row)
+    forwards = RECOVER_STEPS + RECOVER_FAULT_AT - resumed[0]
+    want = expected_launches(fwd_lse=MODEL["n_layers"] * forwards,
+                             bwd_delta=MODEL["n_layers"] * forwards,
+                             bwd_dq=MODEL["n_layers"] * forwards,
+                             bwd_dkv=MODEL["n_layers"] * forwards)
+    if launches != want:
+        fail(f"train_recover launches {launches}, expected {want}")
+    if not (row["recoveries"] == 1 and resumed == [RECOVER_EVERY]
+            and row["iteration"] == RECOVER_STEPS and bitwise):
+        fail(f"train_recover: not one rollback to iteration "
+             f"{RECOVER_EVERY} ending bitwise on the uninterrupted run: "
+             f"{row}")
+    if dist.is_initialized():
+        fail("the process group outlived train_recover")
+
+
+def channel_round_trips(channel, store):
+    """Mean microseconds of a host-channel point-to-point round trip
+    (send_obj then recv_obj of a small dict, this process to itself) and
+    of a barrier, over CHANNEL_ROUNDS each, and the store's key count
+    before and after them (every matched op takes its keys back out)."""
+    keys_before = store.num_keys()
+    t0 = time.perf_counter()
+    for i in range(CHANNEL_ROUNDS):
+        channel.send_obj({"i": i}, 0, tag=7)
+        if channel.recv_obj(0, tag=7) != {"i": i}:
+            fail("host channel: a message came back changed")
+    p2p = (time.perf_counter() - t0) / CHANNEL_ROUNDS * 1e6
+    t0 = time.perf_counter()
+    for _ in range(CHANNEL_ROUNDS):
+        channel.barrier()
+    barrier = (time.perf_counter() - t0) / CHANNEL_ROUNDS * 1e6
+    keys = (keys_before, store.num_keys())
+    if keys[1] != keys[0]:
+        fail(f"host channel: the store went from {keys[0]} to {keys[1]} "
+             f"keys over {2 * CHANNEL_ROUNDS} matched ops")
+    return p2p, barrier, keys
+
+
+def phase_elastic_rebuild():
+    """Phase 43: ElasticRecovery on the same LM under the sharded update
+    (ZeRO-1 Adam, bf16 wire, split backward) in a world of one: a
+    TCPStore this script hosts carries a host channel (heartbeat on, its
+    round trips timed) and the membership, over whose store the
+    supervisor builds; a fault at the 7th reduce-scatter makes the
+    supervisor resolve a one-member view at epoch 1 and rebuild onto
+    ElasticMeshCommunicator((0,), epoch=1) -- a fresh NCCL world over the
+    store -- through change_communicator, roll back to iteration 4 and
+    end at 12, bitwise on an uninterrupted run."""
+    import datetime
+
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.communicators import (ElasticMembership,
+                                                   ElasticMeshCommunicator,
+                                                   HostChannel, StoreKV)
+    from chainermn_tpu_torch.extensions import ElasticRecovery
+    fa = flash_module()
+    saved = fa._FLASH_BWD
+    fa._FLASH_BWD = "split"
+    store = dist.TCPStore("127.0.0.1", 0, 1, True,
+                          timeout=datetime.timedelta(seconds=60),
+                          wait_for_workers=False)
+    channel = HostChannel(client=StoreKV(store), process_id=0,
+                          num_processes=1, timeout_ms=60_000)
+    channel.enable_heartbeat(interval_s=0.5)
+    p2p_us, barrier_us, store_keys = channel_round_trips(channel, store)
+    try:
+        comm = create_communicator("pure_nccl",
+                                   allreduce_grad_dtype="bfloat16")
+        model, trainer, _, _ = recover_trainer(
+            comm, "chip_smoke_elastic_gold", sharded=True, checkpoint=False)
+        trainer.run()
+        gold = params_of(model)
+        comm.finalize()
+        del model, trainer
+        torch.cuda.empty_cache()
+
+        comm = create_communicator(
+            "fault", allreduce_grad_dtype="bfloat16",
+            fault_schedule={"seed": 0, "faults": [
+                {"op": "reduce_scatter_grad", "nth": RECOVER_FAULT_AT}]})
+        model, trainer, cp, marks = recover_trainer(
+            comm, "chip_smoke_elastic", sharded=True)
+        t = timed_checkpointer(cp)
+        membership = ElasticMembership(StoreKV(store), rank=0, world=1,
+                                       settle_s=0.05, poll_s=0.005)
+        rec = ElasticRecovery(checkpointer=cp, comm=comm,
+                              membership=membership, verbose=False)
+        build = {}
+        factory = rec._default_factory
+
+        def timed_factory(view):
+            t0 = time.perf_counter()
+            new = factory(view)
+            torch.cuda.synchronize()
+            build["rebuild_s"] = time.perf_counter() - t0
+            return new
+
+        rec._default_factory = timed_factory
+        trainer.extend(rec)
+        reset_launches()
+        trainer.run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        final = params_of(model)
+        bitwise = all(torch.equal(final[p], v) for p, v in gold.items())
+        new = rec.comm
+        row = {"phase": "elastic_rebuild",
+               "communicator": type(new).__name__,
+               "epoch": new.epoch, "members": list(new.members),
+               "stable_rank": new.stable_rank,
+               "backend": dist.get_backend(), "world": new.size,
+               "recoveries": rec.stats["recoveries"],
+               "resumed_iterations": rec.stats["resumed_iterations"],
+               "resizes": rec.stats["resizes"],
+               "iteration": trainer.updater.iteration,
+               "final_bitwise": bitwise, **build,
+               "save_ms": t["save_ms"], "load_ms": t["load_ms"],
+               "channel_p2p_us": p2p_us, "channel_barrier_us": barrier_us,
+               "store_keys_before_after": store_keys,
+               "heartbeat_interval_s": channel.monitor.interval_s,
+               "launches": launches,
+               "collectives": dict(new.calls)}
+        ok_type = isinstance(new, ElasticMeshCommunicator)
+        new.finalize()
+    finally:
+        fa._FLASH_BWD = saved
+        channel.monitor.stop_thread()
+    emit(row)
+    forwards = RECOVER_STEPS + RECOVER_FAULT_AT - RECOVER_EVERY
+    want = expected_launches(fwd_lse=MODEL["n_layers"] * forwards,
+                             bwd_delta=MODEL["n_layers"] * forwards,
+                             bwd_dq=MODEL["n_layers"] * forwards,
+                             bwd_dkv=MODEL["n_layers"] * forwards)
+    if launches != want:
+        fail(f"elastic_rebuild launches {launches}, expected {want}")
+    if not (ok_type and row["epoch"] == 1 and row["members"] == [0]
+            and "nccl" in row["backend"] and row["recoveries"] == 1
+            and row["resumed_iterations"] == [RECOVER_EVERY]
+            and row["iteration"] == RECOVER_STEPS and bitwise):
+        fail(f"elastic_rebuild: not one rebuild onto an epoch-1 NCCL world "
+             f"of member 0 ending bitwise on the uninterrupted run: {row}")
+    if dist.is_initialized():
+        fail("the process group outlived elastic_rebuild")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -4727,6 +5046,13 @@ def main():
     phase_train_moe()
     phase_sp_moe_parity()
     emit({"phase": "sp_moe_phases", "seconds": time.perf_counter() - t_sp})
+    torch.cuda.empty_cache()
+    t_resilience = time.perf_counter()
+    phase_train_recover()
+    torch.cuda.empty_cache()
+    phase_elastic_rebuild()
+    emit({"phase": "resilience_phases",
+          "seconds": time.perf_counter() - t_resilience})
 
     main_check = next(c for c in checks
                       if c["B"] == 1 and c["T"] == 1024 and c["causal"])

@@ -57,7 +57,8 @@ def _rank_main(fn, rank, world, store, out, kwargs):
         try:
             result = fn(rank, **kwargs)
         finally:
-            dist.destroy_process_group()
+            if dist.is_initialized():   # an elastic worker may own it
+                dist.destroy_process_group()
         torch.save(result, os.path.join(out, f"rank{rank}.pt"))
     except BaseException:
         with open(os.path.join(out, f"rank{rank}.err"), "w") as f:
@@ -65,10 +66,10 @@ def _rank_main(fn, rank, world, store, out, kwargs):
         raise
 
 
-def spawn_ranks(tmp_path, fn, world=WORLD, **kwargs):
+def spawn_ranks(tmp_path, fn, world=WORLD, join_s=JOIN_S, **kwargs):
     """Run ``fn(rank, **kwargs)`` in ``world`` spawned gloo ranks; returns
     their results in rank order.  Fails (and kills every rank) when one
-    fails or the world outlives ``JOIN_S``."""
+    fails or the world outlives ``join_s`` seconds."""
     out = tmp_path / f"{fn.__name__}_out"
     out.mkdir()
     ctx = multiprocessing.get_context("spawn")
@@ -78,7 +79,7 @@ def spawn_ranks(tmp_path, fn, world=WORLD, **kwargs):
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + JOIN_S
+    deadline = time.monotonic() + join_s
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -88,7 +89,7 @@ def spawn_ranks(tmp_path, fn, world=WORLD, **kwargs):
             p.join(10)
     errors = {r: (out / f"rank{r}.err").read_text() for r in range(world)
               if (out / f"rank{r}.err").exists()}
-    assert not hung, f"ranks {hung} still running after {JOIN_S} s: {errors}"
+    assert not hung, f"ranks {hung} still running after {join_s} s: {errors}"
     assert not errors and all(p.exitcode == 0 for p in procs), \
         f"exit codes {[p.exitcode for p in procs]}: {errors}"
     return [torch.load(out / f"rank{r}.pt", weights_only=False)
@@ -342,9 +343,10 @@ def test_gradient_packing_and_bucket_plan_match_jax():
 
 
 def test_names_not_ported_raise_and_no_card_raises():
-    # autotune is ported (tests/test_torch_autotune.py); fault injection
-    # is not
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    # autotune is ported (tests/test_torch_autotune.py); so is fault
+    # injection (tests/test_torch_fault_injection.py), which needs a
+    # schedule
+    with pytest.raises(ValueError, match="needs fault_schedule="):
         create_communicator("fault", device="cpu")
     # the striped exchange is ported: a flat communicator has nothing to
     # stripe (tests/test_torch_striped_exchange.py runs the rest)
@@ -388,8 +390,12 @@ def test_names_not_ported_raise_and_no_card_raises():
     with pytest.raises(ValueError, match="pure_nccl-only"):
         create_communicator("naive", device="cpu",
                             allreduce_grad_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="A11"):
-        ElasticMeshCommunicator()
+    # the elastic communicator is ported (tests/test_torch_elastic.py): it
+    # needs members and a host channel over the job's store
+    with pytest.raises(ValueError, match=">= 1 member"):
+        ElasticMeshCommunicator(members=[], device="cpu")
+    with pytest.raises(ValueError, match="host channel"):
+        ElasticMeshCommunicator(members=[0], device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_communicator("pure_nccl")

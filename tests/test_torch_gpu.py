@@ -11,7 +11,9 @@ its fp32 step against the CPU's and its remat step against the plain
 one; and the ImageNet example's input pipeline and dropout on the card:
 the device-feed stage's batches and copy stream, masks per step and per
 seed, and the native loader's build; the DCGAN's transposed convolution
-(cuDNN) and one DCGAN iteration on the card against the CPU.
+(cuDNN) and one DCGAN iteration on the card against the CPU; the host
+channel's store adapter over a TCPStore, and an elastic rebuild of a
+world of one onto a fresh NCCL world.
 
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -1287,3 +1289,83 @@ def test_moe_lm_dispatch_at_a_world_of_one_matches_the_cpu(cuda_device):
     assert obs["main/moe_aux"] == pytest.approx(1.0, abs=1e-6)
     for p, r in ref_grads.items():
         assert _rel_err(grads[p], r) < 1e-4, p
+
+
+@pytest.mark.gpu
+def test_store_adapter_over_a_tcp_store_on_the_card_host(cuda_device):
+    """The host channel's store adapter over a TCPStore on the card's
+    machine (this torch build): a timed-out wait leaves the client
+    usable, a p2p round trip and a barrier go through and leave no key
+    behind, and the channel hands a CUDA tensor back on the card."""
+    import datetime
+
+    import torch.distributed as dist
+    from chainermn_tpu_torch.communicators import HostChannel, StoreKV
+    server = dist.TCPStore("127.0.0.1", 0, 1, True,
+                           timeout=datetime.timedelta(seconds=30),
+                           wait_for_workers=False)
+    client = dist.TCPStore("127.0.0.1", server.port, 1, False,
+                           timeout=datetime.timedelta(seconds=5))
+    with pytest.raises(Exception):
+        client.wait(["missing"], datetime.timedelta(milliseconds=100))
+    kv = StoreKV(client)
+    with pytest.raises(TimeoutError):
+        kv.blocking_key_value_get("never", 30)
+    ch = HostChannel(client=kv, process_id=0, num_processes=1,
+                     timeout_ms=5000)
+    ch.enable_heartbeat(interval_s=0.2)
+    base = server.num_keys()
+    try:
+        x = torch.arange(6.0, device=cuda_device)
+        ch.send_obj(x, 0, tag=1)
+        got = ch.recv_obj(0, tag=1)
+        assert got.device.type == "cuda" and torch.equal(got, x)
+        ch.barrier()
+        assert ch.allgather({"r": 0}) == [{"r": 0}]
+        assert server.num_keys() == base   # every op took its keys back
+    finally:
+        ch.monitor.stop_thread()
+
+
+@pytest.mark.gpu
+def test_elastic_rebuild_onto_a_fresh_nccl_world_of_one(cuda_device):
+    """A world of one on NCCL rebuilt by ElasticMeshCommunicator((0,),
+    epoch=1) over a TCPStore: the old world is aborted, the new one is
+    NCCL over the store's ``<ns>/el1/pg`` prefix, its collectives run on
+    the card, and a multi-node optimizer moves onto it."""
+    import datetime
+
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer)
+    from chainermn_tpu_torch.communicators import (ElasticMeshCommunicator,
+                                                   HostChannel, StoreKV)
+    from chainermn_tpu_torch.core.optimizer import Adam
+    from chainermn_tpu_torch.models import MLP, Classifier
+    store = dist.TCPStore("127.0.0.1", 0, 1, True,
+                          timeout=datetime.timedelta(seconds=30),
+                          wait_for_workers=False)
+    ch = HostChannel(client=StoreKV(store), process_id=0, num_processes=1)
+    boot = create_communicator("pure_nccl")
+    model = Classifier(MLP(n_units=16, n_out=3, seed=0, device=cuda_device))
+    opt = create_multi_node_optimizer(Adam(), boot,
+                                      zero_sharding=True).setup(model)
+    x = torch.randn(8, 5, device=cuda_device)
+    t = torch.randint(0, 3, (8,), device=cuda_device)
+    opt.update(model, x, t)
+    el = ElasticMeshCommunicator((0,), epoch=1, channel=ch)
+    try:
+        assert "nccl" in dist.get_backend() and el.device.type == "cuda"
+        assert (el.epoch, el.members, el.stable_rank) == (1, (0,), 0)
+        assert el.group is None and dist.get_world_size() == 1
+        opt.change_communicator(el)
+        assert opt.communicator is el
+        loss = opt.update(model, x, t)
+        assert torch.isfinite(loss) and loss.device.type == "cuda"
+        assert el.calls["reduce_scatter_grad"] == 1
+        y = el.allreduce(torch.ones(3, device=cuda_device))
+        assert y.device.type == "cuda" and torch.equal(y.cpu(),
+                                                        torch.ones(3))
+    finally:
+        el.finalize()
+    assert not dist.is_initialized()

@@ -277,10 +277,7 @@ def _worker(rank, jax_npz, batch):
     out = {"p2p": _p2p(comm, rank), "chain": _chain_lists(comm, rank),
            "split_mlp": _split_mlp(comm, rank),
            "seq2seq": _seq2seq(comm, rank, jax_npz, batch)}
-    # every send was received
-    pending = comm.__dict__.get("_p2p_pending", [])
-    for work, _ in pending:
-        work.wait()
+    comm.finalize()              # every send was received
     return out
 
 

@@ -247,6 +247,8 @@ def _hybrid(comm, rank):
     out["params"] = {p: v.detach().clone() for p, v in model.namedparams()}
     out["leaves"] = [tuple(s) for s in
                      comms["data"].grad_leaf_specs(model)[0]]
+    for c in comms.values():     # waits for the sends still in flight
+        c.finalize()
     return out
 
 
@@ -256,6 +258,7 @@ def _worker(rank):
     out = {"pipelines": _pipelines(comm, rank),
            "conv": _parallel_conv(comm, rank)}
     out["hybrid"] = _hybrid(comm, rank)
+    comm.finalize()
     return out
 
 

@@ -12,7 +12,7 @@ import chainermn_tpu_torch as ct
 from tests.test_public_api import MODULES, TOP_LEVEL
 
 #: top-level names still to port, by ROADMAP item
-NOT_PORTED = {"rescatter_dataset": "A11", "Sequential": "A3"}
+NOT_PORTED = {"Sequential": "A3"}
 
 
 @pytest.mark.parametrize("name", TOP_LEVEL)
@@ -61,24 +61,22 @@ def test_observability_and_profiling_surfaces(module):
 
 #: names of the JAX package's module surfaces still to port, by ROADMAP
 #: item
-NOT_PORTED_IN = {
-    "extensions": {"FailureRecovery": "A11", "RecoveryGivingUp": "A11",
-                   "ElasticRecovery": "A11", "ElasticConfigError": "A11",
-                   "create_elastic_membership": "A11",
-                   "global_batch_plan": "A11"},
-}
+NOT_PORTED_IN = {}
 
 
 @pytest.mark.parametrize("module", ["functions", "links", "parallel",
-                                    "models", "extensions"])
+                                    "models", "extensions",
+                                    "communicators"])
 def test_model_parallel_surfaces(module):
     """The JAX package's ``functions``, ``links``, ``parallel``,
     ``models`` and ``extensions`` names: every one the port has resolves
     (the point-to-point functions, ``MultiNodeChainList``,
     ``ParallelConvolution2D``, the pipelines, the mesh, ring attention,
     Ulysses, the MoE dispatch, ``Seq2seq``, the DCGAN,
-    ``MoETransformerLM``, the checkpointers), and the rest are listed by
-    the ROADMAP item that ports them."""
+    ``MoETransformerLM``, the checkpointers, the recovery supervisors),
+    the ``communicators`` names (fault injection, membership, the elastic
+    communicator), and the rest are listed by the ROADMAP item that ports
+    them."""
     names = MODULES[f"chainermn_tpu.{module}"]
     mod = importlib.import_module(f"chainermn_tpu_torch.{module}")
     pending = NOT_PORTED_IN.get(module, {})
