@@ -45,8 +45,14 @@ iterator's batch broadcast, a beacon, the join poll).  The object calls
 ride the host channel on an :class:`ElasticMeshCommunicator` of more than
 one member and under the fault-injection wrapper; a plain
 :class:`~..communicators.MeshCommunicator` sends them over the process
-group, whose error on a departed peer is the backend's, not a channel
-error, so an elastic job boots on the wrapper or polls the channel itself.
+group, where a departed peer shows as the backend's error, not a channel
+error: ``DistBackendError``/``DistNetworkError``, or gloo's lost
+connection (a ``RuntimeError`` naming ``Connection closed by peer`` or
+``Connection reset by peer``).
+Over any communicator but an :class:`ElasticMeshCommunicator` those count
+as recoverable too (:func:`backend_peer_lost`), so the survivor of a peer
+that exits without announcing shrinks as the JAX package's does on its
+``ChannelError``.
 
 Snapshots for joiners: the npz checkpointer's newest file is shipped to
 the joiners over the members' channel.  The per-rank DCP checkpointer
@@ -70,9 +76,26 @@ from .failure_recovery import (FailureRecovery, RecoveryGivingUp,
                                _drop_exchanges)
 
 __all__ = ["ElasticRecovery", "global_batch_plan", "ElasticConfigError",
-           "create_elastic_membership"]
+           "create_elastic_membership", "backend_peer_lost"]
 
 _ELASTIC_RECOVERABLE = (InjectedFault, ChannelError, RankPreempted)
+
+#: what gloo's TCP transport raises, as a plain ``RuntimeError``, on a rank
+#: in a collective (or entering one) once a peer's process has gone: the
+#: peer's socket read as closed, or reset when it went with bytes unread
+_GLOO_PEER_LOST = ("Connection closed by peer", "Connection reset by peer")
+
+
+def backend_peer_lost(exc):
+    """Whether ``exc`` is the process group's report of a lost peer:
+    ``torch.distributed``'s ``DistBackendError`` (NCCL's watchdog and
+    abort) or ``DistNetworkError``, or gloo's closed or reset connection.
+    Any other ``RuntimeError`` is not."""
+    import torch.distributed as dist
+    if isinstance(exc, (dist.DistBackendError, dist.DistNetworkError)):
+        return True
+    return isinstance(exc, RuntimeError) \
+        and any(m in str(exc) for m in _GLOO_PEER_LOST)
 
 
 class ElasticConfigError(RuntimeError):
@@ -184,6 +207,10 @@ class ElasticRecovery(FailureRecovery):
     at each resize (:func:`global_batch_plan`).
     ``join_poll_interval``: iterations between the survivors' lock-step
     join polls (one object broadcast each).
+    ``recoverable``: left at ``None``, the typed faults above and, while
+    the communicator is not an :class:`ElasticMeshCommunicator` (its object
+    calls then ride the process group), the backend's peer-loss errors
+    (:func:`backend_peer_lost`).
     """
 
     priority = 100
@@ -238,6 +265,18 @@ class ElasticRecovery(FailureRecovery):
         self.view = membership.current_view() if membership is not None \
             else None
         self.trigger = (int(join_poll_interval), "iteration")
+        self._backend_peer_loss = recoverable is None
+
+    def can_recover(self, exc):
+        """:meth:`FailureRecovery.can_recover`, and with the default
+        ``recoverable`` over a communicator that is not an
+        :class:`ElasticMeshCommunicator`, a peer lost in the backend."""
+        if super().can_recover(exc):
+            return True
+        return (self._backend_peer_loss
+                and not isinstance(self.comm, ElasticMeshCommunicator)
+                and backend_peer_lost(exc)
+                and not isinstance(exc, self.unrecoverable))
 
     # -- identity ------------------------------------------------------------
     @property
@@ -314,18 +353,18 @@ class ElasticRecovery(FailureRecovery):
     # -- capacity transfer ---------------------------------------------------
     def capacity_leave(self, note="capacity transfer: to serving"):
         """A training rank's clean departure into the serving fleet: not
-        ported yet, it needs the fleet and its router (ROADMAP A13)."""
+        ported yet, it needs the fleet and its router (ROADMAP A13c)."""
         raise NotImplementedError(
             "capacity_leave moves a rank into the serving fleet, which is "
-            "not ported yet (ROADMAP A13)")
+            "not ported yet (ROADMAP A13c)")
 
     def capacity_rejoin(self, trainer=None,
                         note="capacity transfer: rejoin"):
         """Re-entry from the serving fleet: not ported yet (ROADMAP
-        A13)."""
+        A13c)."""
         raise NotImplementedError(
             "capacity_rejoin brings a rank back from the serving fleet, "
-            "which is not ported yet (ROADMAP A13)")
+            "which is not ported yet (ROADMAP A13c)")
 
     # -- the three moves -----------------------------------------------------
     def _preempted(self, trainer, exc):

@@ -1,4 +1,5 @@
-"""Paged attention for the serving engine: decode and suffix prefill.
+"""Paged attention for the serving engine: decode, suffix prefill and the
+speculative verify step.
 
 Plain PyTorch (the JAX package's counterpart is jnp, not Pallas).  The KV
 cache lives in page pools ``[P, S, H, D]`` (``serving.kv_cache``) and a
@@ -30,7 +31,7 @@ import os
 import torch
 
 __all__ = ["paged_decode_attention", "paged_prefill_attention",
-           "paged_attn_mode"]
+           "paged_verify_attention", "paged_attn_mode"]
 
 _NEG_INF = float("-inf")
 
@@ -89,6 +90,36 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table_row, start,
     p, l = _masked_softmax_stats(s, kpos <= qpos)
     p = p / l.clamp_min(1e-30)
     return _pv(p, v, "htk,khd->thd").to(q.dtype)
+
+
+def paged_verify_attention(q, k_pool, v_pool, block_table, start,
+                           scale=None):
+    """Multi-query attention for the speculative verify step.
+
+    ``q``: ``[B, K1, H, D]``, query ``j`` of lane ``b`` at absolute
+    position ``start[b] + j`` (the pending token, then the drafts).  The
+    span's K/V must already be written into the pools
+    (:func:`~chainermn_tpu_torch.serving.kv_cache.write_span_kv`), so one
+    gather per pool through ``block_table`` (``[B, N]``) covers the whole
+    context, and query ``j`` sees positions ``<= start + j``: the context
+    a one-token decode step at that position would see.  ``start[b] < 0``
+    marks an idle lane, every query of it masked (output zeros).  Returns
+    ``[B, K1, H, D]`` in ``q.dtype``."""
+    B, K1, H, D = q.shape
+    S = k_pool.shape[1]
+    N = block_table.shape[1]
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    k = k_pool[block_table].reshape(B, N * S, H, D)
+    v = v_pool[block_table].reshape(B, N * S, H, D)
+    s = torch.einsum("bjhd,bkhd->bhjk", q.float(), k.float()) * scale
+    kpos = torch.arange(N * S, device=q.device)[None, None, None, :]
+    st = start.reshape(B, 1, 1, 1)
+    qpos = st + torch.arange(K1, device=q.device)[None, None, :, None]
+    # an idle lane masks every query: start + j crosses 0 for j >= -start,
+    # so causality alone would let it read
+    p, l = _masked_softmax_stats(s, (kpos <= qpos) & (st >= 0))
+    p = p / l.clamp_min(1e-30)
+    return _pv(p, v, "bhjk,bkhd->bjhd").to(q.dtype)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, ctx_len,

@@ -37,15 +37,35 @@ spans, forks leave ``serve/fork`` instants; the registry keeps the
 queue-wait histogram, the per-tenant queue depth and the eviction and
 fork counters.
 
+**Speculative decoding** (``spec_k=K``): a draft proposes K tokens per
+sequence per step, the n-gram self-draft (:func:`ngram_propose`, pure
+host work) by default or a small ``draft_model=`` whose pages are indexed
+by the same block tables; the target scores all ``K + 1`` positions in
+one :func:`spec_verify_program` and the host accepts the longest prefix
+that agrees with its greedy argmax, so the emitted tokens are vanilla
+greedy decode's (in bf16 the verify's products, of another shape than a
+decode step's, can flip a near-tie of the top two logits).  A rejected
+proposal is rolled back by rewinding the lane's position.  ``CHAINERMN_TPU_SERVE_SPEC=off`` turns it off.
+
+**Chunked prefill** (``chunk_tokens=C``, a page multiple): a prompt whose
+unmatched remainder exceeds ``C`` admits in chunks of ``C`` tokens, run
+between the admission pass and the decode step under a per-step budget
+(``chunk_budget``), so a long prompt does not hold whole steps while
+short requests wait.  Chunks run :func:`prefix_prefill_program` at the
+chunk cursor (chunk 0 at ``start=0``), so they launch no flash kernel;
+prefill buckets stop at ``C``; a mid-chunk request is an eviction victim
+before any decoding one (pages freed, cursor reset, chunk 0 again on
+re-admission).
+
 The port is eager PyTorch: there are no jit programs, trace counters or
 warm-up, and the pools are updated in place (the JAX engine's donation).
-The JAX engine's disaggregated prefill, tensor-parallel decode,
-speculative decoding and chunked prefill are not ported yet (ROADMAP
-A13) and raise ``NotImplementedError``.
+The JAX engine's disaggregated prefill and tensor-parallel decode are not
+ported yet (ROADMAP A13b) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 import zlib
 
@@ -57,15 +77,61 @@ from .._device import resolve_device
 from ..nn import functions as F
 from ..ops import attention as flash_attention_op
 from ..ops.paged_attention import (paged_attn_mode, paged_decode_attention,
-                                   paged_prefill_attention)
+                                   paged_prefill_attention,
+                                   paged_verify_attention)
 from .errors import PagePoolExhaustedError
 from .kv_cache import (PagedKVCache, copy_page, write_prompt_kv,
-                       write_prompt_kv_at, write_token_kv)
+                       write_prompt_kv_at, write_span_kv, write_token_kv)
 from .page_allocator import BlockAllocator
 from .scheduler import RequestScheduler
 
 __all__ = ["ServingEngine", "prefill_program", "prefix_prefill_program",
-           "decode_program"]
+           "decode_program", "spec_verify_program", "ngram_propose",
+           "serve_spec_k"]
+
+
+def serve_spec_k(spec_k=0):
+    """Resolve the speculative-decoding knob:
+    ``CHAINERMN_TPU_SERVE_SPEC=off`` forces one-token decode whatever the
+    constructor says (always safe: the speculative output is vanilla
+    greedy decode's).  Resolved once, at engine construction."""
+    if os.environ.get("CHAINERMN_TPU_SERVE_SPEC", "").lower() == "off":
+        return 0
+    return int(spec_k or 0)
+
+
+def ngram_propose(history, k, n=3):
+    """The built-in self-speculative draft: prompt-lookup n-gram match.
+
+    Deterministic and pure host work: find the most recent EARLIER
+    occurrence of the trailing ``n``-gram of ``history`` (falling back
+    to shorter grams down to 1) and propose the ``k`` tokens that
+    followed it; pad by repeating the last token when the match runs
+    off the end (or nothing matches).  Draft quality only moves the
+    accept rate — greedy accept/reject makes the emitted trajectory
+    independent of WHAT is proposed, so this needs no model at all.
+    """
+    h = np.asarray(history, dtype=np.int64)
+    L = h.size
+    if k <= 0:
+        return np.zeros(0, dtype=np.int32)
+    out = None
+    for g in range(min(n, L - 1), 0, -1):
+        tail = h[L - g:]
+        # candidate gram ends at i + g (exclusive), strictly before L
+        for i in range(L - g - 1, -1, -1):
+            if np.array_equal(h[i:i + g], tail):
+                out = h[i + g:i + g + k]
+                break
+        if out is not None:
+            break
+    if out is None:
+        out = h[L - 1:]          # no match: repeat the last token
+    prop = np.empty(k, dtype=np.int32)
+    m = min(k, out.size)
+    prop[:m] = out[:m]
+    prop[m:] = int(out[m - 1]) if m else int(h[-1])
+    return prop
 
 
 def _mlp(block, h):
@@ -169,6 +235,43 @@ def decode_program(model, kv, toks, pos, bts, *, mode):
     return logits, torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+@torch.inference_mode()
+def spec_verify_program(model, kv, toks, start, n_valid, bts):
+    """The speculative verify step: score ``K + 1`` tokens per lane at once.
+
+    ``toks``: ``[Bb, K1]`` int, lane ``b``'s pending token then its K
+    proposals; token ``j`` sits at position ``start[b] + j``.  ``start``:
+    ``[Bb]`` (``< 0`` marks an idle lane).  ``n_valid``: ``[Bb]``, only the
+    first ``n_valid[b]`` slots write K/V (a lane near its budget
+    speculates short).  Per layer the span's K/V are written first
+    (:func:`~.kv_cache.write_span_kv`), then
+    :func:`~chainermn_tpu_torch.ops.paged_attention.paged_verify_attention`
+    lets query ``j`` see positions ``<= start + j``, the context a
+    one-token decode step there would see, so ``g[b, j]`` is the token
+    vanilla decode would emit after tokens ``0..j``.  Returns ``(logits
+    [Bb, K1, V] fp32, g [Bb, K1] int32)``."""
+    Bb, K1 = toks.shape
+    # slots past a lane's n_valid may run past the position table, where
+    # the JAX gather clamps; their outputs are never read
+    pos = (start.clamp_min(0)[:, None]
+           + torch.arange(K1, device=toks.device)[None]).clamp_max(
+        model.pos_embed.W.shape[0] - 1)
+    h = model.embed_tokens(toks, pos)                      # [Bb, K1, D]
+    scale = 1.0 / (model.blocks[0].attn.d_head ** 0.5)
+    for li, block in enumerate(model.blocks):
+        qkv = _qkv(block, h)                              # [Bb, K1, 3, H, Dh]
+        write_span_kv(kv.k_store[li], qkv[:, :, 1], bts, start, n_valid)
+        write_span_kv(kv.v_store[li], qkv[:, :, 2], bts, start, n_valid)
+        att = paged_verify_attention(qkv[:, :, 0], kv.k_pool[li],
+                                     kv.v_pool[li], bts, start, scale=scale)
+        h = h + block.attn.proj(att.reshape(Bb * K1, -1)).reshape(
+            Bb, K1, -1)
+        h = _mlp(block, h)
+    logits = model.head(model.ln_f(h.reshape(Bb * K1, -1))).reshape(
+        Bb, K1, -1).float()
+    return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 def _bucket(n, buckets, what):
     for b in buckets:
         if n <= b:
@@ -190,9 +293,8 @@ def _pow2_buckets(lo, hi):
 def _not_ported(name, value):
     raise NotImplementedError(
         f"ServingEngine({name}={value!r}) is not ported to "
-        f"chainermn_tpu_torch yet (ROADMAP A13: disaggregated prefill, "
-        f"tensor-parallel decode, speculative decoding and chunked "
-        f"prefill)")
+        f"chainermn_tpu_torch yet (ROADMAP A13b: disaggregated prefill "
+        f"and tensor-parallel decode)")
 
 
 class ServingEngine:
@@ -201,27 +303,41 @@ class ServingEngine:
     Greedy sampling.  ``prefix_cache``: copy-on-write prefix sharing
     (default on).  ``mode``: the decode attention lowering (``paged`` or
     ``dense``, see :func:`paged_attn_mode`).  ``device``: where the pools
-    live; the model must already be there.  ``disagg``, ``tp``,
-    ``spec_k``, ``draft_model`` and ``chunk_tokens`` keep the JAX
-    engine's signature and raise ``NotImplementedError`` unless left at
-    their defaults.
+    live; the model must already be there.  ``spec_k``: speculative
+    decoding, K proposals verified per sequence per decode dispatch (0:
+    one-token decode; ``CHAINERMN_TPU_SERVE_SPEC=off`` forces 0).
+    ``draft_model``: a small ``TransformerLM`` with the same vocabulary,
+    on the engine's device, whose pages the same block tables index
+    (``None``: the n-gram self-draft).  ``chunk_tokens``: chunked prefill,
+    prompts whose unmatched remainder exceeds it admit in chunks of that
+    many tokens (a page multiple; ``None``: one-shot prefill).
+    ``chunk_budget``: prefill tokens advanced per step (default one
+    chunk).  ``disagg`` and ``tp`` keep the JAX engine's signature and
+    raise ``NotImplementedError`` unless left at their defaults.
 
-    Counters: ``full_prefills`` (prefills through the flash kernel),
+    Counters: ``full_prefills`` (target prefills through the flash
+    kernel; a draft model's prefill, one per admission, runs it too),
     ``prefix_hits``/``prefix_tokens_matched``, ``forks``, ``evictions``,
-    ``admissions``, ``decode_steps``; ``prefill_s``/``decode_s`` are the
-    host-clock seconds spent in prefills (first token fetched) and in
-    decode steps (tokens fetched), each ending in a device sync.
+    ``admissions``, ``decode_steps`` (decode or verify dispatches);
+    speculation's ``spec_steps``, ``spec_lane_steps`` (lanes summed over
+    verify steps), ``spec_proposed``, ``spec_accepted``, ``spec_emitted``
+    and ``draft_dispatches``; chunking's ``chunk_prefills`` and
+    ``chunked_admissions``.  ``prefill_s``/``decode_s``/``draft_s`` are
+    host-clock seconds: prefills up to the first token's fetch (a chunk
+    that is not the last returns without a sync, its device time landing
+    in the next sync), decode or verify steps up to the tokens' fetch, and
+    the drafts' proposals (the n-gram scan, or the draft model's
+    dispatches up to their fetch).
     """
 
     def __init__(self, model, num_pages=256, page_size=16, max_batch=8,
                  max_context=256, page_dtype=None, max_queue=256,
                  scheduler=None, mode=None, eos_id=None,
                  prefix_cache=True, disagg=None, tp=1, spec_k=0,
-                 draft_model=None, chunk_tokens=None, device=None):
-        for name, value, default in (
-                ("disagg", disagg, None), ("tp", tp, 1),
-                ("spec_k", spec_k, 0), ("draft_model", draft_model, None),
-                ("chunk_tokens", chunk_tokens, None)):
+                 draft_model=None, chunk_tokens=None, chunk_budget=None,
+                 device=None):
+        for name, value, default in (("disagg", disagg, None),
+                                     ("tp", tp, 1)):
             if value != default and not (name == "disagg"
                                          and value is False):
                 _not_ported(name, value)
@@ -248,10 +364,31 @@ class ServingEngine:
         self.mode = paged_attn_mode(mode)
         self.eos_id = eos_id
         self.prefix_cache = bool(prefix_cache)
-        self.prefill_buckets = _pow2_buckets(min(16, self.max_context),
-                                             self.max_context)
+        self.spec_k = serve_spec_k(spec_k)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k={spec_k} must be >= 0")
+        self.draft_model = draft_model if self.spec_k else None
+        self.chunk_tokens = int(chunk_tokens) if chunk_tokens else None
+        if self.chunk_tokens is not None:
+            if self.chunk_tokens % page_size:
+                raise ValueError(
+                    f"chunk_tokens={chunk_tokens} must be a multiple of "
+                    f"page_size={page_size} (chunks end on page "
+                    f"boundaries)")
+            if self.chunk_tokens > self.max_context:
+                raise ValueError(
+                    f"chunk_tokens={chunk_tokens} exceeds "
+                    f"max_context={max_context}")
+        self.chunk_budget = int(chunk_budget) if chunk_budget \
+            else (self.chunk_tokens or 0)
+        # with chunking the prefill buckets stop at the chunk size: a
+        # prompt (or unmatched suffix) above it takes the chunk path
+        prefill_cap = self.chunk_tokens or self.max_context
+        self.prefill_buckets = _pow2_buckets(min(16, prefill_cap),
+                                             prefill_cap)
         self.batch_buckets = _pow2_buckets(1, self.max_batch)
         self.running = []       # admission order, oldest first
+        self.prefilling = []    # mid-chunk admissions, oldest first
         self.completed = []
         self.evictions = 0
         self.decode_steps = 0
@@ -260,8 +397,38 @@ class ServingEngine:
         self.prefix_hits = 0
         self.prefix_tokens_matched = 0
         self.forks = 0
+        self.spec_steps = 0
+        self.spec_lane_steps = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
+        self.draft_dispatches = 0
+        self.chunk_prefills = 0
+        self.chunked_admissions = 0
         self.prefill_s = 0.0
         self.decode_s = 0.0
+        self.draft_s = 0.0
+        if self.draft_model is not None:
+            # the draft's pools are indexed by the target's block tables
+            # (same page geometry): one allocator, one eviction story
+            if self.draft_model.device != self.device:
+                raise ValueError(
+                    f"the draft model lies on {self.draft_model.device}, "
+                    f"the engine on {self.device}: move one of them")
+            dblk = self.draft_model.blocks[0].attn
+            d_max_len = self.draft_model.pos_embed.W.shape[0]
+            if d_max_len < self.max_context:
+                raise ValueError(
+                    f"draft_model max_len={d_max_len} below "
+                    f"max_context={max_context}")
+            self._kv_draft = PagedKVCache(
+                len(self.draft_model.blocks), num_pages, page_size,
+                dblk.n_heads, dblk.d_head, dtype=page_dtype,
+                device=self.device)
+            # the draft prefills whole prompts: its buckets are not capped
+            # by chunking
+            self._draft_prefill_buckets = _pow2_buckets(
+                min(16, self.max_context), self.max_context)
 
     # -- ingress -------------------------------------------------------------
 
@@ -292,8 +459,8 @@ class ServingEngine:
         row[:len(table)] = table
         return row
 
-    def _padded_tokens(self, toks):
-        Tb = _bucket(len(toks), self.prefill_buckets, "prompt length")
+    def _padded_tokens(self, toks, buckets=None, what="prompt length"):
+        Tb = _bucket(len(toks), buckets or self.prefill_buckets, what)
         tokens = np.zeros((1, Tb), dtype=np.int64)
         tokens[0, :len(toks)] = toks
         return self._tensor(tokens)
@@ -364,9 +531,14 @@ class ServingEngine:
         """Preemption: free pages (shared pages stay alive through their
         other holders), fold generated tokens into the prompt, re-queue
         front-of-line (recompute on re-admit).  ``now`` stamps the
-        re-queue, from which the re-admission's queue wait counts."""
+        re-queue, from which the re-admission's queue wait counts.  A
+        mid-chunk victim leaves ``prefilling``; the requeue resets its
+        chunk cursor."""
         self.allocator.free(req.request_id)
-        self.running.remove(req)
+        if req in self.running:
+            self.running.remove(req)
+        else:
+            self.prefilling.remove(req)
         req.requeue_time = now
         self.scheduler.requeue_front(req)
         self.evictions += 1
@@ -397,9 +569,10 @@ class ServingEngine:
             L - matched, matched, self._tensor(self._bt_row(req.request_id)))
 
     def _admit(self, req, clock):
-        """Pages + prefill + first token.  Raises PagePoolExhaustedError
-        (allocator untouched: a partial share is rolled back) when the pool
-        cannot hold the prompt.
+        """Pages + prefill + first token, or the first chunk's pages for a
+        chunked admission.  Raises PagePoolExhaustedError (allocator
+        untouched: a partial share is rolled back) when the pool cannot
+        hold the prompt (its first chunk, when chunked).
 
         The prefix match is capped at ``L - 1`` so prefill always has a
         suffix token to produce the first logits; a match ending mid-page
@@ -408,27 +581,36 @@ class ServingEngine:
         L = int(req.prompt.size)
         sid = req.request_id
         matched = 0
+        chunked = False
         prompt_t = tuple(int(t) for t in req.prompt) \
             if self.prefix_cache else ()
         if self.prefix_cache and L > 1:
             pages, matched, n_full, partial = \
                 self.allocator.match_prefix(prompt_t, L - 1)
             if matched:
+                chunked = self.chunk_tokens is not None \
+                    and (L - matched) > self.chunk_tokens
                 # host-side allocation first (rolled back on failure), the
-                # device page copy only once admission cannot fail
+                # device page copy only once admission cannot fail; a
+                # chunked admission reserves its first chunk's pages only
                 self.allocator.share(sid, pages)
                 old = new = None
                 try:
                     if partial:
                         old, new = self.allocator.fork(sid, n_full)
-                    self.allocator.ensure(sid, L + 1)   # +1: first decode
+                    self.allocator.ensure(
+                        sid, (matched + self.chunk_tokens) if chunked
+                        else L + 1)             # +1: first decode
                 except PagePoolExhaustedError:
                     self.allocator.free(sid)
                     raise
                 if new is not None and old != new:
                     self._run_fork(old, new)
         if not matched:
-            self.allocator.ensure(sid, L + 1)
+            chunked = self.chunk_tokens is not None \
+                and L > self.chunk_tokens
+            self.allocator.ensure(sid, self.chunk_tokens if chunked
+                                  else L + 1)
         # this admission's queue wait: from arrival, or from the eviction
         # that re-queued the request (its running time is not a wait)
         readmit = req.requeue_time is not None
@@ -439,6 +621,24 @@ class ServingEngine:
         rtid = self._req_tid(req) if obs_on else None
         if obs_on:
             self._obs_admitted(req, wait_s, readmit)
+        req.admit_time = t_admit
+        req.requeue_time = None   # the next eviction stamps it again
+        if chunked:
+            # into the chunk state machine, the cursor at the matched
+            # prefix: no logits, first token or prefix registration until
+            # the last chunk; a hit books now (its pages are held)
+            req._chunk_pos = matched
+            if matched:
+                self.prefix_hits += 1
+                self.prefix_tokens_matched += matched
+            self.chunked_admissions += 1
+            self.prefilling.append(req)
+            if obs_on:
+                observability.instant(
+                    "serve/chunk_admit",
+                    tags={"request": sid, "prompt": L, "matched": matched},
+                    tid=rtid)
+            return
         t0 = time.perf_counter()
         if matched:
             with observability.span(
@@ -458,26 +658,187 @@ class ServingEngine:
                                          self._padded_tokens(req.prompt),
                                          L, self._tensor(self._bt_row(sid)))
             self.full_prefills += 1
-        req.admit_time = t_admit
-        req.requeue_time = None   # the next eviction stamps it again
+        self._complete_admission(req, logits, clock, prompt_t, t0)
+
+    def _complete_admission(self, req, logits, clock, prompt_t, t0):
+        """What one-shot and last-chunk admissions share: register the
+        prefix, prefill the draft model's pools, take the first token from
+        the prefill's logits and join the running batch.  ``t0`` starts
+        the prefill's host-clock time."""
         self.admissions += 1
         if self.prefix_cache:
-            self.allocator.register_prefix(sid, prompt_t)
+            self.allocator.register_prefix(req.request_id, prompt_t)
+        if self.draft_model is not None:
+            self._run_draft_prefill(req)
         tok = int(torch.argmax(logits))   # device -> host sync
         self.prefill_s += time.perf_counter() - t0
-        req._ctx = L            # positions whose KV is written
+        req._ctx = int(req.prompt.size)   # positions whose KV is written
         t = clock()
         self._record_token(req, tok, t)
         self.running.append(req)
         if self._finished(req):
             self._retire(req, t)
 
+    def _run_draft_prefill(self, req):
+        """The draft model's K/V for the whole prompt through the request's
+        block table: one flash prefill of the draft, never chunked, logits
+        unused (the first token is the target's).  Positions inside shared
+        prefix pages are written again with the bytes the provider's draft
+        prefill wrote (same model, tokens and positions)."""
+        L = int(req.prompt.size)
+        prefill_program(
+            self.draft_model, self._kv_draft,
+            self._padded_tokens(req.prompt, self._draft_prefill_buckets,
+                                "draft prompt"),
+            L, self._tensor(self._bt_row(req.request_id)))
+        req._draft_ctx = L
+
+    def _run_chunk(self, req, startp, size, final, clock):
+        """One chunk of a chunked prefill: ``size`` prompt tokens at cursor
+        ``startp`` through :func:`prefix_prefill_program` (chunk 0 at
+        ``start=0``); the last chunk completes the admission."""
+        t0 = time.perf_counter()
+        logits = prefix_prefill_program(
+            self.model, self.kv,
+            self._padded_tokens(req.prompt[startp:startp + size],
+                                what="chunk length"),
+            size, startp, self._tensor(self._bt_row(req.request_id)))
+        self.chunk_prefills += 1
+        req._chunk_pos = startp + size
+        if final:
+            self.prefilling.remove(req)
+            prompt_t = tuple(int(t) for t in req.prompt) \
+                if self.prefix_cache else ()
+            self._complete_admission(req, logits, clock, prompt_t, t0)
+        else:
+            self.prefill_s += time.perf_counter() - t0
+
+    def _advance_chunks(self, clock):
+        """The chunk pass of one step: advance mid-chunk prompts, oldest
+        first, under the per-step token budget.  A request whose next
+        chunk cannot get pages stalls (keeps its pages, retries next
+        step): admission work never preempts running sequences.  The
+        exception is the all-prefilling deadlock (nothing running, two or
+        more mid-chunk prompts splitting a full pool): the youngest other
+        mid-chunk prompt is evicted so that the oldest can finish.
+        Returns the prefill tokens advanced."""
+        budget = self.chunk_budget
+        progressed = 0
+        obs_on = observability.enabled()
+        for req in list(self.prefilling):
+            if budget <= 0:
+                break
+            L = int(req.prompt.size)
+            while budget > 0 and req in self.prefilling:
+                startp = req._chunk_pos
+                remaining = L - startp
+                size = min(self.chunk_tokens, remaining)
+                final = size == remaining
+                try:
+                    self.allocator.ensure(
+                        req.request_id,
+                        startp + size + (1 if final else 0))
+                except PagePoolExhaustedError:
+                    break   # stall: keep the pages, retry next step
+                with observability.span(
+                        "serve/chunk_prefill",
+                        tags={"request": req.request_id, "start": startp,
+                              "chunk": size, "final": final}
+                        if obs_on else None,
+                        tid=self._req_tid(req) if obs_on else None):
+                    self._run_chunk(req, startp, size, final, clock)
+                budget -= size
+                progressed += size
+        if not progressed and not self.running \
+                and len(self.prefilling) > 1:
+            # deadlock guard: the youngest other mid-chunk prompt goes
+            # (pages held, no token produced: least work lost)
+            victim = self.scheduler.pick_victim(
+                [], self.allocator, prefilling=self.prefilling[1:])
+            self._evict(victim, clock())
+        return progressed
+
+    def _spec_nv(self, req):
+        """The lane's verify span: the pending token and at most K
+        proposals, cut so that the lane never emits past
+        ``max_new_tokens`` (which, by the submit-time fit, keeps every
+        speculative write inside ``max_context`` and the pages the
+        capacity pass secured)."""
+        r = req.max_new_tokens - len(req.tokens)   # >= 1 while running
+        return 1 + min(self.spec_k, r - 1)
+
+    def _propose_drafts(self, nv):
+        """K proposals per running lane: the n-gram self-draft (host
+        work), or the draft model: one catch-up dispatch where a lane's
+        draft K/V trails by one position (its whole window was accepted),
+        then up to K one-token draft decode dispatches through the same
+        block tables.  Rejected draft K/V is rewound by position, as the
+        target's is."""
+        K = self.spec_k
+        n = len(self.running)
+        if self.draft_model is None:
+            drafts = np.zeros((n, K), dtype=np.int32)
+            for j, req in enumerate(self.running):
+                hist = np.concatenate(
+                    [np.asarray(req.prompt, np.int64),
+                     np.asarray(req.tokens, np.int64)])
+                drafts[j] = ngram_propose(hist, K)
+            return drafts
+        Bb = _bucket(n, self.batch_buckets, "batch")
+        bts = np.zeros((Bb, self.n_block_entries), dtype=np.int64)
+        for j, req in enumerate(self.running):
+            bts[j] = self._bt_row(req.request_id)
+        bts_t = self._tensor(bts)
+        # catch-up: a lane one behind writes the token the target accepted
+        # past it (the others idle at pos -1, their writes to the trash)
+        cu_tok = np.zeros(Bb, dtype=np.int64)
+        cu_pos = np.full(Bb, -1, dtype=np.int64)
+        any_gap = False
+        for j, req in enumerate(self.running):
+            if req._draft_ctx == req._ctx - 1:
+                any_gap = True
+                cu_pos[j] = req._ctx - 1
+                cu_tok[j] = req.tokens[-2] if len(req.tokens) >= 2 \
+                    else int(req.prompt[-1])
+                req._draft_ctx = req._ctx
+        if any_gap:
+            decode_program(self.draft_model, self._kv_draft,
+                           self._tensor(cu_tok), self._tensor(cu_pos),
+                           bts_t, mode=self.mode)
+            self.draft_dispatches += 1
+        drafts = np.zeros((n, K), dtype=np.int32)
+        cur = np.zeros(Bb, dtype=np.int64)
+        for j, req in enumerate(self.running):
+            cur[j] = req.tokens[-1]
+        for i in range(K):
+            pos = np.full(Bb, -1, dtype=np.int64)
+            for j, req in enumerate(self.running):
+                if i < nv[j] - 1:
+                    pos[j] = req._ctx + i
+            if not (pos >= 0).any():
+                break
+            _, nxt = decode_program(self.draft_model, self._kv_draft,
+                                    self._tensor(cur), self._tensor(pos),
+                                    bts_t, mode=self.mode)
+            self.draft_dispatches += 1
+            nxt = nxt.cpu().numpy()       # device -> host sync
+            keep = pos >= 0
+            drafts[:, i][keep[:n]] = nxt[:n][keep[:n]]
+            cur = np.where(keep, nxt, cur)
+        for j, req in enumerate(self.running):
+            # positions ctx .. ctx + nv - 2 now hold draft K/V; acceptance
+            # rewinds this to the new ctx
+            req._draft_ctx = req._ctx + max(0, int(nv[j]) - 1)
+        return drafts
+
     # -- the step loop -------------------------------------------------------
 
     def step(self, now=None):
         """One continuous-batching step: secure every running sequence's
-        next page (evicting when the pool is dry), an admission pass, then
-        one decode step over the running batch.  Returns step stats.
+        next page (its verify span under speculation), evicting when the
+        pool is dry (mid-chunk prompts first); an admission pass; the
+        chunk pass; then one decode (or verify) step over the running
+        batch.  Returns step stats.
 
         ``now=None`` stamps tokens with ``time.monotonic()``; a pinned
         ``now`` (tests, simulated clocks) stamps the whole step with it."""
@@ -488,15 +849,19 @@ class ServingEngine:
         i = 0
         while i < len(self.running):
             req = self.running[i]
+            need = self._spec_nv(req) if self.spec_k else 1
             try:
-                self.allocator.ensure(req.request_id, req._ctx + 1)
+                self.allocator.ensure(req.request_id, req._ctx + need)
                 i += 1
             except PagePoolExhaustedError:
-                victim = self.scheduler.pick_victim(self.running,
-                                                    self.allocator)
+                victim = self.scheduler.pick_victim(
+                    self.running, self.allocator,
+                    prefilling=self.prefilling)
                 self._evict(victim, clock())
                 # the victim may be req: re-check the same index
-        while len(self.running) < self.max_batch:
+        # a chunk-admitted prompt counts against max_batch from its first
+        # chunk: the bound covers work in flight
+        while len(self.running) + len(self.prefilling) < self.max_batch:
             req = self.scheduler.next_admission(arrived_by=clock())
             if req is None:
                 break
@@ -507,6 +872,10 @@ class ServingEngine:
                 # pool full: wait (admission never preempts running work)
                 self.scheduler.requeue_front(req, preempted=False)
                 break
+        # long prompts stream in between admission and the decode step,
+        # which runs every step all the same
+        if self.prefilling:
+            stats["chunk_tokens"] = self._advance_chunks(clock)
         n = len(self.running)
         stats["evicted"] = self.evictions - stats.pop("evicted_before")
         stats["running"] = n
@@ -517,6 +886,8 @@ class ServingEngine:
         if n == 0:
             stats["decoded"] = 0
             return stats
+        if self.spec_k:
+            return self._spec_step(n, clock, stats)
         with observability.span(
                 "serve/decode_window",
                 tags={"batch": n, "step": self.decode_steps}
@@ -545,12 +916,87 @@ class ServingEngine:
         stats["decoded"] = n
         return stats
 
+    def _spec_step(self, n, clock, stats):
+        """The speculative decode step: K proposals per lane, all ``K + 1``
+        positions verified in one target dispatch, the longest agreeing
+        prefix accepted.  ``g[j]`` is the token vanilla decode would emit
+        at ``start + j`` after the accepted ones, so emitting ``g[0..a]``
+        (``a`` proposals accepted) equals ``a + 1`` vanilla steps.  Span
+        positions past the new ``_ctx`` hold stale K/V that no read sees
+        and the next step overwrites: the rewind is the rollback."""
+        K1 = self.spec_k + 1
+        nv = np.zeros(n, dtype=np.int64)
+        for j, req in enumerate(self.running):
+            nv[j] = self._spec_nv(req)
+            # lanes admitted this step missed the capacity pass: secure
+            # their span now, speculating less rather than evicting when
+            # the pool is dry (admission's L + 1 keeps nv >= 1)
+            try:
+                self.allocator.ensure(req.request_id, req._ctx + int(nv[j]))
+            except PagePoolExhaustedError:
+                nv[j] = min(int(nv[j]),
+                            self.allocator.capacity(req.request_id)
+                            - req._ctx)
+        t0 = time.perf_counter()
+        drafts = self._propose_drafts(nv)
+        self.draft_s += time.perf_counter() - t0
+        with observability.span(
+                "serve/spec_window",
+                tags={"batch": n, "step": self.decode_steps}
+                if observability.enabled() else None):
+            Bb = _bucket(n, self.batch_buckets, "batch")
+            toks = np.zeros((Bb, K1), dtype=np.int64)
+            start = np.full(Bb, -1, dtype=np.int64)
+            nvb = np.zeros(Bb, dtype=np.int64)
+            bts = np.zeros((Bb, self.n_block_entries), dtype=np.int64)
+            for j, req in enumerate(self.running):
+                toks[j, 0] = req.tokens[-1]
+                toks[j, 1:] = drafts[j]
+                start[j] = req._ctx
+                nvb[j] = nv[j]
+                bts[j] = self._bt_row(req.request_id)
+            t0 = time.perf_counter()
+            _, g = spec_verify_program(
+                self.model, self.kv, self._tensor(toks),
+                self._tensor(start), self._tensor(nvb), self._tensor(bts))
+            g = g.cpu().numpy()          # device -> host sync
+            self.decode_s += time.perf_counter() - t0
+        self.decode_steps += 1             # one dispatch, up to K1 tokens
+        self.spec_steps += 1
+        self.spec_lane_steps += n
+        t_tok = clock()
+        emitted_total = 0
+        for j, req in enumerate(list(self.running)):
+            nvj = int(nv[j])
+            a = 0
+            while a < nvj - 1 and int(toks[j, a + 1]) == int(g[j, a]):
+                a += 1
+            self.spec_proposed += nvj - 1
+            self.spec_accepted += a
+            for i in range(a + 1):
+                req._ctx += 1
+                self._record_token(req, int(g[j, i]), t_tok)
+                emitted_total += 1
+                self.spec_emitted += 1
+                if self._finished(req):
+                    break   # eos inside the accepted run: stop here
+            if self.draft_model is not None:
+                # draft K/V above the accepted frontier is stale; a whole
+                # accepted window leaves a gap of one (the bonus token's
+                # position), closed by the next step's catch-up
+                req._draft_ctx = min(req._draft_ctx, req._ctx)
+            if self._finished(req):
+                self._retire(req, t_tok)
+        stats["decoded"] = n
+        stats["spec_emitted"] = emitted_total
+        return stats
+
     def drain(self, max_steps=10000, now=None):
-        """Run steps until the queues and the running batch are empty.
-        Returns the number of steps taken."""
+        """Run steps until the queues, the mid-chunk prompts and the
+        running batch are empty.  Returns the number of steps taken."""
         steps = 0
-        while (self.running or self.scheduler.pending()) \
-                and steps < max_steps:
+        while (self.running or self.prefilling
+               or self.scheduler.pending()) and steps < max_steps:
             self.step(now=now)
             steps += 1
         return steps

@@ -24,7 +24,7 @@ import torch
 from .._device import resolve_device
 
 __all__ = ["PagedKVCache", "write_prompt_kv", "write_prompt_kv_at",
-           "write_token_kv", "copy_page"]
+           "write_token_kv", "write_span_kv", "copy_page"]
 
 
 def write_prompt_kv_at(store_l, kv, block_table_row, start, true_len):
@@ -59,6 +59,31 @@ def write_token_kv(store_l, kv, block_tables, pos):
     safe = pos.clamp_min(0)
     pages = torch.where(pos >= 0, block_tables[b, safe // S],
                         torch.full_like(safe, trash))
+    store_l.index_put_((pages, safe % S), kv.to(store_l.dtype))
+
+
+def write_span_kv(store_l, kv, block_tables, start, n_valid):
+    """Write a span of speculative tokens per batch lane into one layer,
+    in place.
+
+    ``kv``: ``[B, K1, H, D]``; token ``j`` of lane ``b`` lands at absolute
+    position ``start[b] + j``.  ``start``: ``[B]``, ``start < 0`` marks an
+    idle lane.  ``n_valid``: ``[B]``, only the first ``n_valid[b]`` slots
+    of a lane write.  Idle lanes and the slots past ``n_valid`` go to the
+    trash page.  A rejected proposal is never un-written: the engine
+    rewinds the lane's position, later reads mask the stale slots, and
+    the next step overwrites them."""
+    trash, S = store_l.shape[0] - 1, store_l.shape[1]
+    B, K1 = kv.shape[0], kv.shape[1]
+    b = torch.arange(B, device=kv.device)[:, None]
+    j = torch.arange(K1, device=kv.device)[None, :]
+    posn = start[:, None] + j
+    live = (start[:, None] >= 0) & (j < n_valid[:, None])
+    safe = posn.clamp_min(0)
+    # clamp keeps the table lookup in range for the dropped slots
+    idx = torch.clamp(safe // S, max=block_tables.shape[1] - 1)
+    pages = torch.where(live, block_tables[b, idx],
+                        torch.full_like(idx, trash))
     store_l.index_put_((pages, safe % S), kv.to(store_l.dtype))
 
 

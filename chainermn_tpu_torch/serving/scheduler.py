@@ -1,7 +1,6 @@
 """Request scheduler: open-loop admission, per-tenant fairness, eviction.
 
-A copy of the JAX package's module (pure host code), without the
-chunked-prefill state the port's engine does not run yet.
+A copy of the JAX package's module (pure host code).
 
 Admission happens at decode-step granularity (continuous batching): the
 engine asks for joinable requests between decode steps, so a new request
@@ -15,6 +14,9 @@ waits at most one step to enter the running batch.
   engine evicts the youngest running sequence, frees its pages and
   re-queues it at the front of its tenant's queue with the tokens
   generated so far folded into its prompt (recompute on re-admit).
+* **Chunked-prefill state**: a request admitted in chunks carries its
+  chunk cursor (``_chunk_pos``); a mid-chunk eviction resets it, and
+  mid-chunk prompts are the preferred eviction victims.
 
 Every decision is deterministic in the call sequence.
 """
@@ -68,6 +70,10 @@ class Request:
         self.admit_time = None
         self.requeue_time = None
         self.queue_wait_s = 0.0
+        # the chunk cursor: prompt positions whose KV completed chunks
+        # wrote; a mid-chunk eviction resets it (requeue_front), so the
+        # re-admission restarts from chunk 0 on fresh pages
+        self._chunk_pos = 0
 
     def __repr__(self):
         return (f"Request(id={self.request_id}, tenant={self.tenant!r}, "
@@ -98,7 +104,9 @@ class RequestScheduler:
         into the prompt (their KV is recomputed by the re-admit prefill)
         and the request jumps the line within its tenant.
         ``preempted=False`` is the admission back-off path (pool
-        momentarily full, nothing was evicted)."""
+        momentarily full, nothing was evicted).  A mid-chunk victim's
+        chunk cursor resets: its pages were freed, so chunk 0 runs again
+        on re-admission."""
         if request.tokens:
             request.prompt = np.concatenate(
                 [request.prompt,
@@ -107,6 +115,7 @@ class RequestScheduler:
             request.tokens = []
         if preempted:
             request.preemptions += 1
+        request._chunk_pos = 0
         self._queues.setdefault(request.tenant, deque()) \
             .appendleft(request)
 
@@ -130,20 +139,26 @@ class RequestScheduler:
         return None
 
     @staticmethod
-    def pick_victim(running, allocator=None):
+    def pick_victim(running, allocator=None, prefilling=None):
         """Eviction policy: the youngest running request (least service
         consumed, least recompute wasted); ``running`` is oldest-first.
+        Mid-chunk prompts (``prefilling``, oldest-first) come before any
+        running request, youngest first: they hold pages and have produced
+        no token.
 
         With prefix sharing pass the ``allocator``: a victim is useful
         only if evicting it returns pages, so candidates are scanned
         youngest to oldest past those owning no unique page, and
         :class:`~.errors.EvictionStalledError` is raised when none would
         free anything (the livelock guard)."""
-        if not running:
+        if not running and not prefilling:
             return None
         if allocator is None:
+            if prefilling:
+                return prefilling[-1]
             return running[-1]
-        for req in reversed(running):
-            if allocator.unique_pages(req.request_id) > 0:
-                return req
-        raise EvictionStalledError(len(running))
+        for pool in (prefilling or (), running):
+            for req in reversed(pool):
+                if allocator.unique_pages(req.request_id) > 0:
+                    return req
+        raise EvictionStalledError(len(running) + len(prefilling or ()))

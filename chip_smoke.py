@@ -313,6 +313,26 @@ Phases, each printing one JSON line:
     of phases 38-41 are printed together (``sp_moe_phases``), and the
     script's (``total``) after them.
 
+Right after phase 4, on its model (the serving options; their seconds
+printed together as ``a13a_phases``), each serving row with tokens/s,
+wall, the engine's counters, B3's launches, the gaps between a request's
+tokens (p50, p99) and the token agreement with phase 3's streams (bf16
+flips near-ties: reported, not gated):
+
+44. serving_chunked: phase 3's load with ``chunk_tokens=256``; B3 launches
+    exactly 12 a full prefill (chunks launch none);
+45. serving_spec: the load with ``spec_k=4`` and the n-gram self-draft:
+    acceptance, tokens a verify dispatch, ``ngram_propose``'s host ms a
+    window; ``spec_emitted`` is the generated tokens less one first
+    token an admission;
+46. serving_spec_draft_chunked: ``spec_k=4`` with the model as its own
+    draft, and ``chunk_tokens=256``: B3 launches 12 a full prefill plus
+    12 an admission (the draft's prefill, never chunked);
+47. spec_verify_parity: one ``spec_verify_program`` over 5 tokens after a
+    100-token prefill against 5 ``decode_program`` steps, and a 900-token
+    prompt in chunks of 256 against the one-shot flash prefill: the
+    logits within ``BF16_BAND``.
+
 Then the kernels line (launches, error, times, the whole call's device
 time and bound of all five kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before the last line.  Needs one CUDA card; fails without
@@ -722,53 +742,13 @@ def chat_requests(Request, n_vocab):
 
 
 def phase_serving(model):
-    from chainermn_tpu_torch.serving import Request, ServingEngine
-    engine = ServingEngine(model, device="cuda", **ENGINE)
-    reqs = chat_requests(Request, MODEL["n_vocab"])
-    prompt_len = {r.request_id: int(r.prompt.size) for r in reqs}
-    for r in reqs:
-        engine.submit(r)
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    steps = engine.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    all_launches = read_launches()
-    launches = all_launches["fwd"]
-    done = {r.request_id: r for r in engine.completed}
-    # an evicted request's early tokens were folded into its prompt
-    generated = {i: int(r.prompt.size) - prompt_len[i] + len(r.tokens)
-                 for i, r in done.items()}
-    n_layers = MODEL["n_layers"]
-    row = {
-        "phase": "serving", "requests": len(done), "steps": steps,
-        "generated_tokens": sum(generated.values()),
-        "tokens_per_s": sum(generated.values()) / wall, "wall_s": wall,
-        "prefill_s": engine.prefill_s, "decode_s": engine.decode_s,
-        "decode_steps": engine.decode_steps,
-        "full_prefills": engine.full_prefills,
-        "prefix_hits": engine.prefix_hits,
-        "prefix_tokens_matched": engine.prefix_tokens_matched,
-        "forks": engine.forks, "evictions": engine.evictions,
-        "flash_launches": launches,
-        "prompt_tokens": sum(prompt_len.values()),
-        "kv_pool_bytes": engine.kv.pool_bytes,
-    }
-    emit(row)
-    if sorted(done) != list(range(N_REQUESTS)):
-        fail(f"completed {sorted(done)}, expected all {N_REQUESTS}")
-    if any(n != MAX_NEW for n in generated.values()):
-        fail(f"generated token counts {generated}, expected {MAX_NEW}")
-    if not all(0 <= t < MODEL["n_vocab"] for r in done.values()
-               for t in r.tokens):
-        fail("a generated token lies outside the vocabulary")
-    if launches <= 0 or all_launches != expected_launches(
-            fwd=n_layers * engine.full_prefills):
-        fail(f"flash kernel launches {all_launches}, expected {n_layers} x "
-             f"{engine.full_prefills} full prefills of the no-grad forward")
-    if not engine.allocator.check() or engine.allocator.used_pages:
-        fail("page pool not returned in full")
+    """Phase 3: the chat load, then the first N_PROFILED_REQUESTS of it
+    under the profiler.  Returns B3's launches and the requests' token
+    streams (phases 44-46 compare theirs with them)."""
+    from chainermn_tpu_torch.serving import Request
+    engine, row, streams = run_serving_load("serving", model)
+    if row["flash_launches"] <= 0:
+        fail("serving: the flash prefill never launched")
     # where the time goes: the first N_PROFILED_REQUESTS of the load again
     # (prefix pages now cold, so every tenant's first request misses
     # again) under the profiler
@@ -780,7 +760,7 @@ def phase_serving(model):
           "wall_s": wall, "device_busy_s": busy,
           "device_idle_share": 1.0 - busy / wall,
           "top_kernels_us": [[name[:80], us] for name, us in top]})
-    return launches
+    return row["flash_launches"], streams
 
 
 def phase_decode_parity(model):
@@ -813,6 +793,226 @@ def phase_decode_parity(model):
           "band": BF16_BAND})
     if not max(diffs) < BF16_BAND:
         fail(f"paged decode logits leave the bf16 band: {diffs}")
+
+
+#: phases 44-47 (run after phase 4, on its model): chunks of 256 tokens (a
+#: page multiple, which 15 of the 16 chat prompts exceed) and 4
+#: proposals a verify step
+CHUNK_TOKENS, SPEC_K = 256, 4
+
+
+def token_streams(done, prompt_len):
+    """Each request's generated tokens: the ones an eviction folded into
+    its prompt, then the rest."""
+    return {i: [int(t) for t in r.prompt[prompt_len[i]:]] + list(r.tokens)
+            for i, r in done.items()}
+
+
+def agreement(streams, ref):
+    """Token agreement with phase 3's streams: the requests whose streams
+    are equal, and the first position where each other request's
+    differs.  bf16 breaks bit-identity (the verify's and the chunks'
+    products have other shapes than decode's and the one-shot prefill's,
+    so a top-two near-tie can flip an argmax): reported, not gated."""
+    firsts = {}
+    for i, want in ref.items():
+        got = streams.get(i, [])
+        if got != want:
+            firsts[i] = next((j for j, (a, b) in enumerate(zip(got, want))
+                              if a != b), min(len(got), len(want)))
+    return {"requests_equal": len(ref) - len(firsts),
+            "first_divergence": firsts}
+
+
+def run_serving_load(name, model, ref_streams=None, extra=None,
+                     **engine_kw):
+    """Phase 3's chat load through a fresh engine with ``engine_kw``, the
+    launch counters read around the drain alone.  The row (with
+    ``extra(engine)``'s fields, and the token agreement with
+    ``ref_streams`` when given) is printed, then the gates: every request
+    complete with MAX_NEW tokens in the vocabulary, the pool returned, B3
+    at 12 launches a flash prefill (a draft model's included, one per
+    admission; chunks launch none) and, under speculation, one first
+    token an admission and every other token a verified one.  Returns
+    ``(engine, row, streams)``."""
+    from chainermn_tpu_torch.serving import Request, ServingEngine
+    engine = ServingEngine(model, device="cuda", **ENGINE, **engine_kw)
+    reqs = chat_requests(Request, MODEL["n_vocab"])
+    prompt_len = {r.request_id: int(r.prompt.size) for r in reqs}
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    steps = engine.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    done = {r.request_id: r for r in engine.completed}
+    # an evicted request's early tokens were folded into its prompt
+    streams = token_streams(done, prompt_len)
+    generated = {i: len(t) for i, t in streams.items()}
+    n_gen = sum(generated.values())
+    # the gaps between a request's tokens on the engine's clock (tokens of
+    # one verify window share a stamp)
+    gaps = np.concatenate([np.diff(r.token_times) for r in done.values()])
+    row = {"phase": name, "requests": len(done), "steps": steps,
+           "generated_tokens": n_gen, "tokens_per_s": n_gen / wall,
+           "wall_s": wall, "prefill_s": engine.prefill_s,
+           "decode_s": engine.decode_s, "draft_s": engine.draft_s,
+           "decode_steps": engine.decode_steps,
+           "admissions": engine.admissions,
+           "full_prefills": engine.full_prefills,
+           "prefix_hits": engine.prefix_hits,
+           "prefix_tokens_matched": engine.prefix_tokens_matched,
+           "forks": engine.forks, "evictions": engine.evictions,
+           "flash_launches": launches["fwd"],
+           **{k: getattr(engine, k) for k in (
+               "chunk_prefills", "chunked_admissions", "spec_steps",
+               "spec_lane_steps", "spec_proposed", "spec_accepted",
+               "spec_emitted", "draft_dispatches")},
+           "prompt_tokens": sum(prompt_len.values()),
+           "kv_pool_bytes": engine.kv.pool_bytes,
+           "token_gap_ms_p50": float(np.percentile(gaps, 50)) * 1e3,
+           "token_gap_ms_p99": float(np.percentile(gaps, 99)) * 1e3}
+    if ref_streams is not None:
+        row["agreement_with_serving"] = agreement(streams, ref_streams)
+    if extra is not None:
+        row.update(extra(engine))
+    emit(row)
+    if sorted(done) != list(range(N_REQUESTS)):
+        fail(f"{name}: completed {sorted(done)}, expected all "
+             f"{N_REQUESTS}")
+    if any(n != MAX_NEW for n in generated.values()):
+        fail(f"{name}: generated token counts {generated}, expected "
+             f"{MAX_NEW}")
+    if not all(0 <= t < MODEL["n_vocab"] for r in done.values()
+               for t in r.tokens):
+        fail(f"{name}: a generated token lies outside the vocabulary")
+    if not engine.allocator.check() or engine.allocator.used_pages:
+        fail(f"{name}: page pool not returned in full")
+    n_layers = MODEL["n_layers"]
+    prefills = engine.full_prefills + (
+        engine.admissions if engine.draft_model is not None else 0)
+    if launches != expected_launches(fwd=n_layers * prefills):
+        fail(f"{name}: flash kernel launches {launches}, expected "
+             f"{n_layers} x {prefills} flash prefills of the no-grad "
+             f"forward")
+    if engine.spec_k and engine.spec_emitted != n_gen - engine.admissions:
+        fail(f"{name}: spec_emitted {engine.spec_emitted} != generated "
+             f"{n_gen} - one first token for each of "
+             f"{engine.admissions} admissions")
+    return engine, row, streams
+
+
+def phase_serving_chunked(model, ref_streams):
+    """Phase 44: phase 3's load with chunked prefill (CHUNK_TOKENS)."""
+    engine, _, _ = run_serving_load("serving_chunked", model, ref_streams,
+                                    chunk_tokens=CHUNK_TOKENS)
+    if not engine.chunked_admissions:
+        fail("serving_chunked: no prompt was admitted in chunks")
+
+
+def spec_economics(engine):
+    """Acceptance, tokens a verify dispatch (the batch's, and a lane's),
+    and the host milliseconds of drafting a window (``ngram_propose``
+    for the n-gram draft)."""
+    steps = max(engine.spec_steps, 1)
+    return {"acceptance": engine.spec_accepted
+            / max(engine.spec_proposed, 1),
+            "emitted_per_dispatch": engine.spec_emitted / steps,
+            "emitted_per_lane_dispatch": engine.spec_emitted
+            / max(engine.spec_lane_steps, 1),
+            "draft_ms_per_window": engine.draft_s / steps * 1e3}
+
+
+def phase_serving_spec(model, ref_streams):
+    """Phase 45: phase 3's load with speculative decoding (SPEC_K) and
+    the n-gram self-draft."""
+    engine, _, _ = run_serving_load("serving_spec", model, ref_streams,
+                                    extra=spec_economics, spec_k=SPEC_K)
+    if not engine.spec_steps or engine.draft_dispatches:
+        fail(f"serving_spec: {engine.spec_steps} verify steps and "
+             f"{engine.draft_dispatches} draft dispatches (n-gram: none)")
+
+
+def phase_serving_spec_draft_chunked(model, ref_streams):
+    """Phase 46: speculation with the target as its own draft model, and
+    chunked prefill: each admission runs one (unchunked) draft prefill."""
+    engine, _, _ = run_serving_load(
+        "serving_spec_draft_chunked", model, ref_streams,
+        extra=spec_economics, spec_k=SPEC_K, draft_model=model,
+        chunk_tokens=CHUNK_TOKENS)
+    if not (engine.spec_steps and engine.draft_dispatches
+            and engine.chunked_admissions):
+        fail("serving_spec_draft_chunked: no verify step, draft dispatch "
+             "or chunked admission")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def phase_spec_verify_parity(model):
+    """Phase 47: (a) one prompt of 100 tokens prefilled, then one
+    ``spec_verify_program`` over 5 known tokens against 5 sequential
+    ``decode_program`` steps over the same tokens (two caches from one
+    prefill); (b) a 900-token prompt in chunks of CHUNK_TOKENS through the
+    engine's chunk program against the one-shot flash prefill: the final
+    logits.  Both within ``BF16_BAND``."""
+    from chainermn_tpu_torch.serving import (PagedKVCache, decode_program,
+                                             prefill_program,
+                                             prefix_prefill_program,
+                                             spec_verify_program)
+    blk = model.blocks[0].attn
+    rng = np.random.RandomState(2)
+    V = MODEL["n_vocab"]
+
+    def cache():
+        return PagedKVCache(MODEL["n_layers"], 64, 16, blk.n_heads,
+                            blk.d_head, device="cuda")
+
+    bt = torch.arange(64, device="cuda")
+    prompt = rng.randint(0, V, 100)
+    span = rng.randint(0, V, 5)
+    kv_v = cache()
+    tokens = torch.zeros((1, 128), dtype=torch.long, device="cuda")
+    tokens[0, :100] = torch.from_numpy(prompt).cuda()
+    prefill_program(model, kv_v, tokens, 100, bt)
+    kv_d = cache()
+    kv_d.k_store.copy_(kv_v.k_store)
+    kv_d.v_store.copy_(kv_v.v_store)
+    verify, _ = spec_verify_program(
+        model, kv_v, torch.from_numpy(span)[None].cuda(),
+        torch.tensor([100], device="cuda"),
+        torch.tensor([5], device="cuda"), bt[None])
+    diffs, argmax_equal = [], []
+    for j, tok in enumerate(span):
+        logits, nxt = decode_program(
+            model, kv_d, torch.tensor([int(tok)], device="cuda"),
+            torch.tensor([100 + j], device="cuda"), bt[None], mode="paged")
+        diffs.append((verify[0, j] - logits[0]).abs().max().item())
+        argmax_equal.append(int(torch.argmax(verify[0, j])) == int(nxt[0]))
+    long_prompt = rng.randint(0, V, 900)
+    kv_o, kv_c = cache(), cache()
+    tokens = torch.zeros((1, 1024), dtype=torch.long, device="cuda")
+    tokens[0, :900] = torch.from_numpy(long_prompt).cuda()
+    oneshot = prefill_program(model, kv_o, tokens, 900, bt)
+    start = 0
+    while start < 900:
+        n = min(CHUNK_TOKENS, 900 - start)
+        chunk = torch.zeros((1, CHUNK_TOKENS), dtype=torch.long,
+                            device="cuda")
+        chunk[0, :n] = torch.from_numpy(long_prompt[start:start + n]).cuda()
+        chunked = prefix_prefill_program(model, kv_c, chunk, n, start, bt)
+        start += n
+    chunk_diff = (chunked - oneshot).abs().max().item()
+    emit({"phase": "spec_verify_parity",
+          "verify_vs_decode_max_abs_diff": diffs,
+          "chunked_vs_oneshot_max_abs_diff": chunk_diff,
+          "verify_argmax_equal": argmax_equal,
+          "band": BF16_BAND})
+    if not (max(diffs) < BF16_BAND and chunk_diff < BF16_BAND):
+        fail(f"spec_verify_parity: verify {diffs} or chunked admission "
+             f"{chunk_diff} leaves the bf16 band")
 
 
 def flash_module():
@@ -4980,8 +5180,14 @@ def main():
     checks, times = phase_kernel()
     model = TransformerLM(compute_dtype=torch.bfloat16, device="cuda",
                           **MODEL)
-    launches = phase_serving(model)
+    launches, streams = phase_serving(model)
     phase_decode_parity(model)
+    t_a13a = time.perf_counter()
+    phase_serving_chunked(model, streams)
+    phase_serving_spec(model, streams)
+    phase_serving_spec_draft_chunked(model, streams)
+    phase_spec_verify_parity(model)
+    emit({"phase": "a13a_phases", "seconds": time.perf_counter() - t_a13a})
     del model
     torch.cuda.empty_cache()
     train_times = phase_kernel_train()

@@ -23,8 +23,20 @@ same batches, but the world-of-one steps sum the batch in another order),
 parameters bit-identical across the regrown world, and a world-of-one
 snapshot loaded bit-exact into a 2-rank-shaped trainer.
 
+``silent_exit`` (last, in the world the elastic scenario left): the
+JAX elastic workers' communicator, ``create_communicator("jax_ici")``,
+under ``ElasticRecovery`` with no fault-injection wrapper, so the object
+calls ride the process group.  Rank 1 leaves at iteration 4 without
+announcing: its process group goes down, as a crashed process's sockets
+close.  Rank 0 sees gloo's ``Connection closed by peer`` or ``Connection
+reset by peer`` (a plain ``RuntimeError``), recovers it as the backend's
+peer loss, the membership
+settles on {0} without rank 1, a world of one is built at epoch 3 after
+the old one is torn down, and training finishes its iterations from the
+consensus snapshot, the final loss within the same band.
+
 Deadlines: the channel's op timeout is 6 s (the detection), the world's
-join deadline 300 s (the two scenarios take ~30 s alone).
+join deadline 300 s (the three scenarios take ~35 s alone).
 """
 
 import numpy as np
@@ -339,11 +351,80 @@ def _object_paths(rank):
             "wrapped_channel": channel_state()}
 
 
+def _silent_exit(rank, tmpdir):
+    """A peer that exits without announcing, under ``ElasticRecovery``
+    over a plain communicator (see the module docstring).  Rank 1 returns
+    as soon as its process group is down: the world's last item."""
+    import os
+
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_checkpointer,
+                                     create_multi_node_optimizer)
+    from chainermn_tpu_torch.core.optimizer import MomentumSGD
+    from chainermn_tpu_torch.dataset import SerialIterator, TupleDataset
+    from chainermn_tpu_torch.extensions import ElasticRecovery
+    from chainermn_tpu_torch.training import StandardUpdater, Trainer
+    from chainermn_tpu_torch.training.trainer import Extension
+    x, t = _data()
+
+    class _Vanish(Exception):
+        """Rank 1's exit: no recovery extension can recover it."""
+
+    class _Leave(Extension):
+        trigger = (1, "iteration")
+        priority = 450            # before the beacon
+
+        def __call__(self, trainer):
+            if rank == 1 and trainer.updater.iteration == 4:
+                raise _Vanish()
+
+    comm = create_communicator("jax_ici", device="cpu")
+    model = _model()
+    comm.bcast_data(model)
+    opt = create_multi_node_optimizer(
+        MomentumSGD(lr=0.05, momentum=0.9), comm).setup(model)
+    out = os.path.join(tmpdir, "silent")
+    cp = create_multi_node_checkpointer(comm, name="sx", path=out)
+    causes = []
+    recovery = ElasticRecovery(
+        checkpointer=cp, comm=comm, resolve_timeout_ms=60_000,
+        verbose=True,
+        on_recover=lambda trainer, exc, resumed: causes.append(
+            (type(exc).__name__, str(exc), resumed)))
+    it = SerialIterator(TupleDataset(x, t), 8, shuffle=False)
+    trainer = Trainer(StandardUpdater(it, opt,
+                                      converter=_slicer(recovery)),
+                      (ITERS, "iteration"), out=out)
+    trainer.extend(_Leave())
+    trainer.extend(_beacon(recovery))
+    trainer.extend(cp, trigger=(3, "iteration"))
+    trainer.extend(recovery)
+    try:
+        trainer.run(show_loop_exception_msg=False)
+    except _Vanish:
+        dist.destroy_process_group()
+        return {"left_at": trainer.updater.iteration}
+    with torch.no_grad():
+        loss = float(model(torch.from_numpy(x), torch.from_numpy(t)))
+    s = recovery.stats
+    return {"causes": causes,
+            "stats": {k: s[k] for k in ("recoveries", "resizes",
+                                        "ranks_lost", "ranks_joined")},
+            "final": (trainer.updater.iteration, recovery.view.members,
+                      recovery.view.epoch, recovery.comm.size,
+                      type(recovery.comm).__name__,
+                      dist.get_world_size()),
+            "loss": loss}
+
+
 def _worker(rank, tmpdir):
     return {"objects": _object_paths(rank),
             "finalize": _finalize_waits_for_sends(rank),
             "chaos": _chaos_recovery(rank, tmpdir),
-            "elastic": _elastic(rank, tmpdir)}
+            "elastic": _elastic(rank, tmpdir),
+            "silent_exit": _silent_exit(rank, tmpdir)}
 
 
 @pytest.fixture(scope="module")
@@ -399,3 +480,50 @@ def test_two_rank_elastic_preempt_shrink_rejoin_grow(world):
         assert abs(e["loss"] - base_loss) <= BAND * abs(base_loss) + 1e-6
     pick, iteration, params_equal, state_equal = world[0]["elastic"]["xsize"]
     assert iteration == pick and params_equal and state_equal
+
+
+def test_survivor_recovers_a_peer_that_exits_without_announcing(world):
+    """C6: the survivor of a silent exit over a plain communicator
+    recovers gloo's closed connection to a world of one and finishes."""
+    assert world[1]["silent_exit"] == {"left_at": 4}
+    r = world[0]["silent_exit"]
+    (cause, message, resumed), = r["causes"]
+    # which of gloo's two texts depends on whether rank 1 left a beacon
+    # byte unread (its socket then resets)
+    assert cause == "RuntimeError" and any(
+        m in message for m in ("Connection closed by peer",
+                               "Connection reset by peer"))
+    assert resumed == 3               # the consensus snapshot before the exit
+    assert r["stats"] == dict(recoveries=1, resizes=1, ranks_lost=1,
+                              ranks_joined=0)
+    # the elastic scenario left epoch 2; the shrink decides epoch 3
+    assert r["final"] == (ITERS, (0,), 3, 1, "ElasticMeshCommunicator", 1)
+    base_loss = world[0]["elastic"]["baseline"][2]
+    assert abs(r["loss"] - base_loss) <= BAND * abs(base_loss) + 1e-6
+
+
+def test_backend_peer_loss_is_recoverable_only_over_a_plain_communicator():
+    """The backend's peer-loss errors count with the default
+    ``recoverable`` while the communicator is not elastic; any other
+    ``RuntimeError`` never does."""
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.communicators import ElasticMeshCommunicator
+    from chainermn_tpu_torch.extensions import ElasticRecovery
+    from chainermn_tpu_torch.extensions.elastic import backend_peer_lost
+    closed = RuntimeError("[pair.cc:553] Connection closed by peer [::1]:1")
+    reset = RuntimeError("[pair.cc:537] Read error [::1]:1: Connection "
+                         "reset by peer")
+    typed = [dist.DistBackendError("watchdog"), dist.DistNetworkError("x")]
+    other = RuntimeError("CUDA out of memory")
+    assert all(backend_peer_lost(e) for e in [closed, reset] + typed)
+    assert not backend_peer_lost(other)
+    recovery = ElasticRecovery(verbose=False)
+    recovery.comm = object()               # a plain communicator
+    assert recovery.can_recover(closed) and recovery.can_recover(reset)
+    assert not recovery.can_recover(other)
+    recovery.comm = ElasticMeshCommunicator.__new__(ElasticMeshCommunicator)
+    assert not recovery.can_recover(closed)
+    explicit = ElasticRecovery(verbose=False, recoverable=(ValueError,))
+    explicit.comm = object()
+    assert not explicit.can_recover(closed)

@@ -13,7 +13,9 @@ the device-feed stage's batches and copy stream, masks per step and per
 seed, and the native loader's build; the DCGAN's transposed convolution
 (cuDNN) and one DCGAN iteration on the card against the CPU; the host
 channel's store adapter over a TCPStore, and an elastic rebuild of a
-world of one onto a fresh NCCL world.
+world of one onto a fresh NCCL world; the speculative verify step's span
+writer and attention on the card against the CPU, and an engine run with
+speculation and chunked prefill against the same run on the CPU.
 
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -1369,3 +1371,97 @@ def test_elastic_rebuild_onto_a_fresh_nccl_world_of_one(cuda_device):
     finally:
         el.finalize()
     assert not dist.is_initialized()
+
+
+@pytest.mark.gpu
+def test_span_writer_and_verify_attention_on_the_card(cuda_device):
+    """``write_span_kv`` (idle lane, short span) writes the same pages on
+    the card as on the CPU, and ``paged_verify_attention`` reads them
+    back within the fp32 tolerance (TF32 off), the idle lane zeros."""
+    from chainermn_tpu_torch.ops.paged_attention import \
+        paged_verify_attention
+    from chainermn_tpu_torch.serving import write_span_kv
+    rng = np.random.RandomState(0)
+    P, S, H, D = 6, 4, 2, 64
+    pools = [rng.normal(0, 1, (P + 1, S, H, D)).astype(np.float32)
+             for _ in range(2)]
+    kv = rng.normal(0, 1, (3, 5, H, D)).astype(np.float32)
+    q = rng.normal(0, 1, (3, 5, H, D)).astype(np.float32)
+    bts = np.array([[2, 3, 1], [5, 1, 0], [0, 4, 2]], np.int64)
+    start = np.array([3, -1, 6], np.int64)
+    n_valid = np.array([5, 5, 2], np.int64)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = []
+        for dev in ("cpu", cuda_device):
+            k_store, v_store = [torch.from_numpy(a).to(dev) for a in pools]
+            args = [torch.from_numpy(a).to(dev) for a in (bts, start,
+                                                          n_valid)]
+            write_span_kv(k_store, torch.from_numpy(kv).to(dev), *args)
+            write_span_kv(v_store, torch.from_numpy(-kv).to(dev), *args)
+            out = paged_verify_attention(torch.from_numpy(q).to(dev),
+                                         k_store[:P], v_store[:P],
+                                         args[0], args[1])
+            outs.append([t.cpu() for t in (k_store[:P], v_store[:P], out)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    (kc, vc, oc), (kg, vg, og) = outs
+    assert torch.equal(kc, kg) and torch.equal(vc, vg)
+    assert (og - oc).abs().max().item() < TOL[torch.float32]
+    assert torch.all(og[1] == 0)
+
+
+#: a greedy token that differs between the card and the CPU in fp32 must
+#: sit at a near-tie of the CPU's top two logits
+FP32_TIE = 1e-3
+
+
+@pytest.mark.gpu
+def test_engine_spec_and_chunks_on_the_card_match_the_cpu(cuda_device):
+    """One engine run with ``spec_k=2`` and ``chunk_tokens=16`` at a tiny
+    width (head width 64 for the flash prefill), fp32 with TF32 off, on
+    the card and on the CPU: the token lists equal, or the first
+    divergence at a top-two gap of the CPU's logits below FP32_TIE; the
+    counters' structure the same."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.serving import Request, ServingEngine
+    cfg = dict(n_vocab=101, d_model=128, n_heads=2, n_layers=2, max_len=128,
+               seed=0)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, 101, n) for n in (5, 40, 23, 9)]
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            model = TransformerLM(device=dev, **cfg)
+            eng = ServingEngine(model, num_pages=64, page_size=8,
+                                max_batch=4, max_context=64, spec_k=2,
+                                chunk_tokens=16, device=dev)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(p, max_new_tokens=10, request_id=i,
+                                   arrival_time=float(i)))
+            t = 0.0
+            while eng.running or eng.prefilling or eng.scheduler.pending():
+                eng.step(now=t)
+                t += 1.0
+            assert eng.allocator.used_pages == 0 and eng.allocator.check()
+            runs[dev] = (model, eng, {r.request_id: list(r.tokens)
+                                      for r in eng.completed})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    cpu_model, cpu_eng, want = runs["cpu"]
+    _, card_eng, got = runs["cuda"]
+    assert sorted(got) == sorted(want) == list(range(len(prompts)))
+    # the 40- and 23-token prompts chunk
+    assert cpu_eng.chunked_admissions == card_eng.chunked_admissions == 2
+    assert card_eng.spec_steps > 0
+    for i, toks in got.items():
+        if toks == want[i]:
+            continue
+        j = next(j for j, (a, b) in enumerate(zip(toks, want[i])) if a != b)
+        seq = torch.tensor([list(prompts[i]) + want[i][:j]])
+        with torch.no_grad():
+            top2 = torch.topk(cpu_model.logits(seq)[0, -1], 2).values
+        assert (top2[0] - top2[1]).item() < FP32_TIE, (i, j)

@@ -894,3 +894,36 @@ def test_device_ops_in_ranges_joins_launches_to_their_ranges():
            device_ops_in_ranges(events, "train.")]
     assert got == [("train.grad_exchange.bucket0.a", "op1", 7),
                    ("train.grad_exchange.bucket0.a.inner", "op2", 21)]
+
+
+def test_serving_chunk_and_spec_spans(events_mode):
+    """The JAX engine's chunked-prefill and speculation spans: a chunked
+    admission's instant, its chunks' spans on the request's lane, and one
+    ``serve/spec_window`` a verify step."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.serving import Request, ServingEngine
+    lm = TransformerLM(n_vocab=64, d_model=32, n_heads=2, n_layers=1,
+                       max_len=64, seed=0, device="cpu")
+    eng = ServingEngine(lm, num_pages=16, page_size=8, max_batch=2,
+                        max_context=48, spec_k=2, chunk_tokens=8,
+                        device="cpu")
+    req = Request(np.random.RandomState(1).randint(0, 64, 20),
+                  max_new_tokens=5, arrival_time=0.0)
+    eng.submit(req)
+    step = 0
+    while (eng.running or eng.prefilling or eng.scheduler.pending()) \
+            and step < 40:
+        eng.step(now=float(step))
+        step += 1
+    assert len(req.tokens) == 5 and eng.chunk_prefills == 3
+    events = sorted(obs.tracer().events(), key=lambda e: e["ts"])
+    obs.validate_events(events)
+    lane = [e for e in events if e.get("tid") == 1 + req.request_id]
+    assert {"serve/chunk_admit", "serve/chunk_prefill", "serve/finish"} \
+        <= _span_names(lane)
+    chunks = [e for e in lane
+              if e["ph"] == "B" and e["name"] == "serve/chunk_prefill"]
+    assert [e["args"]["start"] for e in chunks] == [0, 8, 16]
+    windows = [e for e in events
+               if e["ph"] == "B" and e["name"] == "serve/spec_window"]
+    assert len(windows) == eng.spec_steps > 0

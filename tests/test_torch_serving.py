@@ -264,11 +264,10 @@ def test_bf16_pages_within_band():
         assert np.abs(logits[0].numpy() - ref[pos]).max() < BF16_BAND
 
 
-@pytest.mark.parametrize("option", [
-    {"disagg": True}, {"tp": 2}, {"spec_k": 2}, {"chunk_tokens": 16}])
+@pytest.mark.parametrize("option", [{"disagg": True}, {"tp": 2}])
 def test_unported_engine_options_raise(option):
     model = TransformerLM(seed=0, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
         ServingEngine(model, num_pages=8, page_size=8, max_context=32,
                       device="cpu", **option)
 
