@@ -628,13 +628,16 @@ class MeshCommunicator(CommunicatorBase):
                                    device=self._object_device())
         return meta[0]
 
-    def bcast(self, data, root=0):
+    def bcast(self, data, root=0, shaped=False):
         """``root``'s ``data`` on every rank (other ranks may pass
-        ``None``: shape and dtype come from the root)."""
-        x = self._tensor(data) if self.rank == root else None
-        shape, dtype = self._meta_from(root, x)
-        if x is None:
-            x = torch.empty(shape, dtype=dtype, device=self.device)
+        ``None``: shape and dtype come from the root).  ``shaped``: every
+        rank passes a tensor of the root's shape and dtype, so no
+        metadata travels ahead of the broadcast."""
+        x = self._tensor(data) if self.rank == root or shaped else None
+        if not shaped:
+            shape, dtype = self._meta_from(root, x)
+            if x is None:
+                x = torch.empty(shape, dtype=dtype, device=self.device)
         dist.broadcast(x, src=self._global(root), group=self.group)
         self.calls["bcast"] += 1
         return x

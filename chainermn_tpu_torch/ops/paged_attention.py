@@ -31,7 +31,7 @@ import os
 import torch
 
 __all__ = ["paged_decode_attention", "paged_prefill_attention",
-           "paged_verify_attention", "paged_attn_mode"]
+           "paged_verify_attention", "paged_attn_mode", "head_slice"]
 
 _NEG_INF = float("-inf")
 
@@ -46,6 +46,22 @@ def paged_attn_mode(mode=None):
         raise ValueError(
             f"CHAINERMN_TPU_PAGED_ATTN={mode!r} invalid (paged|dense)")
     return mode
+
+
+def head_slice(n_heads, tp_comm=None):
+    """This rank's heads under tensor-parallel serving, the counterpart of
+    the JAX ``head_sharding`` (which pins the head axis of the pools to a
+    ``tp`` mesh axis): rank ``r`` of ``tp_comm``'s ``K`` holds heads
+    ``[r H / K, (r + 1) H / K)`` in its pools, and without a communicator
+    a rank holds every head.  The paged ops need nothing else: they see
+    only the heads their pools hold."""
+    if tp_comm is None:
+        return slice(0, n_heads)
+    K = tp_comm.size
+    if n_heads % K:
+        raise ValueError(f"tp={K} must divide n_heads={n_heads}")
+    h = n_heads // K
+    return slice(tp_comm.rank * h, (tp_comm.rank + 1) * h)
 
 
 def _finite_or_zero(m):

@@ -7,25 +7,27 @@
 * :mod:`.scheduler` -- open-loop admission, per-tenant fairness,
   preemption by eviction;
 * :mod:`.engine` -- prefill (flash kernel) and paged decode wired
-  together, with prefix sharing, speculative decoding and chunked
-  prefill.
+  together, with prefix sharing, speculative decoding, chunked prefill,
+  disaggregated prefill and tensor-parallel decode.
 """
 
 from .engine import (ServingEngine, decode_program, ngram_propose,
-                     prefill_program, prefix_prefill_program, serve_spec_k,
-                     spec_verify_program)
+                     prefill_program, prefix_prefill_program,
+                     serve_disagg_mode, serve_spec_k, spec_verify_program)
 from .errors import (EvictionStalledError, PagePoolExhaustedError,
                      QueueSaturatedError, ServingError)
-from .kv_cache import (PagedKVCache, copy_page, write_prompt_kv,
-                       write_prompt_kv_at, write_span_kv, write_token_kv)
+from .kv_cache import (PagedKVCache, copy_page, insert_pages,
+                       write_prompt_kv, write_prompt_kv_at, write_span_kv,
+                       write_token_kv)
 from .page_allocator import BlockAllocator
 from .scheduler import Request, RequestScheduler
 
 __all__ = [
     "ServingEngine", "prefill_program", "prefix_prefill_program",
     "decode_program", "spec_verify_program", "ngram_propose",
-    "serve_spec_k", "write_span_kv", "PagedKVCache", "write_prompt_kv",
-    "write_prompt_kv_at", "write_token_kv", "copy_page", "BlockAllocator",
+    "serve_disagg_mode", "serve_spec_k", "write_span_kv", "PagedKVCache",
+    "write_prompt_kv", "write_prompt_kv_at", "write_token_kv", "copy_page",
+    "insert_pages", "BlockAllocator",
     "Request", "RequestScheduler", "ServingError", "PagePoolExhaustedError",
     "QueueSaturatedError", "EvictionStalledError",
 ]

@@ -33,9 +33,10 @@ metrics): each request's lifecycle rides a track of its own
 from the eviction that re-queued it, and tagged ``readmit``;
 ``serve/prefill`` or ``serve/suffix_prefill``; the ``serve/finish`` and
 ``serve/evict`` instants), decode steps run in ``serve/decode_window``
-spans, forks leave ``serve/fork`` instants; the registry keeps the
-queue-wait histogram, the per-tenant queue depth and the eviction and
-fork counters.
+spans, forks leave ``serve/fork`` instants and ships
+``serve/page_transfer`` instants on the request's track; the registry
+keeps the queue-wait histogram, the per-tenant queue depth and the
+eviction, fork and shipped-byte counters.
 
 **Speculative decoding** (``spec_k=K``): a draft proposes K tokens per
 sequence per step, the n-gram self-draft (:func:`ngram_propose`, pure
@@ -57,14 +58,43 @@ prefill buckets stop at ``C``; a mid-chunk request is an eviction victim
 before any decoding one (pages freed, cursor reset, chunk 0 again on
 re-admission).
 
+**Disaggregated prefill** (``disagg=True``, or
+``CHAINERMN_TPU_SERVE_DISAGG``, see :func:`serve_disagg_mode`): a prefix
+miss prefills on the prefill device against a scratch pool (identity
+block table), and its finished pages ship into the decode pool
+(:func:`~.kv_cache.extract_pages`, ``.to`` the decode device: a device
+copy on one card, a peer copy across cards, then
+:func:`~.kv_cache.insert_pages`), metered by ``transfers`` and
+``transferred_page_bytes``.  A prefix-miss chunk stream runs its chunks
+against the scratch pool too and ships once, after its last chunk; the
+one scratch pool holds one such stream at a time, so a second one waits
+at admission (``deferred_admissions``), and so does a one-shot miss once
+the stream has written a chunk (the JAX engine lets it overwrite them).  Prefix hits, suffix prefills
+and the draft model's prefill stay on the decode pool.
+
+**Tensor-parallel decode** (``tp=K`` over ``tp_comm``, a communicator of
+``K`` ranks): the JAX engine shards its pools over the heads of a ``tp``
+mesh and leaves the rest to GSPMD; the port is MPMD, one process a rank.
+Rank ``r`` holds heads ``[r H / K, (r + 1) H / K)`` in its pools
+(:func:`~chainermn_tpu_torch.ops.paged_attention.head_slice`); each
+program computes the whole ``qkv`` with the replicated weights, writes
+and attends over this rank's heads (the flash kernel at ``H / K`` heads
+in a prefill) and all-gathers the attention output along the heads
+before ``proj``; layer norms, the MLP and the head run whole on every
+rank.  The ranks run the same host loop in lockstep, fed the same
+requests in the same order (and the same ``now``, or requests that have
+all arrived), and the tokens of each dispatch (an admission's first
+token, the decode argmax, the verify's argmax row, a draft model's
+proposals) come from rank 0 through one broadcast, so a near-tie cannot
+split the ranks' schedulers.
+
 The port is eager PyTorch: there are no jit programs, trace counters or
 warm-up, and the pools are updated in place (the JAX engine's donation).
-The JAX engine's disaggregated prefill and tensor-parallel decode are not
-ported yet (ROADMAP A13b) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 import zlib
@@ -76,18 +106,35 @@ from .. import observability
 from .._device import resolve_device
 from ..nn import functions as F
 from ..ops import attention as flash_attention_op
-from ..ops.paged_attention import (paged_attn_mode, paged_decode_attention,
+from ..ops.paged_attention import (head_slice, paged_attn_mode,
+                                   paged_decode_attention,
                                    paged_prefill_attention,
                                    paged_verify_attention)
 from .errors import PagePoolExhaustedError
-from .kv_cache import (PagedKVCache, copy_page, write_prompt_kv,
-                       write_prompt_kv_at, write_span_kv, write_token_kv)
+from .kv_cache import (PagedKVCache, copy_page, extract_pages, insert_pages,
+                       write_prompt_kv, write_prompt_kv_at, write_span_kv,
+                       write_token_kv)
 from .page_allocator import BlockAllocator
 from .scheduler import RequestScheduler
 
 __all__ = ["ServingEngine", "prefill_program", "prefix_prefill_program",
            "decode_program", "spec_verify_program", "ngram_propose",
-           "serve_spec_k"]
+           "serve_disagg_mode", "serve_spec_k"]
+
+
+def serve_disagg_mode(disagg=None):
+    """Resolve the disaggregation knob: ``CHAINERMN_TPU_SERVE_DISAGG=off``
+    is the single-mesh escape hatch and wins over everything (the
+    disagg-on trajectory is pinned identical to it, so the hatch is
+    always safe); ``on``/``1`` enables when the constructor left the
+    argument ``None``; default off.  Resolved ONCE at engine
+    construction, like the paged-attention mode."""
+    env = os.environ.get("CHAINERMN_TPU_SERVE_DISAGG", "").lower()
+    if env == "off":
+        return False
+    if disagg is not None:
+        return bool(disagg)
+    return env in ("on", "1")
 
 
 def serve_spec_k(spec_k=0):
@@ -140,12 +187,27 @@ def _mlp(block, h):
     return h + m.reshape(B, T, D)
 
 
-def _qkv(block, h):
-    """``[B, T, 3, H, Dh]`` projections of the block's normed input."""
+def _qkv(block, h, tp_comm=None):
+    """``[B, T, 3, H_local, Dh]``: the block's normed input projected whole
+    (the weights are replicated), then this rank's heads
+    (:func:`~chainermn_tpu_torch.ops.paged_attention.head_slice`; every
+    head without ``tp_comm``)."""
     B, T, D = h.shape
     attn = block.attn
-    return attn.qkv(block.ln1(h).reshape(B * T, D)).reshape(
+    qkv = attn.qkv(block.ln1(h).reshape(B * T, D)).reshape(
         B, T, 3, attn.n_heads, attn.d_head)
+    if tp_comm is None:
+        return qkv
+    return qkv[:, :, :, head_slice(attn.n_heads, tp_comm)]
+
+
+def _gather_heads(att, tp_comm):
+    """``[..., H_local, Dh]`` attention outputs to ``[..., H, Dh]``: every
+    rank's heads in rank order, through one all-gather (a failed gather
+    raises)."""
+    if tp_comm is None:
+        return att
+    return torch.cat(tp_comm.allgather(att), dim=-2).to(att.device)
 
 
 def _last_logits(model, h, true_len):
@@ -154,23 +216,25 @@ def _last_logits(model, h, true_len):
 
 
 @torch.inference_mode()
-def prefill_program(model, kv, tokens, true_len, bt_row):
+def prefill_program(model, kv, tokens, true_len, bt_row, tp_comm=None):
     """Full causal forward over the (padded) prompt.
 
     ``tokens``: ``[1, Tb]`` int (positions ``>= true_len`` are padding:
     their K/V writes go to the trash page, and causality keeps them out of
     every valid position's attention).  Writes every layer's K/V into
     ``kv`` through ``bt_row`` and returns the fp32 ``[V]`` logits at
-    position ``true_len - 1``."""
+    position ``true_len - 1``.  ``tp_comm``: tensor parallelism, ``kv``
+    holds this rank's heads and the flash kernel runs over them."""
     B, T = tokens.shape
     pos = torch.arange(T, device=tokens.device).expand(B, T)
     h = model.embed_tokens(tokens, pos)
     for li, block in enumerate(model.blocks):
-        qkv = _qkv(block, h)
+        qkv = _qkv(block, h, tp_comm)
         q, k, v = [qkv[:, :, j].transpose(1, 2) for j in range(3)]
-        att = flash_attention_op(q, k, v, causal=True)
-        att = att.transpose(1, 2).reshape(B * T, -1)
-        h = h + block.attn.proj(att).reshape(B, T, -1)
+        att = _gather_heads(
+            flash_attention_op(q, k, v, causal=True).transpose(1, 2),
+            tp_comm)
+        h = h + block.attn.proj(att.reshape(B * T, -1)).reshape(B, T, -1)
         h = _mlp(block, h)
         write_prompt_kv(kv.k_store[li], qkv[0, :, 1], bt_row, true_len)
         write_prompt_kv(kv.v_store[li], qkv[0, :, 2], bt_row, true_len)
@@ -178,7 +242,8 @@ def prefill_program(model, kv, tokens, true_len, bt_row):
 
 
 @torch.inference_mode()
-def prefix_prefill_program(model, kv, tokens, true_len, start, bt_row):
+def prefix_prefill_program(model, kv, tokens, true_len, start, bt_row,
+                           tp_comm=None):
     """Suffix prefill for a prefix-shared request.
 
     ``tokens``: ``[1, Tb]`` suffix tokens (positions ``>= true_len``
@@ -187,7 +252,8 @@ def prefix_prefill_program(model, kv, tokens, true_len, start, bt_row):
     request's own suffix pages).  Per layer the suffix's K/V are written
     first, then :func:`paged_prefill_attention` reads the whole context
     back -- no flash kernel touches the shared pages.  Returns the fp32
-    logits at suffix position ``true_len - 1``."""
+    logits at suffix position ``true_len - 1``.  ``tp_comm`` as in
+    :func:`prefill_program`."""
     B, T = tokens.shape
     # padding past the last position embedding reads the last one (where
     # the JAX gather clamps); causality keeps it out of every valid query
@@ -196,39 +262,42 @@ def prefix_prefill_program(model, kv, tokens, true_len, start, bt_row):
     h = model.embed_tokens(tokens, pos)
     scale = 1.0 / (model.blocks[0].attn.d_head ** 0.5)
     for li, block in enumerate(model.blocks):
-        qkv = _qkv(block, h)
+        qkv = _qkv(block, h, tp_comm)
         write_prompt_kv_at(kv.k_store[li], qkv[0, :, 1], bt_row, start,
                            true_len)
         write_prompt_kv_at(kv.v_store[li], qkv[0, :, 2], bt_row, start,
                            true_len)
-        att = paged_prefill_attention(qkv[0, :, 0], kv.k_pool[li],
-                                      kv.v_pool[li], bt_row, start,
-                                      true_len, scale=scale)
+        att = _gather_heads(
+            paged_prefill_attention(qkv[0, :, 0], kv.k_pool[li],
+                                    kv.v_pool[li], bt_row, start, true_len,
+                                    scale=scale), tp_comm)
         h = h + block.attn.proj(att.reshape(B * T, -1)).reshape(B, T, -1)
         h = _mlp(block, h)
     return _last_logits(model, h, true_len)
 
 
 @torch.inference_mode()
-def decode_program(model, kv, toks, pos, bts, *, mode):
+def decode_program(model, kv, toks, pos, bts, *, mode, tp_comm=None):
     """One decode step, one token per batch lane.
 
     ``toks``/``pos``: ``[Bb]`` int (``pos < 0`` marks an idle lane: its
     K/V write goes to the trash page and its context is empty).  ``bts``:
     ``[Bb, N]`` block tables.  Writes each lane's K/V at ``pos``, then
-    attends over ``[0, pos]``.  Returns ``(logits [Bb, V] fp32, next_tok
-    [Bb] int32)``."""
+    attends over ``[0, pos]``.  ``tp_comm`` as in :func:`prefill_program`
+    (the pools hold this rank's heads).  Returns ``(logits [Bb, V] fp32,
+    next_tok [Bb] int32)``."""
     Bb = toks.shape[0]
     h = model.embed_tokens(toks, pos.clamp_min(0))[:, None]   # [Bb, 1, D]
     ctx_len = torch.where(pos >= 0, pos + 1, torch.zeros_like(pos))
     scale = 1.0 / (model.blocks[0].attn.d_head ** 0.5)
     for li, block in enumerate(model.blocks):
-        qkv = _qkv(block, h)[:, 0]                           # [Bb, 3, H, Dh]
+        qkv = _qkv(block, h, tp_comm)[:, 0]        # [Bb, 3, H_local, Dh]
         write_token_kv(kv.k_store[li], qkv[:, 1], bts, pos)
         write_token_kv(kv.v_store[li], qkv[:, 2], bts, pos)
-        att = paged_decode_attention(qkv[:, 0], kv.k_pool[li],
-                                     kv.v_pool[li], bts, ctx_len,
-                                     scale=scale, mode=mode)
+        att = _gather_heads(
+            paged_decode_attention(qkv[:, 0], kv.k_pool[li], kv.v_pool[li],
+                                   bts, ctx_len, scale=scale, mode=mode),
+            tp_comm)
         h = h + block.attn.proj(att.reshape(Bb, -1))[:, None]
         h = _mlp(block, h)
     logits = model.head(model.ln_f(h[:, 0])).float()
@@ -236,7 +305,7 @@ def decode_program(model, kv, toks, pos, bts, *, mode):
 
 
 @torch.inference_mode()
-def spec_verify_program(model, kv, toks, start, n_valid, bts):
+def spec_verify_program(model, kv, toks, start, n_valid, bts, tp_comm=None):
     """The speculative verify step: score ``K + 1`` tokens per lane at once.
 
     ``toks``: ``[Bb, K1]`` int, lane ``b``'s pending token then its K
@@ -248,8 +317,9 @@ def spec_verify_program(model, kv, toks, start, n_valid, bts):
     :func:`~chainermn_tpu_torch.ops.paged_attention.paged_verify_attention`
     lets query ``j`` see positions ``<= start + j``, the context a
     one-token decode step there would see, so ``g[b, j]`` is the token
-    vanilla decode would emit after tokens ``0..j``.  Returns ``(logits
-    [Bb, K1, V] fp32, g [Bb, K1] int32)``."""
+    vanilla decode would emit after tokens ``0..j``.  ``tp_comm`` as in
+    :func:`prefill_program`.  Returns ``(logits [Bb, K1, V] fp32, g [Bb,
+    K1] int32)``."""
     Bb, K1 = toks.shape
     # slots past a lane's n_valid may run past the position table, where
     # the JAX gather clamps; their outputs are never read
@@ -259,17 +329,25 @@ def spec_verify_program(model, kv, toks, start, n_valid, bts):
     h = model.embed_tokens(toks, pos)                      # [Bb, K1, D]
     scale = 1.0 / (model.blocks[0].attn.d_head ** 0.5)
     for li, block in enumerate(model.blocks):
-        qkv = _qkv(block, h)                              # [Bb, K1, 3, H, Dh]
+        qkv = _qkv(block, h, tp_comm)        # [Bb, K1, 3, H_local, Dh]
         write_span_kv(kv.k_store[li], qkv[:, :, 1], bts, start, n_valid)
         write_span_kv(kv.v_store[li], qkv[:, :, 2], bts, start, n_valid)
-        att = paged_verify_attention(qkv[:, :, 0], kv.k_pool[li],
-                                     kv.v_pool[li], bts, start, scale=scale)
+        att = _gather_heads(
+            paged_verify_attention(qkv[:, :, 0], kv.k_pool[li],
+                                   kv.v_pool[li], bts, start, scale=scale),
+            tp_comm)
         h = h + block.attn.proj(att.reshape(Bb * K1, -1)).reshape(
             Bb, K1, -1)
         h = _mlp(block, h)
     logits = model.head(model.ln_f(h.reshape(Bb * K1, -1))).reshape(
         Bb, K1, -1).float()
     return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+class _AdmitDeferred(Exception):
+    """This request cannot admit this step (the one disaggregated scratch
+    pool is mid-chunk for another prompt): requeued front-of-line, it
+    retries next step.  Never leaves the engine."""
 
 
 def _bucket(n, buckets, what):
@@ -290,13 +368,6 @@ def _pow2_buckets(lo, hi):
     return tuple(out)
 
 
-def _not_ported(name, value):
-    raise NotImplementedError(
-        f"ServingEngine({name}={value!r}) is not ported to "
-        f"chainermn_tpu_torch yet (ROADMAP A13b: disaggregated prefill "
-        f"and tensor-parallel decode)")
-
-
 class ServingEngine:
     """Continuous-batching engine over a ``TransformerLM``.
 
@@ -312,17 +383,30 @@ class ServingEngine:
     prompts whose unmatched remainder exceeds it admit in chunks of that
     many tokens (a page multiple; ``None``: one-shot prefill).
     ``chunk_budget``: prefill tokens advanced per step (default one
-    chunk).  ``disagg`` and ``tp`` keep the JAX engine's signature and
-    raise ``NotImplementedError`` unless left at their defaults.
+    chunk).  ``disagg``: disaggregated prefill (``None``: the
+    ``CHAINERMN_TPU_SERVE_DISAGG`` knob, :func:`serve_disagg_mode`) on
+    ``prefill_device`` (default the engine's device, what the JAX
+    default gives on a one-card host; another device prefills with a copy
+    of the model); ``decode_device`` is the engine's ``device`` under the
+    JAX name.  ``tp``: tensor-parallel decode over ``tp_comm``, a
+    communicator of exactly ``tp`` ranks on the engine's device type,
+    every rank constructing the engine with the same model and feeding it
+    the same requests (``tp=1`` with a communicator of one runs the same
+    path at a group of one).
 
     Counters: ``full_prefills`` (target prefills through the flash
-    kernel; a draft model's prefill, one per admission, runs it too),
-    ``prefix_hits``/``prefix_tokens_matched``, ``forks``, ``evictions``,
-    ``admissions``, ``decode_steps`` (decode or verify dispatches);
-    speculation's ``spec_steps``, ``spec_lane_steps`` (lanes summed over
-    verify steps), ``spec_proposed``, ``spec_accepted``, ``spec_emitted``
-    and ``draft_dispatches``; chunking's ``chunk_prefills`` and
-    ``chunked_admissions``.  ``prefill_s``/``decode_s``/``draft_s`` are
+    kernel, disaggregated ones included; a draft model's prefill, one per
+    admission, runs it too), ``prefix_hits``/``prefix_tokens_matched``,
+    ``forks``, ``evictions``, ``admissions``, ``decode_steps`` (decode or
+    verify dispatches); speculation's ``spec_steps``, ``spec_lane_steps``
+    (lanes summed over verify steps), ``spec_proposed``,
+    ``spec_accepted``, ``spec_emitted`` and ``draft_dispatches``;
+    chunking's ``chunk_prefills`` and ``chunked_admissions``;
+    disaggregation's ``transfers``, ``transferred_page_bytes`` (this
+    rank's: bucket padding included, summed over a tp group the JAX
+    engine's count) and ``deferred_admissions`` (a prefix miss waiting
+    for the scratch pool).
+    ``prefill_s``/``decode_s``/``draft_s`` are
     host-clock seconds: prefills up to the first token's fetch (a chunk
     that is not the last returns without a sync, its device time landing
     in the next sync), decode or verify steps up to the tokens' fetch, and
@@ -333,14 +417,18 @@ class ServingEngine:
     def __init__(self, model, num_pages=256, page_size=16, max_batch=8,
                  max_context=256, page_dtype=None, max_queue=256,
                  scheduler=None, mode=None, eos_id=None,
-                 prefix_cache=True, disagg=None, tp=1, spec_k=0,
+                 prefix_cache=True, disagg=None, tp=1,
+                 prefill_device=None, decode_device=None, spec_k=0,
                  draft_model=None, chunk_tokens=None, chunk_budget=None,
-                 device=None):
-        for name, value, default in (("disagg", disagg, None),
-                                     ("tp", tp, 1)):
-            if value != default and not (name == "disagg"
-                                         and value is False):
-                _not_ported(name, value)
+                 device=None, tp_comm=None):
+        if decode_device is not None:
+            if device is not None and resolve_device(device) \
+                    != resolve_device(decode_device):
+                raise ValueError(
+                    f"decode_device={decode_device!r} and device="
+                    f"{device!r} name two devices: the decode device is "
+                    f"the engine's")
+            device = decode_device
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lies on {model.device}, the engine "
@@ -350,11 +438,28 @@ class ServingEngine:
         if max_context > max_len:
             raise ValueError(f"max_context={max_context} exceeds the "
                              f"model's max_len={max_len}")
+        self.tp = int(tp)
+        if self.tp < 1 or blk.n_heads % self.tp:
+            raise ValueError(f"tp={tp} must divide n_heads={blk.n_heads}")
+        if tp_comm is None and self.tp > 1:
+            raise ValueError(f"tp={tp} needs tp_comm, a communicator of "
+                             f"{tp} ranks")
+        if tp_comm is not None:
+            if tp_comm.size != self.tp:
+                raise ValueError(f"tp={tp} needs a communicator of {tp} "
+                                 f"ranks, tp_comm has {tp_comm.size}")
+            if tp_comm.device.type != self.device.type:
+                raise ValueError(f"tp_comm serves {tp_comm.device}, the "
+                                 f"engine runs on {self.device}")
+        self.tp_comm = tp_comm
         if page_dtype is None:
             page_dtype = model.compute_dtype or torch.float32
         self.model = model
-        self.kv = PagedKVCache(len(model.blocks), num_pages, page_size,
-                               blk.n_heads, blk.d_head, dtype=page_dtype,
+        n_layers = len(model.blocks)
+        # this rank's heads (all of them without tp)
+        n_heads = blk.n_heads // self.tp
+        self.kv = PagedKVCache(n_layers, num_pages, page_size, n_heads,
+                               blk.d_head, dtype=page_dtype,
                                device=self.device)
         self.allocator = BlockAllocator(num_pages, page_size)
         self.scheduler = scheduler or RequestScheduler(max_queue=max_queue)
@@ -387,6 +492,7 @@ class ServingEngine:
         self.prefill_buckets = _pow2_buckets(min(16, prefill_cap),
                                              prefill_cap)
         self.batch_buckets = _pow2_buckets(1, self.max_batch)
+        self.transfer_buckets = _pow2_buckets(1, self.n_block_entries)
         self.running = []       # admission order, oldest first
         self.prefilling = []    # mid-chunk admissions, oldest first
         self.completed = []
@@ -405,6 +511,9 @@ class ServingEngine:
         self.draft_dispatches = 0
         self.chunk_prefills = 0
         self.chunked_admissions = 0
+        self.transfers = 0
+        self.transferred_page_bytes = 0
+        self.deferred_admissions = 0
         self.prefill_s = 0.0
         self.decode_s = 0.0
         self.draft_s = 0.0
@@ -429,6 +538,20 @@ class ServingEngine:
             # by chunking
             self._draft_prefill_buckets = _pow2_buckets(
                 min(16, self.max_context), self.max_context)
+        self.disagg = serve_disagg_mode(disagg)
+        if self.disagg:
+            # a scratch pool of this rank's heads on the prefill device,
+            # whose identity block table puts a prompt's pages first
+            self._prefill_device = self.device if prefill_device is None \
+                else resolve_device(prefill_device)
+            self._kv_prefill = PagedKVCache(
+                n_layers, self.n_block_entries, page_size, n_heads,
+                blk.d_head, dtype=page_dtype, device=self._prefill_device)
+            self._model_prefill = model \
+                if self._prefill_device == self.device \
+                else copy.deepcopy(model).to(self._prefill_device)
+            self._scratch_bt = torch.arange(self.n_block_entries,
+                                            device=self._prefill_device)
 
     # -- ingress -------------------------------------------------------------
 
@@ -450,8 +573,17 @@ class ServingEngine:
 
     # -- internals -----------------------------------------------------------
 
-    def _tensor(self, array):
-        return torch.from_numpy(array).to(self.device)
+    def _tensor(self, array, device=None):
+        return torch.from_numpy(array).to(device or self.device)
+
+    def _agree(self, toks):
+        """Tensor parallelism: tp rank 0's tokens on every rank of the
+        group, one broadcast of the small int tensor (so a near-tie of the
+        logits cannot split the ranks' schedulers).  Without tp the
+        tokens themselves."""
+        if self.tp_comm is None:
+            return toks
+        return self.tp_comm.bcast(toks, root=0, shaped=True)
 
     def _bt_row(self, seq_id):
         row = np.zeros(self.n_block_entries, dtype=np.int64)
@@ -459,11 +591,12 @@ class ServingEngine:
         row[:len(table)] = table
         return row
 
-    def _padded_tokens(self, toks, buckets=None, what="prompt length"):
+    def _padded_tokens(self, toks, buckets=None, what="prompt length",
+                       device=None):
         Tb = _bucket(len(toks), buckets or self.prefill_buckets, what)
         tokens = np.zeros((1, Tb), dtype=np.int64)
         tokens[0, :len(toks)] = toks
-        return self._tensor(tokens)
+        return self._tensor(tokens, device)
 
     # -- observability -------------------------------------------------------
 
@@ -566,7 +699,50 @@ class ServingEngine:
         """Prefix hit: prefill only the unmatched suffix."""
         return prefix_prefill_program(
             self.model, self.kv, self._padded_tokens(req.prompt[matched:]),
-            L - matched, matched, self._tensor(self._bt_row(req.request_id)))
+            L - matched, matched, self._tensor(self._bt_row(req.request_id)),
+            tp_comm=self.tp_comm)
+
+    def _run_disagg_prefill(self, req, L):
+        """Prefix miss on the disaggregated split: the full flash prefill
+        on the prefill device against the scratch pool, then the pages
+        ship into the decode pool."""
+        logits = prefill_program(
+            self._model_prefill, self._kv_prefill,
+            self._padded_tokens(req.prompt, device=self._prefill_device),
+            L, self._scratch_bt, tp_comm=self.tp_comm)
+        self._ship_pages(req, L)
+        return logits
+
+    def _ship_pages(self, req, L):
+        """Ship the first ``pages_for(L)`` scratch pages into the decode
+        pool at the request's page ids: a block of the bucketed page count
+        (``transfer_buckets``), moved to the decode device and scattered
+        there, its padding rows onto the trash page.  Shared by one-shot
+        and chunked prefills (a chunked prompt ships once, after its last
+        chunk).  A failed copy raises."""
+        n_pages = self.allocator.pages_for(L)
+        nb = _bucket(n_pages, self.transfer_buckets, "transfer pages")
+        rows = np.full(nb, self.kv.num_pages, dtype=np.int64)
+        rows[:n_pages] = self.allocator.block_table(
+            req.request_id)[:n_pages]
+        rows = self._tensor(rows)
+        for scratch, store in ((self._kv_prefill.k_store, self.kv.k_store),
+                               (self._kv_prefill.v_store, self.kv.v_store)):
+            insert_pages(store, extract_pages(scratch, nb).to(self.device),
+                         rows)
+        shipped = nb * self.kv.n_layers * self.kv.page_bytes
+        self.transferred_page_bytes += shipped
+        self.transfers += 1
+        if observability.enabled():
+            observability.instant("serve/page_transfer",
+                                  tags={"request": req.request_id,
+                                        "pages": int(nb),
+                                        "bytes": int(shipped)},
+                                  tid=self._req_tid(req))
+            observability.registry().counter(
+                "chainermn_tpu_serving_transferred_page_bytes_total",
+                help="KV page bytes shipped prefill slice -> decode "
+                     "pool").inc(shipped)
 
     def _admit(self, req, clock):
         """Pages + prefill + first token, or the first chunk's pages for a
@@ -609,6 +785,15 @@ class ServingEngine:
         if not matched:
             chunked = self.chunk_tokens is not None \
                 and L > self.chunk_tokens
+            if self.disagg and any(
+                    r._chunk_scratch and (chunked or r._chunk_pos)
+                    for r in self.prefilling):
+                # one scratch pool: a second prefix-miss chunk stream
+                # would interleave into it, and a one-shot miss would
+                # overwrite the pages of a stream's written chunks (a
+                # hit's chunks run against the decode pool and admit
+                # freely)
+                raise _AdmitDeferred()
             self.allocator.ensure(sid, self.chunk_tokens if chunked
                                   else L + 1)
         # this admission's queue wait: from arrival, or from the eviction
@@ -628,6 +813,7 @@ class ServingEngine:
             # prefix: no logits, first token or prefix registration until
             # the last chunk; a hit books now (its pages are held)
             req._chunk_pos = matched
+            req._chunk_scratch = self.disagg and not matched
             if matched:
                 self.prefix_hits += 1
                 self.prefix_tokens_matched += matched
@@ -649,6 +835,13 @@ class ServingEngine:
                 logits = self._run_prefix_prefill(req, L, matched)
             self.prefix_hits += 1
             self.prefix_tokens_matched += matched
+        elif self.disagg:
+            with observability.span(
+                    "serve/prefill",
+                    tags={"request": sid, "prompt": L, "disagg": True}
+                    if obs_on else None, tid=rtid):
+                logits = self._run_disagg_prefill(req, L)
+            self.full_prefills += 1
         else:
             with observability.span(
                     "serve/prefill",
@@ -656,7 +849,8 @@ class ServingEngine:
                     tid=rtid):
                 logits = prefill_program(self.model, self.kv,
                                          self._padded_tokens(req.prompt),
-                                         L, self._tensor(self._bt_row(sid)))
+                                         L, self._tensor(self._bt_row(sid)),
+                                         tp_comm=self.tp_comm)
             self.full_prefills += 1
         self._complete_admission(req, logits, clock, prompt_t, t0)
 
@@ -670,7 +864,7 @@ class ServingEngine:
             self.allocator.register_prefix(req.request_id, prompt_t)
         if self.draft_model is not None:
             self._run_draft_prefill(req)
-        tok = int(torch.argmax(logits))   # device -> host sync
+        tok = int(self._agree(torch.argmax(logits)))   # device -> host
         self.prefill_s += time.perf_counter() - t0
         req._ctx = int(req.prompt.size)   # positions whose KV is written
         t = clock()
@@ -696,16 +890,29 @@ class ServingEngine:
     def _run_chunk(self, req, startp, size, final, clock):
         """One chunk of a chunked prefill: ``size`` prompt tokens at cursor
         ``startp`` through :func:`prefix_prefill_program` (chunk 0 at
-        ``start=0``); the last chunk completes the admission."""
+        ``start=0``); the last chunk completes the admission.  A
+        prefix-miss chunk on the disaggregated split runs on the prefill
+        device against the scratch pool, and its last chunk ships the
+        pages."""
         t0 = time.perf_counter()
-        logits = prefix_prefill_program(
-            self.model, self.kv,
-            self._padded_tokens(req.prompt[startp:startp + size],
-                                what="chunk length"),
-            size, startp, self._tensor(self._bt_row(req.request_id)))
+        chunk = req.prompt[startp:startp + size]
+        if req._chunk_scratch:
+            logits = prefix_prefill_program(
+                self._model_prefill, self._kv_prefill,
+                self._padded_tokens(chunk, what="chunk length",
+                                    device=self._prefill_device),
+                size, startp, self._scratch_bt, tp_comm=self.tp_comm)
+        else:
+            logits = prefix_prefill_program(
+                self.model, self.kv,
+                self._padded_tokens(chunk, what="chunk length"), size,
+                startp, self._tensor(self._bt_row(req.request_id)),
+                tp_comm=self.tp_comm)
         self.chunk_prefills += 1
         req._chunk_pos = startp + size
         if final:
+            if req._chunk_scratch:
+                self._ship_pages(req, int(req.prompt.size))
             self.prefilling.remove(req)
             prompt_t = tuple(int(t) for t in req.prompt) \
                 if self.prefix_cache else ()
@@ -829,6 +1036,9 @@ class ServingEngine:
             # positions ctx .. ctx + nv - 2 now hold draft K/V; acceptance
             # rewinds this to the new ctx
             req._draft_ctx = req._ctx + max(0, int(nv[j]) - 1)
+        if self.tp_comm is not None:
+            # the ranks' whole-head draft models agree on rank 0's
+            drafts = self._agree(torch.from_numpy(drafts)).cpu().numpy()
         return drafts
 
     # -- the step loop -------------------------------------------------------
@@ -872,6 +1082,11 @@ class ServingEngine:
                 # pool full: wait (admission never preempts running work)
                 self.scheduler.requeue_front(req, preempted=False)
                 break
+            except _AdmitDeferred:
+                # the scratch pool is another prompt's until it ships
+                self.deferred_admissions += 1
+                self.scheduler.requeue_front(req, preempted=False)
+                break
         # long prompts stream in between admission and the decode step,
         # which runs every step all the same
         if self.prefilling:
@@ -903,8 +1118,8 @@ class ServingEngine:
             t0 = time.perf_counter()
             _, nxt = decode_program(self.model, self.kv, self._tensor(toks),
                                     self._tensor(pos), self._tensor(bts),
-                                    mode=self.mode)
-            nxt = nxt.cpu().numpy()      # device -> host sync
+                                    mode=self.mode, tp_comm=self.tp_comm)
+            nxt = self._agree(nxt).cpu().numpy()   # device -> host sync
             self.decode_s += time.perf_counter() - t0
         self.decode_steps += 1
         t_tok = clock()
@@ -958,8 +1173,9 @@ class ServingEngine:
             t0 = time.perf_counter()
             _, g = spec_verify_program(
                 self.model, self.kv, self._tensor(toks),
-                self._tensor(start), self._tensor(nvb), self._tensor(bts))
-            g = g.cpu().numpy()          # device -> host sync
+                self._tensor(start), self._tensor(nvb), self._tensor(bts),
+                tp_comm=self.tp_comm)
+            g = self._agree(g).cpu().numpy()   # device -> host sync
             self.decode_s += time.perf_counter() - t0
         self.decode_steps += 1             # one dispatch, up to K1 tokens
         self.spec_steps += 1

@@ -24,7 +24,8 @@ import torch
 from .._device import resolve_device
 
 __all__ = ["PagedKVCache", "write_prompt_kv", "write_prompt_kv_at",
-           "write_token_kv", "write_span_kv", "copy_page"]
+           "write_token_kv", "write_span_kv", "copy_page", "insert_pages",
+           "extract_pages"]
 
 
 def write_prompt_kv_at(store_l, kv, block_table_row, start, true_len):
@@ -92,6 +93,22 @@ def copy_page(k_store, v_store, src, dst):
     layer of both pools, in place."""
     k_store[:, dst] = k_store[:, src]
     v_store[:, dst] = v_store[:, src]
+
+
+def extract_pages(store, nb):
+    """The block a disaggregated prefill ships: the first ``nb`` pages of
+    a scratch store ``[L, P + 1, S, H, D]``, as a ``[L, nb, S, H, D]``
+    view (the scratch pool's identity block table puts a prompt's pages
+    there)."""
+    return store[:, :nb]
+
+
+def insert_pages(store, block, rows):
+    """Disaggregation's receiving end: scatter a shipped page block
+    ``[L, nb, S, H, D]`` into ``store`` (``[L, P + 1, S, H, D]``) at the
+    page ids ``rows`` (``[nb]``), in place.  Padding rows carry the id
+    ``P`` and land on the trash page (the JAX ``mode="drop"``)."""
+    store[:, rows] = block.to(store.dtype)
 
 
 class PagedKVCache:

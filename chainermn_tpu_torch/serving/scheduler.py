@@ -74,6 +74,9 @@ class Request:
         # wrote; a mid-chunk eviction resets it (requeue_front), so the
         # re-admission restarts from chunk 0 on fresh pages
         self._chunk_pos = 0
+        # whether the chunks run against the engine's disaggregated
+        # scratch pool (a prefix miss on the split), set at admission
+        self._chunk_scratch = False
 
     def __repr__(self):
         return (f"Request(id={self.request_id}, tenant={self.tenant!r}, "

@@ -333,6 +333,40 @@ flips near-ties: reported, not gated):
     prompt in chunks of 256 against the one-shot flash prefill: the
     logits within ``BF16_BAND``.
 
+Then, on the same model and load (their seconds printed together as
+``a13b_phases``):
+
+48. serving_disagg: phase 3's load with ``disagg=True``: the prefill
+    device is the same card, the scratch pool its own allocation and a
+    ship a device copy.  Gates: every token stream equal to phase 3's
+    (the same kernel, shapes and weights write the same bytes into the
+    scratch pages), B3's launches equal to phase 3's, one ship a full
+    prefill, ``transferred_page_bytes`` the sum over the ships of their
+    bucketed page count times 12 layers times a page's K and V; then one
+    ship of each block size timed on the device beside its copy bound
+    (its bytes read and written at the HBM rate);
+49. serving_disagg_chunked: phase 44's options with ``disagg=True``: a
+    prefix-miss chunk stream runs on the scratch pool and ships after its
+    last chunk, a second one waits at admission (``deferred_admissions``).
+    Gates: B3's launches equal to phase 44's, one ship a one-shot prefill
+    and one a completed chunked miss, at its last chunk; at the program
+    level (``disagg_chunk_parity``) a 900-token prompt's chunks on a
+    scratch pool, shipped, bitwise the same chunks run on a decode pool
+    (pages and logits).  The deferral changes the schedule: a miss that
+    waits is admitted after its tenant's provider has registered the
+    system prompt, a prefix hit that chunks only its suffix, and the
+    decode batches differ.  So the chunk counters are printed beside
+    phase 44's, and a stream may part from phase 44's only where bf16 can
+    flip a greedy token: at a top-two gap of the one-shot logits within
+    ``FLIP_BAND``, a few bf16 ulps of the top logit (gated);
+50. serving_tp: phase 3's load with ``tp=1`` over a world-of-one NCCL
+    communicator (NCCL cannot put two ranks on one card): the
+    tensor-parallel path (the head slice, one all-gather of the attention
+    output a layer, one token broadcast a dispatch) at a group of one.
+    Gates: the streams equal to phase 3's, the all-gathers counted (12 a
+    dispatch), B3's launches equal to phase 3's; the gathers' and the
+    broadcast's host and device milliseconds a dispatch.
+
 Then the kernels line (launches, error, times, the whole call's device
 time and bound of all five kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before the last line.  Needs one CUDA card; fails without
@@ -362,6 +396,11 @@ HBM_BYTES_PER_S = 3.35e12
 # different points (a few bf16 ulps of |out| <= 4); fp32 only reorders sums
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 BF16_BAND = 0.25   # logits, paged decode vs one-shot (decode-parity suite)
+# a greedy token that another schedule may flip: a top-two gap of the
+# one-shot logits within a few bf16 ulps of the top logit (an ulp is 2^-6
+# for |logit| in [2, 4), 2^-5 in [4, 8)); the flips measured on an H100
+# read 0.016-0.031 (PERF.md)
+FLIP_BAND = 0.0625
 # backward against its plain version.  bf16: each of dq, dk, dv relative
 # to its own largest |ref| (bwd_errs); both sides round p and ds to bf16
 # before the dots, but dq's tiles add in another order and a last-bit
@@ -824,8 +863,8 @@ def agreement(streams, ref):
             "first_divergence": firsts}
 
 
-def run_serving_load(name, model, ref_streams=None, extra=None,
-                     **engine_kw):
+def run_serving_load(name, model, ref_streams=None, extra=None, watch=None,
+                     ref_name="serving", **engine_kw):
     """Phase 3's chat load through a fresh engine with ``engine_kw``, the
     launch counters read around the drain alone.  The row (with
     ``extra(engine)``'s fields, and the token agreement with
@@ -833,14 +872,18 @@ def run_serving_load(name, model, ref_streams=None, extra=None,
     complete with MAX_NEW tokens in the vocabulary, the pool returned, B3
     at 12 launches a flash prefill (a draft model's included, one per
     admission; chunks launch none) and, under speculation, one first
-    token an admission and every other token a verified one.  Returns
-    ``(engine, row, streams)``."""
+    token an admission and every other token a verified one.
+    ``watch(engine)`` runs before the drain (to wrap what the phase
+    observes); ``ref_name`` names the run ``ref_streams`` came from.
+    Returns ``(engine, row, streams)``."""
     from chainermn_tpu_torch.serving import Request, ServingEngine
     engine = ServingEngine(model, device="cuda", **ENGINE, **engine_kw)
     reqs = chat_requests(Request, MODEL["n_vocab"])
     prompt_len = {r.request_id: int(r.prompt.size) for r in reqs}
     for r in reqs:
         engine.submit(r)
+    if watch is not None:
+        watch(engine)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -876,7 +919,7 @@ def run_serving_load(name, model, ref_streams=None, extra=None,
            "token_gap_ms_p50": float(np.percentile(gaps, 50)) * 1e3,
            "token_gap_ms_p99": float(np.percentile(gaps, 99)) * 1e3}
     if ref_streams is not None:
-        row["agreement_with_serving"] = agreement(streams, ref_streams)
+        row[f"agreement_with_{ref_name}"] = agreement(streams, ref_streams)
     if extra is not None:
         row.update(extra(engine))
     emit(row)
@@ -906,11 +949,13 @@ def run_serving_load(name, model, ref_streams=None, extra=None,
 
 
 def phase_serving_chunked(model, ref_streams):
-    """Phase 44: phase 3's load with chunked prefill (CHUNK_TOKENS)."""
-    engine, _, _ = run_serving_load("serving_chunked", model, ref_streams,
-                                    chunk_tokens=CHUNK_TOKENS)
+    """Phase 44: phase 3's load with chunked prefill (CHUNK_TOKENS).
+    Returns its row and streams (phase 49 compares with them)."""
+    engine, row, streams = run_serving_load(
+        "serving_chunked", model, ref_streams, chunk_tokens=CHUNK_TOKENS)
     if not engine.chunked_admissions:
         fail("serving_chunked: no prompt was admitted in chunks")
+    return row, streams
 
 
 def spec_economics(engine):
@@ -1013,6 +1058,281 @@ def phase_spec_verify_parity(model):
     if not (max(diffs) < BF16_BAND and chunk_diff < BF16_BAND):
         fail(f"spec_verify_parity: verify {diffs} or chunked admission "
              f"{chunk_diff} leaves the bf16 band")
+
+
+#: one page's K and V at phase 3's width (16 slots x 12 heads x 64, bf16)
+PAGE_BYTES = 2 * ENGINE["page_size"] * MODEL["n_heads"] \
+    * (MODEL["d_model"] // MODEL["n_heads"]) * 2
+
+
+def watch_ships(log):
+    """A ``watch`` for :func:`run_serving_load` that wraps the engine's ship
+    and chunk steps: ``log["ships"]`` gets each ship's pages, its bucketed
+    block (the smallest transfer bucket that holds them) and whether a
+    chunk stream's last chunk sent it; ``log["scratch_last_chunks"]``
+    counts the last chunks run on the scratch pool."""
+    log.update(ships=[], scratch_last_chunks=0)
+
+    def watch(engine):
+        ship, run_chunk = engine._ship_pages, engine._run_chunk
+
+        def recorded_ship(req, L):
+            n = engine.allocator.pages_for(L)
+            log["ships"].append({
+                "pages": n,
+                "block": next(b for b in engine.transfer_buckets if b >= n),
+                "chunked": req in engine.prefilling,
+                "at_last_chunk": req._chunk_pos == L})
+            return ship(req, L)
+
+        def recorded_chunk(req, startp, size, final, clock):
+            log["scratch_last_chunks"] += bool(final and req._chunk_scratch)
+            return run_chunk(req, startp, size, final, clock)
+
+        engine._ship_pages, engine._run_chunk = recorded_ship, recorded_chunk
+    return watch
+
+
+def ship_times(engine, blocks):
+    """Device µs of one ship of each block size in ``blocks``: the two
+    scatters of an ``nb``-page block of the scratch pool into ``nb``
+    distinct pages of the decode pool (after the drain: the pool is free),
+    beside its copy bound, its bytes read once and written once at the
+    HBM rate."""
+    from chainermn_tpu_torch.serving.kv_cache import (extract_pages,
+                                                      insert_pages)
+    pairs = ((engine._kv_prefill.k_store, engine.kv.k_store),
+             (engine._kv_prefill.v_store, engine.kv.v_store))
+    out = {}
+    for nb in sorted(set(blocks)):
+        rows = torch.arange(nb, device="cuda")
+
+        def ship(nb=nb, rows=rows):
+            for scratch, store in pairs:
+                insert_pages(store, extract_pages(scratch, nb).to("cuda"),
+                             rows)
+        nbytes = nb * MODEL["n_layers"] * PAGE_BYTES
+        us = time_ms(ship) * 1e3
+        bound = 2 * nbytes / HBM_BYTES_PER_S * 1e6
+        out[nb] = {"bytes": nbytes, "device_us": us, "bound_us": bound,
+                   "x_bound": us / bound}
+    return out
+
+
+def check_ships(name, engine, log, one_shot):
+    """The ships' gates: one a one-shot full prefill (``one_shot``), one
+    a completed chunked miss at its last chunk, and
+    ``transferred_page_bytes`` the blocks' pages at PAGE_BYTES a layer."""
+    ships = log["ships"]
+    chunked = [s for s in ships if s["chunked"]]
+    want = sum(s["block"] for s in ships) * MODEL["n_layers"] * PAGE_BYTES
+    if engine.transfers != len(ships) \
+            or len(ships) - len(chunked) != one_shot:
+        fail(f"{name}: {engine.transfers} transfers, {len(ships)} ships "
+             f"({len(chunked)} chunked), expected one a full prefill "
+             f"({one_shot})")
+    if len(chunked) != log["scratch_last_chunks"] \
+            or not all(s["at_last_chunk"] for s in chunked):
+        fail(f"{name}: chunked ships {chunked}, expected one at each of "
+             f"{log['scratch_last_chunks']} last chunks on the scratch pool")
+    if engine.transferred_page_bytes != want:
+        fail(f"{name}: transferred_page_bytes "
+             f"{engine.transferred_page_bytes}, expected {want}")
+
+
+def check_streams(name, streams, ref_streams, ref_name):
+    if streams != ref_streams:
+        fail(f"{name}: token streams differ from {ref_name}'s: "
+             f"{agreement(streams, ref_streams)}")
+
+
+def phase_serving_disagg(model, ref_streams, ref_launches):
+    """Phase 48: phase 3's load with disaggregated prefill on the same
+    card."""
+    log = {}
+
+    def ships(engine):
+        times = ship_times(engine, [s["block"] for s in log["ships"]])
+        return {"transfers": engine.transfers,
+                "transferred_page_bytes": engine.transferred_page_bytes,
+                "ship_blocks": [s["block"] for s in log["ships"]],
+                "ship_device_us": times}
+    engine, row, streams = run_serving_load(
+        "serving_disagg", model, ref_streams, extra=ships,
+        watch=watch_ships(log), disagg=True)
+    check_streams("serving_disagg", streams, ref_streams, "serving")
+    if row["flash_launches"] != ref_launches:
+        fail(f"serving_disagg: B3 launches {row['flash_launches']}, "
+             f"phase 3's {ref_launches}")
+    check_ships("serving_disagg", engine, log, engine.full_prefills)
+
+
+def near_tie_gaps(model, streams, ref_streams):
+    """For each request whose stream parts from ``ref_streams``, the gap
+    between the top two logits of the one-shot forward over its prompt
+    and the reference tokens before the first difference, and the top
+    logit: a greedy token that bf16 can flip sits where that gap is
+    within ``FLIP_BAND``."""
+    from chainermn_tpu_torch.serving import Request
+    prompts = {r.request_id: [int(t) for t in r.prompt]
+               for r in chat_requests(Request, MODEL["n_vocab"])}
+    gaps = {}
+    for i, want in ref_streams.items():
+        got = streams[i]
+        if got == want:
+            continue
+        j = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 min(len(got), len(want)))
+        seq = torch.tensor([prompts[i] + want[:j]], device="cuda")
+        with torch.inference_mode():
+            top2 = torch.topk(model.logits(seq)[0, -1].float(), 2).values
+        gaps[i] = {"gap": (top2[0] - top2[1]).item(),
+                   "top": top2[0].item()}
+    return gaps
+
+
+def disagg_chunk_parity(model):
+    """The disaggregated chunk path at the program level, on the same
+    shapes: a 900-token prompt in chunks of CHUNK_TOKENS through
+    ``prefix_prefill_program`` against a scratch pool (the identity block
+    table), its pages shipped into a decode pool at scattered page ids,
+    against the same chunks run on a decode pool through those page ids.
+    Returns whether the shipped pages and the last chunk's logits are
+    bitwise the direct run's."""
+    from chainermn_tpu_torch.serving import (PagedKVCache, insert_pages,
+                                             prefix_prefill_program)
+    from chainermn_tpu_torch.serving.kv_cache import extract_pages
+    blk = model.blocks[0].attn
+    S = ENGINE["page_size"]
+    N, P, L = ENGINE["max_context"] // S, 128, 900
+    used = -(-L // S)
+
+    def cache(pages):
+        return PagedKVCache(MODEL["n_layers"], pages, S, blk.n_heads,
+                            blk.d_head, device="cuda")
+    prompt = torch.from_numpy(
+        np.random.RandomState(3).randint(0, MODEL["n_vocab"], L)).to("cuda")
+    ids = torch.from_numpy(
+        np.random.RandomState(4).permutation(P)[:N]).to("cuda")
+
+    def chunks(kv, bt):
+        for start in range(0, L, CHUNK_TOKENS):
+            n = min(CHUNK_TOKENS, L - start)
+            toks = torch.zeros((1, CHUNK_TOKENS), dtype=torch.long,
+                               device="cuda")
+            toks[0, :n] = prompt[start:start + n]
+            logits = prefix_prefill_program(model, kv, toks, n, start, bt)
+        return logits
+    scratch, direct, shipped = cache(N), cache(P), cache(P)
+    via_scratch = chunks(scratch, torch.arange(N, device="cuda"))
+    via_pool = chunks(direct, ids)
+    nb = 1 << (used - 1).bit_length()
+    rows = torch.full((nb,), P, dtype=torch.long, device="cuda")
+    rows[:used] = ids[:used]
+    for src, dst in ((scratch.k_store, shipped.k_store),
+                     (scratch.v_store, shipped.v_store)):
+        insert_pages(dst, extract_pages(src, nb), rows)
+    real = ids[:used]
+    return {"pages_bitwise": bool(
+                torch.equal(shipped.k_store[:, real], direct.k_store[:, real])
+                and torch.equal(shipped.v_store[:, real],
+                                direct.v_store[:, real])),
+            "logits_bitwise": bool(torch.equal(via_scratch, via_pool))}
+
+
+def phase_serving_disagg_chunked(model, ref_row, ref_streams):
+    """Phase 49: phase 44's options (chunks of CHUNK_TOKENS) with
+    disaggregated prefill."""
+    log = {}
+    engine, row, streams = run_serving_load(
+        "serving_disagg_chunked", model, ref_streams, ref_name="chunked",
+        extra=lambda e: {
+            "transfers": e.transfers,
+            "transferred_page_bytes": e.transferred_page_bytes,
+            "deferred_admissions": e.deferred_admissions,
+            "chunked_ships": sum(s["chunked"] for s in log["ships"]),
+            "chunked_row": {k: ref_row[k] for k in (
+                "chunk_prefills", "chunked_admissions", "prefix_hits")}},
+        watch=watch_ships(log), disagg=True, chunk_tokens=CHUNK_TOKENS)
+    gaps = near_tie_gaps(model, streams, ref_streams)
+    parity = disagg_chunk_parity(model)
+    emit({"phase": "disagg_chunk_parity", **parity,
+          "near_tie_gaps": gaps, "band": FLIP_BAND})
+    if not all(parity.values()):
+        fail(f"serving_disagg_chunked: the scratch pool's chunks and ship "
+             f"differ from the decode pool's: {parity}")
+    if not all(g["gap"] < FLIP_BAND for g in gaps.values()):
+        fail(f"serving_disagg_chunked: streams part from serving_chunked's "
+             f"away from a near-tie: top-two gaps {gaps}")
+    if row["flash_launches"] != ref_row["flash_launches"]:
+        fail(f"serving_disagg_chunked: B3 launches {row['flash_launches']}, "
+             f"serving_chunked's {ref_row['flash_launches']}")
+    if not row["chunked_ships"]:
+        fail("serving_disagg_chunked: no chunk stream ran on the scratch "
+             "pool")
+    check_ships("serving_disagg_chunked", engine, log, engine.full_prefills)
+
+
+def phase_serving_tp(model, ref_streams, ref_launches):
+    """Phase 50: phase 3's load with ``tp=1`` over a world-of-one NCCL
+    communicator, each all-gather and broadcast timed on the host and by
+    CUDA events around the call (the device's span from the call's start
+    to its end: its kernels, and the wait for the host in between)."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    comm = create_communicator("pure_nccl")
+    timed = {"allgather": [], "bcast": []}
+    for op, calls in timed.items():
+        def timed_op(*args, _fn=getattr(comm, op), _calls=calls, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            _calls.append((time.perf_counter() - t0, start, end))
+            end.record()
+            return out
+        setattr(comm, op, timed_op)
+
+    def costs(engine):
+        torch.cuda.synchronize()
+        dispatches = engine.decode_steps + engine.admissions
+        out = {"dispatches": dispatches, "collectives": dict(comm.calls)}
+        for op, calls in timed.items():
+            out[f"{op}_host_ms_per_dispatch"] = \
+                sum(c[0] for c in calls) * 1e3 / dispatches
+            out[f"{op}_event_ms_per_dispatch"] = \
+                sum(a.elapsed_time(b) for _, a, b in calls) / dispatches
+        return out
+    try:
+        comm.calls.clear()
+        engine, row, streams = run_serving_load(
+            "serving_tp", model, ref_streams, extra=costs, tp=1,
+            tp_comm=comm)
+    finally:
+        comm.finalize()
+    check_streams("serving_tp", streams, ref_streams, "serving")
+    if row["flash_launches"] != ref_launches:
+        fail(f"serving_tp: B3 launches {row['flash_launches']}, phase 3's "
+             f"{ref_launches}")
+    want = {"allgather": MODEL["n_layers"] * row["dispatches"],
+            "bcast": row["dispatches"]}
+    if {k: row["collectives"].get(k, 0) for k in want} != want:
+        fail(f"serving_tp: collectives {row['collectives']}, expected "
+             f"{want} (one all-gather a layer and one broadcast a "
+             f"dispatch)")
+    if dist.is_initialized():
+        fail("serving_tp: the process group outlived the phase")
+
+
+def phases_a13b(model, streams, launches, chunked_row, chunked_streams):
+    """Phases 48-50 against phase 3's streams and B3 launches and phase
+    44's row and streams, their seconds emitted as ``a13b_phases``."""
+    t0 = time.perf_counter()
+    phase_serving_disagg(model, streams, launches)
+    phase_serving_disagg_chunked(model, chunked_row, chunked_streams)
+    phase_serving_tp(model, streams, launches)
+    emit({"phase": "a13b_phases", "seconds": time.perf_counter() - t0})
 
 
 def flash_module():
@@ -5183,11 +5503,12 @@ def main():
     launches, streams = phase_serving(model)
     phase_decode_parity(model)
     t_a13a = time.perf_counter()
-    phase_serving_chunked(model, streams)
+    chunked_row, chunked_streams = phase_serving_chunked(model, streams)
     phase_serving_spec(model, streams)
     phase_serving_spec_draft_chunked(model, streams)
     phase_spec_verify_parity(model)
     emit({"phase": "a13a_phases", "seconds": time.perf_counter() - t_a13a})
+    phases_a13b(model, streams, launches, chunked_row, chunked_streams)
     del model
     torch.cuda.empty_cache()
     train_times = phase_kernel_train()

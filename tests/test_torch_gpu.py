@@ -14,8 +14,10 @@ seed, and the native loader's build; the DCGAN's transposed convolution
 (cuDNN) and one DCGAN iteration on the card against the CPU; the host
 channel's store adapter over a TCPStore, and an elastic rebuild of a
 world of one onto a fresh NCCL world; the speculative verify step's span
-writer and attention on the card against the CPU, and an engine run with
-speculation and chunked prefill against the same run on the CPU.
+writer and attention on the card against the CPU, an engine run with
+speculation and chunked prefill against the same run on the CPU, and
+engine runs with disaggregated prefill and with tensor parallelism over a
+communicator of one against the same runs on the CPU.
 
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -1465,3 +1467,97 @@ def test_engine_spec_and_chunks_on_the_card_match_the_cpu(cuda_device):
         with torch.no_grad():
             top2 = torch.topk(cpu_model.logits(seq)[0, -1], 2).values
         assert (top2[0] - top2[1]).item() < FP32_TIE, (i, j)
+
+
+@pytest.mark.gpu
+def test_engine_disagg_and_tp_on_the_card_match_the_cpu(cuda_device):
+    """A small fp32 engine (TF32 off) with disaggregated prefill, and with
+    tp=1 over a communicator of one (NCCL on the card, a gloo group on the
+    CPU: the slice, the gather and the token broadcast at a group of
+    one), on the card and on the CPU; and an engine on the CPU whose
+    prefill device is the card (a copy of the model there, the flash
+    kernel on the scratch pool, each ship a copy from the card into the
+    CPU's pool) against the same engine prefilling on the CPU: the token
+    lists equal, or the first divergence at a top-two gap of the CPU's
+    logits below FP32_TIE; the ships and their bytes the same."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.communicators import MeshCommunicator
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.serving import Request, ServingEngine
+    cfg = dict(n_vocab=101, d_model=128, n_heads=2, n_layers=2, max_len=128,
+               seed=0)
+    rng = np.random.RandomState(2)
+    system = rng.randint(0, 101, 20)
+    prompts = [system] + [np.concatenate([system, rng.randint(0, 101, n)])
+                          for n in (9, 3)] + [rng.randint(0, 101, 33)]
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card_comm = create_communicator("pure_nccl")
+    runs = {}
+    try:
+        comms = {"cuda": card_comm,
+                 "cpu": MeshCommunicator(device="cpu",
+                                         group=dist.new_group(
+                                             backend="gloo"))}
+        for dev in ("cpu", "cuda"):
+            model = TransformerLM(device=dev, **cfg)
+            for name, kw in (("disagg", dict(disagg=True)),
+                             ("tp", dict(tp=1, tp_comm=comms[dev]))):
+                eng = ServingEngine(model, num_pages=64, page_size=8,
+                                    max_batch=4, max_context=64,
+                                    device=dev, **kw)
+                for i, p in enumerate(prompts):
+                    eng.submit(Request(p, max_new_tokens=10, request_id=i,
+                                       arrival_time=float(i)))
+                t = 0.0
+                while eng.running or eng.prefilling \
+                        or eng.scheduler.pending():
+                    eng.step(now=t)
+                    t += 1.0
+                assert eng.allocator.used_pages == 0
+                runs[dev, name] = (model, eng, {r.request_id: list(r.tokens)
+                                                for r in eng.completed})
+        model = runs["cpu", "disagg"][0]
+        eng = ServingEngine(model, num_pages=64, page_size=8, max_batch=4,
+                            max_context=64, device="cpu", disagg=True,
+                            prefill_device="cuda")
+        assert eng._model_prefill is not model
+        assert eng._model_prefill.device.type == "cuda"
+        assert eng._kv_prefill.k_store.device.type == "cuda"
+        before = flash_attention.launches
+        for i, p in enumerate(prompts):
+            eng.submit(Request(p, max_new_tokens=10, request_id=i,
+                               arrival_time=float(i)))
+        t = 0.0
+        while eng.running or eng.prefilling or eng.scheduler.pending():
+            eng.step(now=t)
+            t += 1.0
+        assert eng.allocator.used_pages == 0
+        assert flash_attention.launches - before \
+            == eng.full_prefills * cfg["n_layers"] > 0
+        assert eng.kv.k_store.device.type == "cpu"
+        runs["cross", "disagg"] = (model, eng, {r.request_id: list(r.tokens)
+                                                for r in eng.completed})
+        assert card_comm.calls["allgather"] > 0 and card_comm.calls["bcast"]
+        comms["cpu"].finalize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+        card_comm.finalize()
+    for dev, name in (("cuda", "disagg"), ("cuda", "tp"),
+                      ("cross", "disagg")):
+        cpu_model, cpu_eng, want = runs["cpu", name]
+        _, card_eng, got = runs[dev, name]
+        assert sorted(got) == sorted(want) == list(range(len(prompts)))
+        assert (card_eng.transfers, card_eng.transferred_page_bytes) \
+            == (cpu_eng.transfers, cpu_eng.transferred_page_bytes)
+        for i, toks in got.items():
+            if toks == want[i]:
+                continue
+            j = next(j for j, (a, b) in enumerate(zip(toks, want[i]))
+                     if a != b)
+            seq = torch.tensor([list(prompts[i]) + want[i][:j]])
+            with torch.no_grad():
+                top2 = torch.topk(cpu_model.logits(seq)[0, -1], 2).values
+            assert (top2[0] - top2[1]).item() < FP32_TIE, (name, i, j)
+    assert runs["cuda", "disagg"][1].transfers > 0

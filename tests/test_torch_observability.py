@@ -927,3 +927,39 @@ def test_serving_chunk_and_spec_spans(events_mode):
     windows = [e for e in events
                if e["ph"] == "B" and e["name"] == "serve/spec_window"]
     assert len(windows) == eng.spec_steps > 0
+
+
+def test_serving_disagg_transfer_span(events_mode):
+    """The JAX engine's disaggregation trace: a prefix miss's
+    ``serve/prefill`` tagged ``disagg``, one ``serve/page_transfer``
+    instant a ship on the request's lane (pages and bytes in its tags),
+    and the byte counter at the engine's ``transferred_page_bytes``."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.serving import Request, ServingEngine
+    lm = TransformerLM(n_vocab=64, d_model=32, n_heads=2, n_layers=1,
+                       max_len=64, seed=0, device="cpu")
+    eng = ServingEngine(lm, num_pages=16, page_size=8, max_batch=2,
+                        max_context=32, disagg=True, device="cpu")
+    reqs = [Request(np.random.RandomState(i).randint(0, 64, n),
+                    max_new_tokens=3, arrival_time=0.0)
+            for i, n in enumerate((6, 19))]
+    for r in reqs:
+        eng.submit(r)
+    _drain(eng)
+    assert eng.transfers == 2
+    events = sorted(obs.tracer().events(), key=lambda e: e["ts"])
+    obs.validate_events(events)
+    ships = [e for e in events if e["name"] == "serve/page_transfer"]
+    page = eng.kv.n_layers * eng.kv.page_bytes
+    # 6 tokens: 1 page; 19 tokens: 3 pages, shipped as a block of 4
+    assert [(e["tid"], e["args"]["pages"], e["args"]["bytes"])
+            for e in ships] == [(1 + reqs[0].request_id, 1, page),
+                                (1 + reqs[1].request_id, 4, 4 * page)]
+    assert all(e["args"]["request"] == r.request_id
+               for e, r in zip(ships, reqs))
+    prefills = [e for e in events
+                if e["ph"] == "B" and e["name"] == "serve/prefill"]
+    assert len(prefills) == 2 and all(e["args"]["disagg"] for e in prefills)
+    assert obs.registry().get(
+        "chainermn_tpu_serving_transferred_page_bytes_total").value() \
+        == eng.transferred_page_bytes == 5 * page

@@ -62,8 +62,7 @@ def test_observability_and_profiling_surfaces(module):
 #: names of the JAX package's module surfaces still to port, by ROADMAP
 #: item
 NOT_PORTED_IN = {
-    "serving": {"serve_disagg_mode": "A13b", "insert_pages": "A13b",
-                "ReplicaFleet": "A13c", "FleetRouter": "A13c",
+    "serving": {"ReplicaFleet": "A13c", "FleetRouter": "A13c",
                 "LocalReplica": "A13c", "RemoteReplica": "A13c",
                 "FleetWorker": "A13c", "QueueDepthScalePolicy": "A13c",
                 "fleet_mode": "A13c", "NoLiveReplicaError": "A13c"},
@@ -123,9 +122,8 @@ def test_dcgan_functions_and_links():
 
 def test_serving_surface():
     """Every name of the JAX ``serving.__all__`` resolves on the port's
-    ``serving`` (speculative decoding and chunked prefill included), but
-    for the disaggregation and tensor-parallel names (A13b) and the fleet
-    (A13c)."""
+    ``serving`` (speculative decoding, chunked prefill, disaggregation and
+    tensor parallelism included), but for the fleet (A13c)."""
     import chainermn_tpu.serving as jserving
     mod = importlib.import_module("chainermn_tpu_torch.serving")
     pending = NOT_PORTED_IN["serving"]

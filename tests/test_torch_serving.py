@@ -8,6 +8,8 @@ Tolerances: fp32 atol 1e-5 (summation order only); bf16 within the
 decode-parity suite's band (0.25).
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -264,10 +266,23 @@ def test_bf16_pages_within_band():
         assert np.abs(logits[0].numpy() - ref[pos]).max() < BF16_BAND
 
 
-@pytest.mark.parametrize("option", [{"disagg": True}, {"tp": 2}])
-def test_unported_engine_options_raise(option):
+#: a stand-in for a communicator of one rank on the CPU
+_ONE_RANK = SimpleNamespace(size=1, rank=0, device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("option,match", [
+    ({"tp": 2}, "needs tp_comm"),
+    ({"tp": 3}, "must divide n_heads=2"),
+    ({"tp": 2, "tp_comm": _ONE_RANK}, "tp_comm has 1"),
+    ({"decode_device": "meta"}, "name two devices")])
+def test_unported_engine_options_raise(option, match):
+    """The engine options the port refuses, each with a ``ValueError``:
+    tensor parallelism without a communicator of ``tp`` ranks or over a
+    head count ``tp`` does not divide (the JAX engine's refusals of too
+    few devices and of ``n_heads % tp``), and a ``decode_device`` that is
+    not the engine's ``device``."""
     model = TransformerLM(seed=0, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
+    with pytest.raises(ValueError, match=match):
         ServingEngine(model, num_pages=8, page_size=8, max_context=32,
                       device="cpu", **option)
 
