@@ -60,11 +60,16 @@ recovery (:class:`~.extensions.FailureRecovery` under ``Trainer.run``'s
 supervisor loop), and elastic shrink and grow
 (:class:`~.extensions.ElasticRecovery` over the membership protocol,
 :class:`~.communicators.ElasticMeshCommunicator`,
-:func:`rescatter_dataset`).
+:func:`rescatter_dataset`).  The serving fleet
+(:class:`~.serving.ReplicaFleet`: engines as replicas behind a per-tenant
+router, a lost replica's work replayed on survivors, joiners synced over
+a multicast tree) and the capacity broker (:mod:`.elastic`: a training
+rank moved into the fleet and back as the queues fill and drain) ride on
+the same membership protocol.
 """
 
-from . import (functions, global_except_hook, links, observability,
-               parallel, utils)
+from . import (elastic, functions, global_except_hook, links,
+               observability, parallel, utils)
 from ._device import resolve_device
 from .communicators import (CommunicatorBase, DummyCommunicator,
                             MeshCommunicator, create_communicator)
@@ -78,7 +83,7 @@ from .nn import functions as F
 from .nn import links as L
 from .optimizers import create_multi_node_optimizer
 
-__all__ = ["functions", "links", "observability", "parallel", "utils", "resolve_device",
+__all__ = ["elastic", "functions", "links", "observability", "parallel", "utils", "resolve_device",
            "create_communicator", "CommunicatorBase", "MeshCommunicator",
            "DummyCommunicator", "create_multi_node_optimizer",
            "create_multi_node_evaluator", "scatter_dataset",

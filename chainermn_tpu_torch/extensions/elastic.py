@@ -351,20 +351,54 @@ class ElasticRecovery(FailureRecovery):
         return resumed
 
     # -- capacity transfer ---------------------------------------------------
+    # The CapacityBroker's view of this supervisor: a training rank moving
+    # into the serving fleet departs cleanly (no exception, no rollback:
+    # the survivors' shrink keeps the global batch as after a preemption)
+    # and later re-enters through the guarded admission a preempted rank's
+    # return takes.
     def capacity_leave(self, note="capacity transfer: to serving"):
-        """A training rank's clean departure into the serving fleet: not
-        ported yet, it needs the fleet and its router (ROADMAP A13c)."""
-        raise NotImplementedError(
-            "capacity_leave moves a rank into the serving fleet, which is "
-            "not ported yet (ROADMAP A13c)")
+        """Announce this rank's clean departure into the serving fleet.  The
+        survivors shrink without a timeout (the announced-leave fast path).
+        Returns the epoch at departure, so that the caller can wait for the
+        shrink's decision before anything that would race it."""
+        epoch = self.membership.current_epoch()
+        self.membership.announce_leave(note=note)
+        observability.instant("capacity/leave_announced",
+                              tags={"rank": self.stable_rank})
+        self._log(f"clean leave announced ({note})")
+        return epoch
 
     def capacity_rejoin(self, trainer=None,
                         note="capacity transfer: rejoin"):
-        """Re-entry from the serving fleet: not ported yet (ROADMAP
-        A13c)."""
-        raise NotImplementedError(
-            "capacity_rejoin brings a rank back from the serving fleet, "
-            "which is not ported yet (ROADMAP A13c)")
+        """Re-enter training after a serving stint: the two-attempt
+        admission of a preempted rank's return, ``require=`` the survivors
+        (a joiner never settles a world alone).  With a ``trainer`` the
+        full adopt runs (rebuild, snapshot sync, consensus load) and its
+        result is returned; without one the decided view is adopted and
+        returned.  Raises :class:`RecoveryGivingUp` when the survivors
+        never admit this rank."""
+        view = prev = self.membership.current_view()
+        for attempt in range(2):
+            self.membership.announce_join(note=note)
+            prev = self.membership.current_view()
+            self._log(f"capacity rejoin (current view "
+                      f"{list(prev.members)}, attempt {attempt + 1})")
+            with observability.span("elastic/resolve",
+                                    tags={"rejoin": True, "capacity": True,
+                                          "attempt": attempt + 1}):
+                view = self.membership.resolve(
+                    expect=set(prev.members) | {self.stable_rank},
+                    require=set(prev.members) - {self.stable_rank},
+                    timeout_ms=self.resolve_timeout_ms)
+            if self.stable_rank in view:
+                break
+        if self.stable_rank not in view:
+            raise RecoveryGivingUp("capacity re-join was not admitted",
+                                   membership=view)
+        if trainer is not None:
+            return self._adopt(trainer, view, prev_view=prev)
+        self.view = view
+        return view
 
     # -- the three moves -----------------------------------------------------
     def _preempted(self, trainer, exc):

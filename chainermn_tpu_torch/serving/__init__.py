@@ -8,7 +8,12 @@
   preemption by eviction;
 * :mod:`.engine` -- prefill (flash kernel) and paged decode wired
   together, with prefix sharing, speculative decoding, chunked prefill,
-  disaggregated prefill and tensor-parallel decode.
+  disaggregated prefill and tensor-parallel decode;
+* :mod:`.router` / :mod:`.fleet` -- the elastic serving fleet: engines as
+  replicas in a ``fleet`` membership group behind a per-tenant fair
+  router, a lost replica's sequences replayed on survivors with no drop,
+  cold joiners synced over a multicast tree, and the queue-depth scale
+  policy (``CHAINERMN_TPU_FLEET=off``: one engine).
 """
 
 from .engine import (ServingEngine, decode_program, ngram_propose,
@@ -16,10 +21,13 @@ from .engine import (ServingEngine, decode_program, ngram_propose,
                      serve_disagg_mode, serve_spec_k, spec_verify_program)
 from .errors import (EvictionStalledError, PagePoolExhaustedError,
                      QueueSaturatedError, ServingError)
+from .fleet import (FleetWorker, LocalReplica, QueueDepthScalePolicy,
+                    RemoteReplica, ReplicaFleet, fleet_mode)
 from .kv_cache import (PagedKVCache, copy_page, insert_pages,
                        write_prompt_kv, write_prompt_kv_at, write_span_kv,
                        write_token_kv)
 from .page_allocator import BlockAllocator
+from .router import FleetRouter, NoLiveReplicaError
 from .scheduler import Request, RequestScheduler
 
 __all__ = [
@@ -30,4 +38,7 @@ __all__ = [
     "insert_pages", "BlockAllocator",
     "Request", "RequestScheduler", "ServingError", "PagePoolExhaustedError",
     "QueueSaturatedError", "EvictionStalledError",
+    "ReplicaFleet", "FleetRouter", "LocalReplica", "RemoteReplica",
+    "FleetWorker", "QueueDepthScalePolicy", "fleet_mode",
+    "NoLiveReplicaError",
 ]

@@ -88,8 +88,11 @@ token, the decode argmax, the verify's argmax row, a draft model's
 proposals) come from rank 0 through one broadcast, so a near-tie cannot
 split the ranks' schedulers.
 
-The port is eager PyTorch: there are no jit programs, trace counters or
-warm-up, and the pools are updated in place (the JAX engine's donation).
+The port is eager PyTorch: there are no jit programs or trace counters,
+and the pools are updated in place (the JAX engine's donation).
+:meth:`ServingEngine.warmup` runs one idle dispatch of each padded shape
+instead of the JAX engine's compiles, so that a replica's first request
+pays no first-use cost.
 """
 
 from __future__ import annotations
@@ -965,6 +968,13 @@ class ServingEngine:
             self._evict(victim, clock())
         return progressed
 
+    def capacity_multiplier(self):
+        """The effective capacity prefix sharing buys: logical pages (what
+        an unshared pool would hold for the same residency) over distinct
+        physical pages; 1.0 when nothing is shared."""
+        used = self.allocator.used_pages
+        return self.allocator.logical_pages() / used if used else 1.0
+
     def _spec_nv(self, req):
         """The lane's verify span: the pending token and at most K
         proposals, cut so that the lane never emits past
@@ -1041,6 +1051,76 @@ class ServingEngine:
             drafts = self._agree(torch.from_numpy(drafts)).cpu().numpy()
         return drafts
 
+    @torch.inference_mode()
+    def warmup(self):
+        """One idle dispatch of every program the engine pads to, so that
+        the first real request pays no first-use cost (library loads,
+        cuBLAS handles, the allocator's growth; the JAX engine compiles
+        each bucket here): a prefill a prompt bucket (on the prefill
+        device and its scratch pool under ``disagg``), a suffix prefill a
+        bucket where prefix sharing or chunking runs it (on the scratch
+        pool too for disaggregated chunks), the fork copy, an extract and
+        insert a transfer bucket under ``disagg``, a decode and, under
+        speculation, a verify a batch bucket with every lane idle, and the
+        draft model's prefill and decode buckets.  Every write lands on a
+        trash page: the live pages, the allocator and every counter are
+        unchanged.  Under tensor parallelism every rank of the group calls
+        it (its programs gather)."""
+        n = self.n_block_entries
+        bt = self._tensor(np.zeros(n, dtype=np.int64))
+        tokens = {Tb: self._tensor(np.zeros((1, Tb), dtype=np.int64))
+                  for Tb in self.prefill_buckets}
+        for Tb, toks in tokens.items():
+            if self.disagg:
+                prefill_program(self._model_prefill, self._kv_prefill,
+                                toks.to(self._prefill_device), 0,
+                                self._scratch_bt, tp_comm=self.tp_comm)
+            else:
+                prefill_program(self.model, self.kv, toks, 0, bt,
+                                tp_comm=self.tp_comm)
+            if self.prefix_cache or self.chunk_tokens is not None:
+                prefix_prefill_program(self.model, self.kv, toks, 0, 0, bt,
+                                       tp_comm=self.tp_comm)
+            if self.disagg and self.chunk_tokens is not None:
+                prefix_prefill_program(
+                    self._model_prefill, self._kv_prefill,
+                    toks.to(self._prefill_device), 0, 0, self._scratch_bt,
+                    tp_comm=self.tp_comm)
+        trash = self.kv.num_pages
+        if self.prefix_cache:
+            copy_page(self.kv.k_store, self.kv.v_store, trash, trash)
+        if self.disagg:
+            for nb in self.transfer_buckets:
+                rows = self._tensor(np.full(nb, trash, dtype=np.int64))
+                for scratch, store in (
+                        (self._kv_prefill.k_store, self.kv.k_store),
+                        (self._kv_prefill.v_store, self.kv.v_store)):
+                    insert_pages(store, extract_pages(scratch, nb).to(
+                        self.device), rows)
+        for Bb in self.batch_buckets:
+            idle = self._tensor(np.full(Bb, -1, dtype=np.int64))
+            toks = self._tensor(np.zeros(Bb, dtype=np.int64))
+            bts = self._tensor(np.zeros((Bb, n), dtype=np.int64))
+            decode_program(self.model, self.kv, toks, idle, bts,
+                           mode=self.mode, tp_comm=self.tp_comm)
+            if self.spec_k:
+                spec_verify_program(
+                    self.model, self.kv,
+                    self._tensor(np.zeros((Bb, self.spec_k + 1),
+                                          dtype=np.int64)),
+                    idle, self._tensor(np.zeros(Bb, dtype=np.int64)), bts,
+                    tp_comm=self.tp_comm)
+            if self.draft_model is not None:
+                decode_program(self.draft_model, self._kv_draft, toks, idle,
+                               bts, mode=self.mode)
+        if self.draft_model is not None:
+            for Tb in self._draft_prefill_buckets:
+                prefill_program(
+                    self.draft_model, self._kv_draft,
+                    self._tensor(np.zeros((1, Tb), dtype=np.int64)), 0, bt)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     # -- the step loop -------------------------------------------------------
 
     def step(self, now=None):
@@ -1096,6 +1176,7 @@ class ServingEngine:
         stats["running"] = n
         stats["occupancy"] = (self.allocator.used_pages
                               / self.allocator.num_pages)
+        stats["capacity_x"] = self.capacity_multiplier()
         if observability.enabled():
             self._obs_queue_depths()
         if n == 0:

@@ -78,6 +78,10 @@ class Request:
         # scratch pool (a prefix miss on the split), set at admission
         self._chunk_scratch = False
 
+    @property
+    def total_len(self):
+        return int(self.prompt.size) + len(self.tokens)
+
     def __repr__(self):
         return (f"Request(id={self.request_id}, tenant={self.tenant!r}, "
                 f"prompt={self.prompt.size}, new={len(self.tokens)}/"
@@ -126,6 +130,12 @@ class RequestScheduler:
         if tenant is not None:
             return len(self._queues.get(tenant, ()))
         return sum(len(q) for q in self._queues.values())
+
+    def tenant_depths(self):
+        """``{tenant: queue depth}`` for every tenant seen: the per-tenant
+        surface the fleet's gauges, the router's ``pressure()`` and a
+        fleet worker's report read."""
+        return {t: len(q) for t, q in self._queues.items()}
 
     def next_admission(self, arrived_by=None):
         """Pop the next request in fair rotation, or None.  Only requests

@@ -367,6 +367,38 @@ Then, on the same model and load (their seconds printed together as
     dispatch), B3's launches equal to phase 3's; the gathers' and the
     broadcast's host and device milliseconds a dispatch.
 
+Then the serving fleet, on the same model and load (its seconds printed
+as ``a13c_phases``); each replica or joiner an engine with phase 3's
+options over a full-width model of its own (a copy of phase 3's, or a
+cold one from seed 123):
+
+51. serving_fleet: phase 3's load routed over a ``ReplicaFleet`` of two
+    replicas, replica 1 killed at its 4th decode step and the fleet
+    drained.  Gates: every request completes once, one shed, the
+    reroutes equal to what replica 1 held (its ledger entries and its
+    engine's queued and running requests, read as it is shed), the
+    survivors' pools returned, B3 at 12 launches a flash prefill of the
+    replicas, and every stream equal to phase 3's or parting from it at
+    a top-two gap within ``FLIP_BAND`` (the replicas' batches and a
+    replay's one-shot prefill over folded tokens are another schedule).
+    Prints tokens/s, the detection seconds, the router's spills and the
+    token gaps (p50, p99) of the rerouted requests beside the others'.
+    Then ``serving_fleet_join``: a cold replica joins (tree sync, then
+    ``warmup``): one round of exactly the payload's bytes, its weights
+    bitwise replica 0's; then 8 requests more, placed on it among others,
+    complete, B3 exact, streams as above;
+52. serving_capacity: the JAX bench's diurnal arc on one card: a fleet
+    of one replica under ``QueueDepthScalePolicy`` (``CAPACITY_POLICY``)
+    and a ``CapacityBroker`` over a ``LocalTrainGroup`` of two, its
+    converting rank served by a cold engine; phase 3's 16 requests at
+    once, each step's decision applied, and on the conversion the same
+    16 prompts again over both replicas.  Gates: one convert of rank 1
+    then one retire, the joiner bitwise the root after the sync, every
+    request once, the training view (0, 1), the live fleet [0], the
+    journal empty and ``chainermn_tpu_role_world_size`` 2 and 1 at the
+    end, the pools returned, B3 exact, streams as above.  Prints the
+    conversion and sync seconds and tokens/s.
+
 Then the kernels line (launches, error, times, the whole call's device
 time and bound of all five kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before the last line.  Needs one CUDA card; fails without
@@ -1333,6 +1365,307 @@ def phases_a13b(model, streams, launches, chunked_row, chunked_streams):
     phase_serving_disagg_chunked(model, chunked_row, chunked_streams)
     phase_serving_tp(model, streams, launches)
     emit({"phase": "a13b_phases", "seconds": time.perf_counter() - t0})
+
+
+#: phase 52's policy: the JAX bench's water marks, the high one cut from 8
+#: to 4 because phase 3's load cannot cross 8 (its deepest tenant holds 7
+#: requests, 5 still queued after the first step's 8 admissions)
+CAPACITY_POLICY = dict(scale_up_depth=4, scale_down_depth=0, min_replicas=1,
+                       max_replicas=2)
+#: the cold joiners' weights
+COLD_SEED = 123
+
+
+def replica_engine(model=None, seed=COLD_SEED):
+    """A full-width engine with ``ENGINE``'s options over a model of its
+    own: a copy of ``model`` (the same weights), or, without one, a fresh
+    ``TransformerLM`` from ``MODEL`` (bf16) with the weights of ``seed``.
+    Adoption writes a joiner's weights in place, so replicas never share a
+    module."""
+    import copy
+
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.serving import ServingEngine
+    if model is not None:
+        own = copy.deepcopy(model)
+    else:
+        own = TransformerLM(compute_dtype=torch.bfloat16, device="cuda",
+                            **dict(MODEL, seed=seed))
+    return ServingEngine(own, device="cuda", **ENGINE)
+
+
+def same_weights(a, b):
+    """Whether two engines' models hold bitwise the same state."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return list(sa) == list(sb) and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(sa.values(), sb.values()))
+
+
+def fleet_streams(fleet, prompt_len, offset=0):
+    """The token streams (an eviction's and a reroute's folded tokens
+    first) of the fleet's completed requests with ids ``offset`` to
+    ``offset + N_REQUESTS - 1``: phase 3's requests sent again under ids
+    moved by ``offset``, keyed by their phase 3 id."""
+    done = {r.request_id - offset: r for r in fleet.completed
+            if 0 <= r.request_id - offset < N_REQUESTS}
+    return token_streams(done, prompt_len)
+
+
+def gap_ms(requests):
+    """The p50 and p99 gaps (ms) between consecutive tokens of
+    ``requests`` on the engines' clock, or None without two tokens."""
+    gaps = [np.diff(r.token_times) for r in requests
+            if len(r.token_times) > 1]
+    if not gaps:
+        return None
+    gaps = np.concatenate(gaps) * 1e3
+    return [float(np.percentile(gaps, 50)), float(np.percentile(gaps, 99))]
+
+
+def check_fleet_streams(name, model, streams, ref_streams):
+    """Every request's stream equals phase 3's, or parts from it at a
+    top-two gap within FLIP_BAND (other batches than phase 3's, and a
+    replay's one-shot prefill over folded tokens).  Returns the gaps."""
+    gaps = near_tie_gaps(model, streams, ref_streams)
+    if not all(g["gap"] < FLIP_BAND for g in gaps.values()):
+        fail(f"{name}: streams part from phase 3's away from a near-tie: "
+             f"{gaps}")
+    return gaps
+
+
+def check_fleet_launches(name, engines, launches, before=None):
+    """B3 launched 12 times a flash prefill of ``engines`` (their
+    ``full_prefills`` less ``before``), and no other kernel ran."""
+    prefills = sum(e.full_prefills for e in engines) - sum(
+        (before or {}).get(id(e), 0) for e in engines)
+    if launches != expected_launches(fwd=MODEL["n_layers"] * prefills):
+        fail(f"{name}: flash kernel launches {launches}, expected "
+             f"{MODEL['n_layers']} x {prefills} flash prefills")
+
+
+def check_pools(name, engines):
+    for e in engines:
+        if not e.allocator.check() or e.allocator.used_pages:
+            fail(f"{name}: a replica's page pool was not returned in full")
+
+
+def phase_serving_fleet(model, ref_streams):
+    """Phase 51: phase 3's load through a ReplicaFleet of two replicas,
+    replica 1 killed at its 4th decode step; then a cold replica joined
+    (tree sync, warm-up) and 8 requests more."""
+    from chainermn_tpu_torch import observability
+    from chainermn_tpu_torch.serving import ReplicaFleet, Request
+    from chainermn_tpu_torch.serving.fleet import serialize_state
+    observability.reset_registry()
+    reqs = chat_requests(Request, MODEL["n_vocab"])
+    prompts = {r.request_id: int(r.prompt.size) for r in reqs}
+    fleet = ReplicaFleet(engines={0: replica_engine(model),
+                                  1: replica_engine(model)})
+    engines = [r.engine for r in fleet.replicas.values()]
+    placed = [fleet.submit(r) for r in reqs]
+    victim = fleet.replicas[1]
+    victim.kill_at = 4
+    held = {}
+    drain_victim = victim.drain_for_reroute
+
+    def counted(now=None):
+        # what replica 1 held when it was shed, read before the drain
+        eng = victim.engine
+        held["ledger"] = len(fleet.router.placements(1))
+        held["engine"] = (len(eng.running) + len(eng.prefilling)
+                          + eng.scheduler.pending())
+        return drain_victim(now=now)
+    victim.drain_for_reroute = counted
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    steps = fleet.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    ids = sorted(r.request_id for r in fleet.completed)
+    streams = fleet_streams(fleet, prompts)
+    n_gen = sum(len(t) for t in streams.values())
+    rerouted = [r for r in fleet.completed if r.preemptions]
+    stats = fleet.stats()
+    row = {"phase": "serving_fleet", "requests": len(ids), "steps": steps,
+           "placements": placed, "generated_tokens": n_gen,
+           "tokens_per_s": n_gen / wall, "wall_s": wall,
+           "sheds": stats["sheds"], "reroutes": stats["reroutes"],
+           "held_by_replica_1": held,
+           "last_detection_s": stats["last_detection_s"],
+           "spills": stats["spills"], "flash_launches": launches["fwd"],
+           "full_prefills": [e.full_prefills for e in engines],
+           "rerouted_gap_ms_p50_p99": gap_ms(rerouted),
+           "other_gap_ms_p50_p99": gap_ms(
+               [r for r in fleet.completed if not r.preemptions])}
+    gaps = check_fleet_streams("serving_fleet", model, streams, ref_streams)
+    row["near_tie_gaps"] = gaps
+    emit(row)
+    if ids != list(range(N_REQUESTS)) or len(fleet.completed) != N_REQUESTS:
+        fail(f"serving_fleet: completed {ids}, expected each of "
+             f"{N_REQUESTS} once")
+    if any(len(t) != MAX_NEW for t in streams.values()):
+        fail("serving_fleet: a request did not generate MAX_NEW tokens")
+    if stats["sheds"] != 1 or not (
+            stats["reroutes"] == held.get("ledger") == held.get("engine")
+            >= 1):
+        fail(f"serving_fleet: sheds {stats['sheds']}, reroutes "
+             f"{stats['reroutes']}, replica 1 held {held}")
+    check_pools("serving_fleet", [r.engine for r in fleet.live_replicas()])
+    check_fleet_launches("serving_fleet", engines, launches)
+
+    # a cold joiner (other weights), synced over the tree and warmed up
+    joiner = replica_engine()
+    root = fleet.replicas[0].engine
+    if same_weights(joiner, root):
+        fail("serving_fleet: the cold joiner already holds the root's "
+             "weights")
+    payload_bytes = len(serialize_state(root.model))
+    t0 = time.perf_counter()
+    fleet.join(engines={2: joiner}, warmup=True)
+    torch.cuda.synchronize()
+    join_s = time.perf_counter() - t0
+    stats = fleet.stats()
+    bitwise = same_weights(joiner, root)
+    more = chat_requests(Request, MODEL["n_vocab"])[:8]
+    for i, r in enumerate(more):
+        r.request_id = 100 + i
+    before = {id(e): e.full_prefills for e in engines + [joiner]}
+    reset_launches()
+    placed = [fleet.submit(r) for r in more]
+    fleet.drain()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    done = sorted(r.request_id for r in fleet.completed
+                  if r.request_id >= 100)
+    streams = fleet_streams(fleet, prompts, offset=100)
+    row = {"phase": "serving_fleet_join", "join_s": join_s,
+           "weight_sync_s": stats["weight_sync_s"],
+           "weight_sync_bytes": stats["weight_sync_bytes"],
+           "payload_bytes": payload_bytes,
+           "weight_sync_rounds": stats["weight_sync_rounds"],
+           "bitwise": bitwise, "placements": placed, "completed": done,
+           "flash_launches": launches["fwd"],
+           "joiner_full_prefills": joiner.full_prefills}
+    gaps = check_fleet_streams("serving_fleet_join", model, streams,
+                               {i: ref_streams[i] for i in streams})
+    row["near_tie_gaps"] = gaps
+    emit(row)
+    if not (stats["weight_sync_rounds"] == 1
+            and stats["weight_sync_bytes"] == payload_bytes and bitwise):
+        fail(f"serving_fleet_join: not one round of the payload's "
+             f"{payload_bytes} bytes landing bitwise: {row}")
+    if 2 not in placed or done != [100 + i for i in range(len(more))]:
+        fail(f"serving_fleet_join: placements {placed}, completed {done}")
+    check_pools("serving_fleet_join",
+                [r.engine for r in fleet.live_replicas()])
+    check_fleet_launches("serving_fleet_join", engines + [joiner],
+                         launches, before)
+
+
+def phase_serving_capacity(model, ref_streams):
+    """Phase 52: the JAX bench's diurnal arc on one card: a fleet of one
+    replica under QueueDepthScalePolicy, a CapacityBroker over a training
+    group of two; phase 3's 16 requests at once, each step's decision
+    applied; on the conversion the same 16 prompts again (ids 100-115),
+    routed over both replicas."""
+    from chainermn_tpu_torch import observability
+    from chainermn_tpu_torch.elastic import CapacityBroker, LocalTrainGroup
+    from chainermn_tpu_torch.serving import (QueueDepthScalePolicy,
+                                             ReplicaFleet, Request)
+    observability.reset_registry()
+    reqs = chat_requests(Request, MODEL["n_vocab"])
+    prompts = {r.request_id: int(r.prompt.size) for r in reqs}
+    fleet = ReplicaFleet(engines={0: replica_engine(model)},
+                         scale_policy=QueueDepthScalePolicy(
+                             **CAPACITY_POLICY))
+    train = LocalTrainGroup(world=2)
+    broker = CapacityBroker(train, fleet, engine_factory=lambda r:
+                            replica_engine(), min_world=1)
+    for r in reqs:
+        fleet.submit(r)
+    torch.cuda.synchronize()
+    reset_launches()
+    actions, synced, steps = [], None, 0
+    t0 = time.perf_counter()
+    while fleet.pending() and steps < 10000:
+        st = fleet.step()
+        steps += 1
+        res = broker.apply(st["scale_decision"])
+        if res is None:
+            continue
+        actions.append([*res, steps])
+        if res[0] == "convert":
+            rid = broker.converted[res[1]]
+            synced = same_weights(fleet.replicas[rid].engine,
+                                  fleet.replicas[0].engine)
+            for i, r in enumerate(chat_requests(Request, MODEL["n_vocab"])):
+                r.request_id = 100 + i
+                fleet.submit(r)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    engines = [r.engine for r in fleet.replicas.values()]
+    ids = sorted(r.request_id for r in fleet.completed)
+    first = fleet_streams(fleet, prompts)
+    second = fleet_streams(fleet, prompts, offset=100)
+    n_gen = sum(len(t) for t in [*first.values(), *second.values()])
+    gauge = observability.registry().gauge("chainermn_tpu_role_world_size")
+    roles = {role: gauge.value(role=role) for role in ("elastic", "fleet")}
+    row = {"phase": "serving_capacity", "actions": actions, "steps": steps,
+           "requests": len(ids), "generated_tokens": n_gen,
+           "tokens_per_s": n_gen / wall, "wall_s": wall,
+           "convert_s": broker.stats["convert_s"],
+           "weight_sync_s": fleet.weight_sync_s,
+           "weight_sync_bytes": fleet.weight_sync_bytes,
+           "stats": {k: v for k, v in broker.stats.items()
+                     if k != "convert_s"},
+           "reroutes": fleet.reroutes, "joiner_bitwise": synced,
+           "served_by": {r.rid: len(r.engine.completed)
+                         for r in fleet.replicas.values()},
+           "training_view": list(train.current_view().members),
+           "fleet_live": [r.rid for r in fleet.live_replicas()],
+           "journal": train.scan_conversions(), "role_world_size": roles,
+           "flash_launches": launches["fwd"],
+           "policy": CAPACITY_POLICY}
+    gaps = {"first": check_fleet_streams("serving_capacity", model, first,
+                                         ref_streams),
+            "second": check_fleet_streams("serving_capacity", model, second,
+                                          ref_streams)}
+    row["near_tie_gaps"] = gaps
+    emit(row)
+    want_ids = list(range(N_REQUESTS)) + [100 + i for i in range(N_REQUESTS)]
+    if ids != want_ids or len(fleet.completed) != len(want_ids):
+        fail(f"serving_capacity: completed {ids}, expected each of "
+             f"{want_ids} once")
+    if [a[:2] for a in actions] != [["convert", 1], ["retire", 1]]:
+        fail(f"serving_capacity: actions {actions}, expected one convert "
+             f"of rank 1 then one retire")
+    s = broker.stats
+    if (s["conversions"], s["retires"], s["role_transfers"]) != (1, 1, 2)             or not synced:
+        fail(f"serving_capacity: stats {s}, joiner bitwise {synced}")
+    if not (row["training_view"] == [0, 1] and row["fleet_live"] == [0]
+            and row["journal"] == {}
+            and roles == {"elastic": 2, "fleet": 1}):
+        fail(f"serving_capacity: the role groups are not whole at the end: "
+             f"{row}")
+    check_pools("serving_capacity", engines)
+    check_fleet_launches("serving_capacity", engines, launches)
+
+
+def phases_a13c(model, streams, launches):
+    """Phases 51-52 on phase 3's model and load (``launches``: phase 3's B3
+    count, each phase counting its own), their seconds emitted as
+    ``a13c_phases``."""
+    t0 = time.perf_counter()
+    phase_serving_fleet(model, streams)
+    torch.cuda.empty_cache()
+    phase_serving_capacity(model, streams)
+    torch.cuda.empty_cache()
+    emit({"phase": "a13c_phases", "seconds": time.perf_counter() - t0,
+          "phase3_flash_launches": launches})
 
 
 def flash_module():
@@ -5509,6 +5842,7 @@ def main():
     phase_spec_verify_parity(model)
     emit({"phase": "a13a_phases", "seconds": time.perf_counter() - t_a13a})
     phases_a13b(model, streams, launches, chunked_row, chunked_streams)
+    phases_a13c(model, streams, launches)
     del model
     torch.cuda.empty_cache()
     train_times = phase_kernel_train()

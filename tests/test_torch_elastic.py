@@ -747,12 +747,3 @@ def test_check_batch_unwraps_multi_node_iterator():
         assert e.value.plan["accum_steps"] > 1
     finally:
         boot.finalize()
-
-
-def test_capacity_transfer_waits_for_the_fleet():
-    from chainermn_tpu_torch.extensions import ElasticRecovery
-    rec = ElasticRecovery(membership=_scripted([]), comm=_Topology(1, 0),
-                          verbose=False)
-    for call in (rec.capacity_leave, rec.capacity_rejoin):
-        with pytest.raises(NotImplementedError, match="A13"):
-            call()

@@ -17,7 +17,9 @@ world of one onto a fresh NCCL world; the speculative verify step's span
 writer and attention on the card against the CPU, an engine run with
 speculation and chunked prefill against the same run on the CPU, and
 engine runs with disaggregated prefill and with tensor parallelism over a
-communicator of one against the same runs on the CPU.
+communicator of one against the same runs on the CPU; and a serving fleet
+killed and joined on the card against the same fleet on the CPU, each
+fleet's joiner on the other device.
 
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -1561,3 +1563,75 @@ def test_engine_disagg_and_tp_on_the_card_match_the_cpu(cuda_device):
                 top2 = torch.topk(cpu_model.logits(seq)[0, -1], 2).values
             assert (top2[0] - top2[1]).item() < FP32_TIE, (name, i, j)
     assert runs["cuda", "disagg"][1].transfers > 0
+
+
+@pytest.mark.gpu
+def test_fleet_kill_and_join_on_the_card_match_the_cpu(cuda_device):
+    """A small fp32 fleet (TF32 off) of two replicas, one killed at its
+    second decode step under load and a cold replica joined, on the card
+    and on the CPU.  Each fleet's joiner lies on the other device, so the
+    weight payload crosses devices both ways: the joiner bitwise the root.
+    Every request completes once in both fleets, with the same sheds and
+    reroutes; the tokens equal, or the first divergence at a top-two gap
+    of the CPU's logits below FP32_TIE; B3 launches 2 layers a flash
+    prefill of the card's engines."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.serving import ReplicaFleet, Request, \
+        ServingEngine
+    cfg = dict(n_vocab=101, d_model=128, n_heads=2, n_layers=2, max_len=64)
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, 101, n) for n in (9, 30, 17, 5, 24, 12, 8,
+                                                 20, 11, 6)]
+
+    def engine(dev, seed=0):
+        return ServingEngine(TransformerLM(device=dev, seed=seed, **cfg),
+                             num_pages=32, page_size=8, max_batch=2,
+                             max_context=64, device=dev)
+
+    def state(eng):
+        return [t.cpu() for t in eng.model.state_dict().values()]
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    try:
+        for dev, other in (("cpu", "cuda"), ("cuda", "cpu")):
+            fleet = ReplicaFleet(engine_factory=lambda rid, d=dev: engine(d),
+                                 replicas=2)
+            before = flash_attention.launches
+            for i, p in enumerate(prompts[:6]):
+                fleet.submit(Request(p, 10, tenant=f"t{i % 2}",
+                                     request_id=i))
+            fleet.replicas[1].kill_at = 2
+            fleet.drain(now=1.0)
+            joiner = engine(other, seed=123)
+            assert fleet.join(engines={2: joiner}) == [2]
+            assert all(torch.equal(a, b) for a, b in
+                       zip(state(joiner), state(fleet.replicas[0].engine)))
+            for i, p in enumerate(prompts[6:], start=6):
+                fleet.submit(Request(p, 10, tenant="t0", request_id=i))
+            fleet.drain(now=2.0)
+            card = [r.engine for r in fleet.replicas.values()
+                    if r.engine.device.type == "cuda"]
+            assert flash_attention.launches - before == cfg["n_layers"] \
+                * sum(e.full_prefills for e in card) > 0
+            runs[dev] = (fleet.sheds, fleet.reroutes,
+                         fleet.weight_sync_rounds,
+                         {r.request_id: [int(t) for t in r.prompt[
+                             len(prompts[r.request_id]):]] + list(r.tokens)
+                          for r in fleet.completed})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    *counts, want = runs["cpu"]
+    *card_counts, got = runs["cuda"]
+    assert card_counts == counts and counts[0] == 1 and counts[1] >= 1
+    assert sorted(got) == sorted(want) == list(range(len(prompts)))
+    cpu_model = TransformerLM(device="cpu", seed=0, **cfg)
+    for i, toks in got.items():
+        if toks == want[i]:
+            continue
+        j = next(j for j, (a, b) in enumerate(zip(toks, want[i])) if a != b)
+        seq = torch.tensor([list(prompts[i]) + want[i][:j]])
+        with torch.no_grad():
+            top2 = torch.topk(cpu_model.logits(seq)[0, -1], 2).values
+        assert (top2[0] - top2[1]).item() < FP32_TIE, (i, j)

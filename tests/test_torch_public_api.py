@@ -61,12 +61,7 @@ def test_observability_and_profiling_surfaces(module):
 
 #: names of the JAX package's module surfaces still to port, by ROADMAP
 #: item
-NOT_PORTED_IN = {
-    "serving": {"ReplicaFleet": "A13c", "FleetRouter": "A13c",
-                "LocalReplica": "A13c", "RemoteReplica": "A13c",
-                "FleetWorker": "A13c", "QueueDepthScalePolicy": "A13c",
-                "fleet_mode": "A13c", "NoLiveReplicaError": "A13c"},
-}
+NOT_PORTED_IN = {"serving": {}}
 
 
 @pytest.mark.parametrize("module", ["functions", "links", "parallel",
@@ -122,8 +117,8 @@ def test_dcgan_functions_and_links():
 
 def test_serving_surface():
     """Every name of the JAX ``serving.__all__`` resolves on the port's
-    ``serving`` (speculative decoding, chunked prefill, disaggregation and
-    tensor parallelism included), but for the fleet (A13c)."""
+    ``serving`` (speculative decoding, chunked prefill, disaggregation,
+    tensor parallelism and the fleet included)."""
     import chainermn_tpu.serving as jserving
     mod = importlib.import_module("chainermn_tpu_torch.serving")
     pending = NOT_PORTED_IN["serving"]
@@ -132,3 +127,17 @@ def test_serving_surface():
             == (name not in pending), f"serving.{name}"
     assert set(pending) <= set(jserving.__all__)
     assert set(mod.__all__) == set(jserving.__all__) - set(pending)
+
+
+@pytest.mark.parametrize("module", ["serving.fleet", "elastic"])
+def test_fleet_and_elastic_surfaces(module):
+    """Every name of the JAX ``serving.fleet.__all__`` (a documented
+    import surface, ``MODULES``) and ``elastic.__all__`` resolves on the
+    port's module of that name, and ``elastic`` is a top-level module as
+    in the JAX package."""
+    names = importlib.import_module(f"chainermn_tpu.{module}").__all__
+    mod = importlib.import_module(f"chainermn_tpu_torch.{module}")
+    missing = [n for n in names if getattr(mod, n, None) is None]
+    assert not missing, missing
+    assert set(names) <= set(mod.__all__)
+    assert ct.elastic is importlib.import_module("chainermn_tpu_torch.elastic")

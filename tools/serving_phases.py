@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""The serving engine's disaggregated and tensor-parallel phases of
-``chip_smoke.py`` alone, on one CUDA card: phase 3's chat load, phase
-44's chunked load, phases 48-50 (``serving_disagg``,
+"""The serving engine's disaggregated and tensor-parallel phases and the
+serving fleet's of ``chip_smoke.py`` alone, on one CUDA card: phase 3's
+chat load, phase 44's chunked load, phases 48-50 (``serving_disagg``,
 ``serving_disagg_chunked`` with ``disagg_chunk_parity``, ``serving_tp``)
-against them, and phase 3's load once more, so that the spread of its
-tokens/s in the same call can be read beside theirs.
+and 51-52 (``serving_fleet`` with ``serving_fleet_join``,
+``serving_capacity``) against them, and phase 3's load once more, so that
+the spread of its tokens/s in the same call can be read beside theirs.
 
     python3 tools/serving_phases.py
 
@@ -47,6 +48,7 @@ def main():
     launches, streams = cs.phase_serving(model)
     chunked_row, chunked_streams = cs.phase_serving_chunked(model, streams)
     cs.phases_a13b(model, streams, launches, chunked_row, chunked_streams)
+    cs.phases_a13c(model, streams, launches)
     cs.run_serving_load("serving_again", model, streams)
     return 0
 
