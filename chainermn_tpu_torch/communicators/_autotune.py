@@ -13,7 +13,10 @@ same measurements give the same plan and the same
    for launch latency.  Or, online, :func:`measurements_from_trace`
    reads the ``train/grad_exchange*`` spans the multi-node optimizer
    emits under ``CHAINERMN_TPU_TRACE``, whose ``payload_bytes`` tags make
-   bandwidth = bytes / duration.
+   bandwidth = bytes / duration.  On the card the duration is the span's
+   device twin, which holds this rank's wait for the slowest rank as
+   well as the exchange: :func:`online_measurement` takes each step's
+   fastest rank, that is the minimum over the ranks.
 2. **agree**: :func:`agree_exchange_plan` all-gathers every rank's
    measurement (``all_gather_object``), reduces them deterministically
    (sorted median, fixed tie-break, 6 significant digits), derives the
@@ -49,6 +52,7 @@ from ._memory_utility import (DEFAULT_BUCKET_MB, DEFAULT_STRIPE_RATIO,
                               exchanged_bytes)
 
 __all__ = ["measure_fabric", "measurements_from_trace",
+           "exchange_twin_samples", "online_measurement",
            "reduce_measurements", "derive_exchange_plan",
            "agree_exchange_plan", "retune_communicator",
            "topology_summary", "plan_fingerprint", "record_plan",
@@ -146,12 +150,45 @@ def measurements_from_trace(events, payload_key="payload_bytes"):
     B/E pairs match LIFO per ``(pid, tid, name)``; each pair adds its
     ``args.payload_bytes`` over its duration, grouped by its ``args.hop``
     tag (``world`` without one).  A span without the payload tag is not a
-    sample.  A trace gives no latency field (a whole exchange bounds the
-    launch overhead only loosely), so a plan from online measurements
-    keeps the committed ``bucket_mb``."""
-    open_spans = {}
+    sample.  Where the span has a device twin (``<name>/device`` with the
+    same ``args.span_id``), the duration is the twin's ``device_ms``: on
+    the card the host span times only the exchange's enqueue.  The twin
+    runs from the end of the work before the exchange on this rank's
+    stream to the end of the exchange, so it also holds this rank's wait
+    for the slowest rank (:func:`online_measurement` removes it).  A trace
+    gives no latency field (a whole exchange bounds the launch overhead
+    only loosely), so a plan from online measurements keeps the
+    committed ``bucket_mb``."""
     totals = {}     # hop -> [bytes, seconds, samples]
-    for ev in events or []:
+    for hop, payload, dur_s, _ in _exchange_samples(events, payload_key):
+        acc = totals.setdefault(hop, [0.0, 0.0, 0])
+        acc[0] += float(payload)
+        acc[1] += dur_s
+        acc[2] += 1
+    return _online_hops(totals)
+
+
+def _online_hops(totals):
+    hops = {}
+    for hop, (nbytes, secs, samples) in sorted(totals.items()):
+        hops[hop] = {"size": None,
+                     "gbps": nbytes / secs / 1e9 if secs > 0 else None,
+                     "lat_us": None, "samples": samples}
+    return {"source": "online", "hops": hops}
+
+
+def _exchange_samples(events, payload_key="payload_bytes"):
+    """``(hop, payload, seconds, from_twin)`` of each closed
+    ``train/grad_exchange*`` span with a payload tag, in the order the
+    spans close."""
+    open_spans = {}
+    events = events or []
+    device_ms = {(ev.get("pid"), ev["args"]["span_id"]):
+                 ev["args"]["device_ms"] for ev in events
+                 if ev.get("ph") == "B"
+                 and ev.get("name", "").endswith("/device")
+                 and {"device_ms", "span_id"} <= set(ev.get("args") or ())}
+    for ev in events:
         name = ev.get("name", "")
         if not name.startswith("train/grad_exchange"):
             continue
@@ -164,20 +201,53 @@ def measurements_from_trace(events, payload_key="payload_bytes"):
             payload = args.get(payload_key)
             if payload is None:
                 continue
-            dur_s = max(ev.get("ts", 0) - b.get("ts", 0), 0) * 1e-6
+            twin_ms = device_ms.get((b.get("pid"), args["span_id"])) \
+                if "span_id" in args else None
+            dur_s = (twin_ms * 1e-3 if twin_ms is not None else
+                     max(ev.get("ts", 0) - b.get("ts", 0), 0) * 1e-6)
             if dur_s <= 0:
                 continue
-            hop = args.get("hop", "world")
-            acc = totals.setdefault(hop, [0.0, 0.0, 0])
-            acc[0] += float(payload)
-            acc[1] += dur_s
-            acc[2] += 1
-    hops = {}
-    for hop, (nbytes, secs, samples) in sorted(totals.items()):
-        hops[hop] = {"size": None,
-                     "gbps": nbytes / secs / 1e9 if secs > 0 else None,
-                     "lat_us": None, "samples": samples}
-    return {"source": "online", "hops": hops}
+            yield args.get("hop", "world"), payload, dur_s, \
+                twin_ms is not None
+
+
+def exchange_twin_samples(events, payload_key="payload_bytes"):
+    """This rank's exchanges timed by their device twins, one sample a
+    span in the order the spans close: ``{hop: [[payload_bytes, seconds],
+    ...]}``.  Spans without a twin are left out (``{}`` off the card)."""
+    out = {}
+    for hop, payload, dur_s, from_twin in _exchange_samples(events,
+                                                            payload_key):
+        if from_twin:
+            out.setdefault(hop, []).append([float(payload), dur_s])
+    return out
+
+
+def online_measurement(comm, events):
+    """The online measurement this rank brings to the agreement.  On the
+    card each exchange's twin holds the exchange and this rank's wait for
+    the slowest rank; the rank that came last waited least, so the
+    minimum over the ranks of each step's twin is the exchange.  Where
+    every rank has twins for the same hops, the ranks all-gather their
+    :func:`exchange_twin_samples`, and each step of a hop takes its
+    fastest rank's seconds over the last steps every rank holds: every
+    rank then brings the same measurement.  Otherwise (the CPU, where
+    gloo's allreduce returns when the exchange is done) the rank's own
+    :func:`measurements_from_trace`.  Collective."""
+    samples = exchange_twin_samples(events)
+    gathered = comm.allgather_obj(samples)
+    hops = set(gathered[0]) if gathered else set()
+    if not hops or any(set(g) != hops for g in gathered):
+        return measurements_from_trace(events)
+    totals = {}
+    for hop in sorted(hops):
+        steps = min(len(g[hop]) for g in gathered)
+        rows = [g[hop][len(g[hop]) - steps:] for g in gathered]
+        totals[hop] = [sum(rows[0][i][0] for i in range(steps)),
+                       sum(min(r[i][1] for r in rows)
+                           for i in range(steps)),
+                       steps]
+    return _online_hops(totals)
 
 
 # -- deterministic agreement ------------------------------------------------------
@@ -395,7 +465,7 @@ def retune_communicator(comm, mode="startup", events=None):
     elif mode == "online":
         if events is None:
             events = observability.tracer().events()
-        measurement = measurements_from_trace(events)
+        measurement = online_measurement(comm, events)
     else:
         raise ValueError(
             f"autotune mode must be 'startup' (True) or 'online', "

@@ -152,14 +152,11 @@ _warned_inert_ef = False
 
 
 def _bucket_scope(name, bucket):
-    """The range of one bucket's hop: under ``CHAINERMN_TPU_TRACE=full``
-    a ``record_function("train.grad_exchange.bucket{k}.{name}")`` (the
-    JAX ``_bucket_scope``'s name, so a profiler capture attributes device
-    time to the span tracer's vocabulary), else a no-op."""
-    if observability.named_scopes_enabled():
-        return torch.profiler.record_function(
-            f"train.grad_exchange.bucket{bucket}.{name}")
-    return observability.tracing._NOOP
+    """The range of one bucket's hop, ``train.grad_exchange.bucket{k}.
+    {name}`` (the JAX ``_bucket_scope``'s name, so a profiler capture
+    attributes device time to the span tracer's vocabulary):
+    ``observability.scope``."""
+    return observability.scope(f"train.grad_exchange.bucket{bucket}.{name}")
 
 
 def _resolve_stripe(ratio, hierarchical, hand_knobs):

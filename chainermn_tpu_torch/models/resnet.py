@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from .. import observability
 from .._device import resolve_device
 from ..core.link import Chain, ChainList
 from ..nn import functions as F
@@ -94,10 +95,12 @@ class ConvBN(Chain):
         self.bn = L.BatchNormalization(out_ch, axis=bn_axis, device=device)
 
     def forward(self, x, activate=True):
-        h = self.bn(self.conv(x))
-        if activate:
-            h = F.relu(h)
-        return h.to(x.dtype)
+        h = self.conv(x)
+        with observability.scope("model/bn_act"):
+            h = self.bn(h)
+            if activate:
+                h = F.relu(h)
+            return h.to(x.dtype)
 
 
 class BottleneckBlock(Chain):
@@ -120,7 +123,8 @@ class BottleneckBlock(Chain):
     def forward(self, x):
         h = self.c(self.b(self.a(x)), activate=False)
         s = self.shortcut(x, activate=False) if self.project else x
-        return F.relu(h + s)
+        with observability.scope("model/residual_act"):
+            return F.relu(h + s)
 
 
 class BasicBlock(Chain):
@@ -141,7 +145,8 @@ class BasicBlock(Chain):
     def forward(self, x):
         h = self.b(self.a(x), activate=False)
         s = self.shortcut(x, activate=False) if self.project else x
-        return F.relu(h + s)
+        with observability.scope("model/residual_act"):
+            return F.relu(h + s)
 
 
 class _Stage(ChainList):

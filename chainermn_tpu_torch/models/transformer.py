@@ -21,6 +21,7 @@ import functools
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from .. import observability
 from .._device import resolve_device
 from ..core import reporter
 from ..core.link import Chain, ChainList
@@ -59,7 +60,8 @@ class MultiHeadAttention(Chain):
                                                     self.d_head)
         q, k, v = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
         if self.sp_comm is None:
-            out = fused_attention(q, k, v, causal=causal)
+            with observability.scope("model/attention"):
+                out = fused_attention(q, k, v, causal=causal)
         elif self.sp_mode == "ulysses":
             out = ulysses_attention(self.sp_comm, q, k, v, causal=causal)
         else:
@@ -200,15 +202,19 @@ class TransformerLM(Chain):
         return self.ln_f(h)
 
     def logits(self, x):
-        B, T = x.shape
-        h = self.hidden(x)
+        return self._head(self.hidden(x))
+
+    def _head(self, h):
+        B, T = h.shape[:2]
         return self.head(h.reshape(B * T, -1)).reshape(B, T, -1)
 
     def forward(self, x, t):
         """LM loss with ignore_label=-1 padding, reported as ``loss``."""
-        logits = self.logits(x)
-        loss = F.softmax_cross_entropy(
-            logits.reshape(-1, logits.shape[-1]), t.reshape(-1),
-            ignore_label=-1)
+        h = self.hidden(x)
+        with observability.scope("model/head_loss"):
+            logits = self._head(h)
+            loss = F.softmax_cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), t.reshape(-1),
+                ignore_label=-1)
         reporter.report({"loss": loss.detach()}, self)
         return loss

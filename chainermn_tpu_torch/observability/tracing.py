@@ -24,9 +24,37 @@ Design:
   capture carries the SAME vocabulary (the JAX package opens
   ``jax.named_scope`` there).
 
+Device twins (the port's own): a span opened with ``device=`` a CUDA
+device, with tracing on, also records a timing CUDA event on that
+device's current stream at enter and at exit.  The pairs are resolved
+lazily (``Event.query()`` when a later device span opens; in full before
+:meth:`SpanTracer.events` and :meth:`SpanTracer.export` return), so the
+hot path never synchronizes; each becomes a ``<name>/device`` B/E pair
+on a device track (one ``tid`` a stream, ``DEVICE_TID_BASE`` and up, no
+host thread's), with ``args.device_ms`` the exact ``elapsed_time``.  It
+is placed on the tracer's clock through one anchor per device: an event
+recorded, with its host time, right after a ``torch.cuda.synchronize()``
+that runs once, when the first device span opens; ``events()`` and
+``export()`` take a new anchor after resolving.  The host span and its
+twin share ``args.span_id``.
+
+:func:`scope` names a range in ``torch.profiler`` timelines only
+(``record_function`` under ``full``, nothing in the ring): the model's
+layer ranges and the exchange's per-bucket ones.
+
+Clocks: ``ts`` is microseconds of ``time.monotonic`` since the tracer's
+creation; the export's ``clock_sync`` metadata holds that origin and two
+``(monotonic_ns, time_ns)`` pairs, taken at creation and at export, which
+map ``ts`` onto ``CLOCK_REALTIME``, the clock of ``torch.profiler``'s
+events (``tools/trace_merge.py --profile``).
+
 The mode is resolved ONCE at import (the hot path is one module-global
 truthiness check); :func:`set_mode` exists for tests and tools that flip
 it in-process.
+
+``docs/torch_observability.md`` describes the port's additions: scopes,
+device twins, the step's phase spans, the clock pair and
+``trace_merge --profile``.
 """
 
 from __future__ import annotations
@@ -36,16 +64,21 @@ import json
 import os
 import threading
 import time
+from collections import deque
 
-__all__ = ["Span", "SpanTracer", "tracer", "span", "instant", "mode",
-           "enabled", "named_scopes_enabled", "set_mode", "reset_tracer",
-           "validate_events", "repair_balance", "read_jsonl",
-           "TRACE_ENV", "MODES"]
+__all__ = ["Span", "SpanTracer", "CudaEvents", "tracer", "span", "scope",
+           "instant", "mode", "enabled", "named_scopes_enabled", "set_mode",
+           "reset_tracer", "validate_events", "repair_balance",
+           "read_jsonl", "TRACE_ENV", "MODES", "DEVICE_TID_BASE"]
 
 TRACE_ENV = "CHAINERMN_TPU_TRACE"
 MODES = ("off", "events", "full")
 
 _REQUIRED_KEYS = ("name", "ph", "ts", "pid", "tid")
+
+#: the first device track's ``tid``: above every Linux thread id, which
+#: are addresses under 2**48, and within a JSON number's exact range
+DEVICE_TID_BASE = 1 << 50
 
 
 def _resolve_mode(value=None):
@@ -76,7 +109,8 @@ def enabled():
 def named_scopes_enabled():
     """True only under ``full``: span names also open
     ``torch.profiler.record_function`` so profiler timelines share the
-    vocabulary."""
+    vocabulary.  The port itself asks :func:`scope` instead; this stays
+    for the JAX package's API, whose communicator calls it."""
     return _FULL
 
 
@@ -112,13 +146,17 @@ class Span:
     ``__exit__``/``close()``.  Context-manager use guarantees balance;
     an unclosed span is repaired at export (synthetic ``E``)."""
 
-    __slots__ = ("_tracer", "name", "tid")
+    __slots__ = ("_tracer", "name", "tid", "_twin")
 
-    def __init__(self, tracer, name, tags=None, tid=None):
+    def __init__(self, tracer, name, tags=None, tid=None, device=None):
         self._tracer = tracer
         self.name = name
         self.tid = tid if tid is not None else threading.get_ident()
-        tracer._emit("B", name, tracer._now_us(), self.tid, tags)
+        ts = tracer._now_us()   # before the twin's event is recorded
+        self._twin = tracer._open_twin(device)
+        if self._twin is not None:
+            tags = dict(tags or (), span_id=self._twin[0])
+        tracer._emit("B", name, ts, self.tid, tags)
 
     def __enter__(self):
         return self
@@ -131,7 +169,35 @@ class Span:
         if self._tracer is not None:
             self._tracer._emit("E", self.name, self._tracer._now_us(),
                                self.tid, None)
+            if self._twin is not None:
+                self._tracer._close_twin(self.name, self._twin)
             self._tracer = None
+
+
+class CudaEvents:
+    """The device twins' event source: timing ``torch.cuda.Event``\\ s on
+    a device's current stream.  A test puts a fake with the same methods
+    in its place (``SpanTracer(device_events=...)``); an event needs
+    ``query()``, ``synchronize()`` and ``elapsed_time(later)`` (ms)."""
+
+    @staticmethod
+    def accepts(device):
+        return getattr(device, "type", None) == "cuda"
+
+    @staticmethod
+    def synchronize(device):
+        import torch
+        torch.cuda.synchronize(device)
+
+    @staticmethod
+    def record(device):
+        """A timing event recorded now on ``device``'s current stream, and
+        the stream's key ``(device index, stream id)``."""
+        import torch
+        stream = torch.cuda.current_stream(device)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        return ev, (stream.device_index, stream.stream_id)
 
 
 class SpanTracer:
@@ -143,18 +209,24 @@ class SpanTracer:
     schema-valid.
     """
 
-    def __init__(self, rank=0, capacity=None):
+    def __init__(self, rank=0, capacity=None, device_events=None):
         if capacity is None:
             capacity = int(os.environ.get(
                 "CHAINERMN_TPU_TRACE_CAPACITY", "65536"))
-        from collections import deque
         self._events = deque(maxlen=int(capacity))
         self._lock = threading.Lock()
-        self._t0 = time.monotonic()
+        self._t0_ns = time.monotonic_ns()
+        self._created = _clock_pair()
         self.rank = int(rank)
         self.epoch = None
         self._dropped = 0
         self._track_ts = {}   # tid -> last emitted ts (complete() clamp)
+        self.device_events = device_events or CudaEvents()
+        self._pending = deque()   # (name, start, end, stream, anchor, id)
+        self._anchors = {}        # device -> (event, host ts)
+        self._device_tids = {}    # stream key -> tid
+        self._span_ids = 0
+        self._device_lock = threading.Lock()
 
     # -- configuration -------------------------------------------------------
 
@@ -170,7 +242,7 @@ class SpanTracer:
     # -- recording -----------------------------------------------------------
 
     def _now_us(self):
-        return int((time.monotonic() - self._t0) * 1e6)
+        return (time.monotonic_ns() - self._t0_ns) // 1000
 
     def _emit(self, ph, name, ts, tid, tags):
         ev = {"name": name, "ph": ph, "ts": ts, "pid": self.rank,
@@ -190,9 +262,10 @@ class SpanTracer:
             if ts > self._track_ts.get(tid, -1):
                 self._track_ts[tid] = ts
 
-    def span(self, name, tags=None, tid=None):
-        """Open a span (use as a context manager)."""
-        return Span(self, name, tags=tags, tid=tid)
+    def span(self, name, tags=None, tid=None, device=None):
+        """Open a span (use as a context manager); on a CUDA ``device``
+        (one the tracer's ``device_events`` accept) with a device twin."""
+        return Span(self, name, tags=tags, tid=tid, device=device)
 
     def instant(self, name, tags=None, tid=None):
         """A point event on the track (eviction, fork, detection...)."""
@@ -222,14 +295,79 @@ class SpanTracer:
         self._emit("B", name, start, t, args)
         self._emit("E", name, end, t, None)
 
+    # -- device twins --------------------------------------------------------
+
+    def _open_twin(self, device):
+        """A device span's start, ``(span id, device, start event, stream
+        key, anchor)``; None where the span has no twin.  The first span on
+        a device takes its anchor (one synchronize)."""
+        if device is None or not self.device_events.accepts(device):
+            return None
+        with self._device_lock:
+            self._resolve(wait=False)
+            if device not in self._anchors:
+                self._anchor(device)
+            self._span_ids += 1
+            span_id, anchor = self._span_ids, self._anchors[device]
+        start, key = self.device_events.record(device)
+        return span_id, device, start, key, anchor
+
+    def _close_twin(self, name, twin):
+        span_id, device, start, key, anchor = twin
+        end, _ = self.device_events.record(device)
+        with self._device_lock:
+            self._pending.append((name, start, end, key, anchor, span_id))
+
+    def _anchor(self, device):
+        """An event recorded on an idle ``device``, with the host time:
+        the point that places the device's events on the tracer's
+        clock."""
+        self.device_events.synchronize(device)
+        event, _ = self.device_events.record(device)
+        self._anchors[device] = (event, self._now_us())
+
+    def _resolve(self, wait):
+        """The pending pairs as ``<name>/device`` B/E pairs on their
+        stream's track: those finished, oldest first, or with ``wait``
+        all of them.  Caller holds ``_device_lock``."""
+        while self._pending:
+            name, start, end, key, (anchor, anchor_us), span_id = \
+                self._pending[0]
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                return
+            self._pending.popleft()
+            ms = start.elapsed_time(end)
+            begin_us = anchor_us + anchor.elapsed_time(start) * 1e3
+            tid = self._device_tids.setdefault(
+                key, DEVICE_TID_BASE + len(self._device_tids))
+            self._emit("B", name + "/device", round(begin_us), tid,
+                       {"device_ms": ms, "span_id": span_id})
+            self._emit("E", name + "/device", round(begin_us + ms * 1e3),
+                       tid, None)
+
+    def _settle(self):
+        """Every pending pair resolved, then each device anchored anew."""
+        with self._device_lock:
+            self._resolve(wait=True)
+            for device in list(self._anchors):
+                self._anchor(device)
+
     # -- export --------------------------------------------------------------
 
     def events(self):
-        """Snapshot of the ring (metadata events NOT included)."""
+        """Snapshot of the ring (metadata events NOT included), with every
+        pending device twin resolved first."""
+        self._settle()
         with self._lock:
             return list(self._events)
 
     def clear(self):
+        """Empty the ring and drop the pending device twins; the anchors
+        stay."""
+        with self._device_lock:
+            self._pending.clear()
         with self._lock:
             self._events.clear()
             self._track_ts.clear()
@@ -240,19 +378,38 @@ class SpanTracer:
         committed schema: events ts-sorted, per-track B/E balanced
         (orphan ``E`` whose ``B`` fell off the ring are dropped,
         unclosed ``B`` get a synthetic ``E`` at the track's last ts),
-        prefixed with ``M`` metadata naming the rank lane.  Returns the
+        prefixed with ``M`` metadata: the rank lane's name, the
+        ``clock_sync`` pairs, each device track's name.  Returns the
         number of NON-metadata events written (0 = nothing recorded;
         callers use that to skip empty shards)."""
         evs = sorted(self.events(), key=lambda e: e["ts"])
         evs = repair_balance(evs)
         meta = [{"name": "process_name", "ph": "M", "ts": 0,
                  "pid": self.rank, "tid": 0,
-                 "args": {"name": f"rank{self.rank}"}}]
+                 "args": {"name": f"rank{self.rank}"}},
+                {"name": "clock_sync", "ph": "M", "ts": 0,
+                 "pid": self.rank, "tid": 0,
+                 "args": {"t0_monotonic_ns": self._t0_ns,
+                          "created": self._created,
+                          "exported": _clock_pair()}}]
+        meta += [{"name": "thread_name", "ph": "M", "ts": 0,
+                  "pid": self.rank, "tid": tid,
+                  "args": {"name": f"cuda:{key[0]} stream {key[1]}"}}
+                 for key, tid in sorted(self._device_tids.items(),
+                                        key=lambda kv: kv[1])]
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         with open(path, "w") as f:
             for ev in meta + evs:
                 f.write(json.dumps(ev) + "\n")
         return len(evs)
+
+
+def _clock_pair():
+    """``[monotonic_ns, time_ns]`` read back to back (the monotonic one
+    the mean of a read before and after)."""
+    m0 = time.monotonic_ns()
+    real = time.time_ns()
+    return [(m0 + time.monotonic_ns()) // 2, real]
 
 
 def repair_balance(events):
@@ -371,25 +528,36 @@ def reset_tracer():
 
 
 @contextlib.contextmanager
-def _full_span(name, tags, tid):
+def _full_span(name, tags, tid, device):
     import torch.profiler
     with torch.profiler.record_function(name.replace("/", ".")):
-        with tracer().span(name, tags=tags, tid=tid):
+        with tracer().span(name, tags=tags, tid=tid, device=device):
             yield
 
 
-def span(name, tags=None, tid=None):
+def span(name, tags=None, tid=None, device=None):
     """Open a span on the global tracer — THE instrumentation call site.
 
     Off (default): returns the no-op singleton — no allocation, no
-    clock read.  ``events``: records B/E on the ring.  ``full``:
-    additionally opens ``torch.profiler.record_function`` so any
-    surrounding profiler trace carries the same name."""
+    clock read.  ``events``: records B/E on the ring, and on a CUDA
+    ``device`` its device twin.  ``full``: additionally opens
+    ``torch.profiler.record_function`` so any surrounding profiler trace
+    carries the same name."""
     if not _ENABLED:
         return _NOOP
     if _FULL:
-        return _full_span(name, tags, tid)
-    return tracer().span(name, tags=tags, tid=tid)
+        return _full_span(name, tags, tid, device)
+    return tracer().span(name, tags=tags, tid=tid, device=device)
+
+
+def scope(name):
+    """A named range in ``torch.profiler`` timelines (``/`` as ``.``):
+    ``record_function`` under ``full``, else the no-op singleton.  It
+    records nothing in the ring."""
+    if not _FULL:
+        return _NOOP
+    import torch.profiler
+    return torch.profiler.record_function(name.replace("/", "."))
 
 
 def instant(name, tags=None, tid=None):

@@ -103,18 +103,26 @@ stale buffer (``grad_dcn_stale_len_for`` fp32 elements) serializes as
 striped sharded update, and ``"dcn"`` needs a striped communicator and
 the allreduce exchange: both are refused, as in the JAX package.
 
-With tracing on (``CHAINERMN_TPU_TRACE``) each step's exchange runs in a
-``train/grad_exchange`` span tagged with its planned payload bytes and
-bucket count, and each bucket leaves a ``train/grad_exchange/bucket{k}``
-instant and adds its payload to
-``chainermn_tpu_grad_exchange_payload_bytes_total``.
+With tracing on (``CHAINERMN_TPU_TRACE``) each step's phases run in
+spans: ``train/forward``, ``train/backward``, ``train/grad_exchange``
+(tagged with the planned payload bytes and bucket count),
+``train/rule``, ``train/persistent_mean`` and ``train/global_means``;
+``update()`` with no arguments has the exchange and the rule.  On a CUDA
+card each has a device twin (``observability.span(device=)``): the
+stream's time from the phase's first work to its last, waits included.
+Under double buffering the exchange's twin covers this step's enqueue
+and the wait for the step before's exchange (``_take_stale``).  Each
+bucket's hops are ``observability.scope`` ranges of the communicator's
+(``train.grad_exchange.bucket{k}.*``), in profiler captures only.
 
 ``autotune`` tunes the communicator's exchange knobs
 (``communicators._autotune``): ``True``/``"startup"`` runs the startup
 micro-bench now, unless the communicator already carries an agreed plan,
 and wraps the re-tuned communicator; ``"online"`` (or an int N, default
 3) re-tunes once, after the first N updates, from the
-``train/grad_exchange`` spans, and swaps the re-tuned communicator in
+``train/grad_exchange`` spans (on the card their device twins, each
+step's fastest rank: ``_autotune.online_measurement``), and swaps the
+re-tuned communicator in
 through :meth:`change_communicator`.  Online mode reads the tracer, so it
 needs ``CHAINERMN_TPU_TRACE``; with tracing off it warns and runs the
 startup micro-bench instead, as in the JAX package.
@@ -485,10 +493,10 @@ class _MultiNodeOptimizer:
             return
         self.__dict__["_autotune_online_after"] = 0
         from .communicators._autotune import (agree_exchange_plan,
-                                              measurements_from_trace)
+                                              online_measurement)
         comm = self.communicator
-        plan = agree_exchange_plan(comm, measurements_from_trace(
-            observability.tracer().events()))
+        plan = agree_exchange_plan(comm, online_measurement(
+            comm, observability.tracer().events()))
         new_comm = comm.retuned(plan)
         if new_comm is comm:
             return
@@ -507,12 +515,15 @@ class _MultiNodeOptimizer:
         comm = self.communicator
         if lossfun is None:
             # the reference's flow: backward, allreduce_grad, update
+            device = self._span_device()
             with observability.span("train/grad_exchange",
-                                    tags=self._exchange_tags()):
+                                    tags=self._exchange_tags(),
+                                    device=device):
                 self._keep_residual(comm.multi_node_mean_grad(
                     actual.target, zero_fill=self.zero_fill,
                     residual=self._residual_in()))
-            out = actual.update()
+            with observability.span("train/rule", device=device):
+                out = actual.update()
             self._maybe_online_retune()
             return out
         self._prepare(lossfun, args, kwargs)
@@ -589,69 +600,56 @@ class _MultiNodeOptimizer:
 
     def _step(self, lossfun, args, kwargs, key_scope):
         """One data-parallel step, its draws from ``key_scope``: forward,
-        backward, exchange, rule, the persistent values' mean.  Returns
-        the mean loss and the mean observation (not yet reported)."""
+        backward, exchange, rule, the persistent values' mean, each a
+        span.  Returns the mean loss and the mean observation (not yet
+        reported)."""
         self.actual_optimizer.target.cleargrads()
-        with key_scope:
+        device = self._span_device()
+        with observability.span("train/forward", device=device), key_scope:
             loss, observation = _observed(lambda: lossfun(*args, **kwargs))
         if isinstance(loss, tuple):
             loss = loss[0]
-        grads = self._gradients(loss)
-        if observability.enabled():
-            self._emit_exchange_telemetry()
+        with observability.span("train/backward", device=device):
+            grads = self._gradients(loss)
         with observability.span("train/grad_exchange",
-                                tags=self._exchange_tags()):
+                                tags=self._exchange_tags(), device=device):
             exchanged = self._exchange(grads)
-        self._apply_update(exchanged)
-        self._mean_persistent()
-        return self._global_means(loss, observation)
+        with observability.span("train/rule", device=device):
+            self._apply_update(exchanged)
+        with observability.span("train/persistent_mean", device=device):
+            self._mean_persistent()
+        with observability.span("train/global_means", device=device):
+            return self._global_means(loss, observation)
 
     # -- telemetry (tracing on only) -------------------------------------------
-    def _exchange_plan_rows(self):
-        """The planned exchange, per bucket ``{bucket, leaves, elems,
-        payload_bytes}`` (the gradient's own dtype), cached until
-        ``setup``."""
-        if self._obs_plan is None:
-            comm = self.communicator
-            target = self.actual_optimizer.target
-            rows = []
-            if hasattr(comm, "grad_buckets_for"):
-                shapes, dtypes = comm.grad_leaf_specs(target)
-                for k, idx in enumerate(comm.grad_buckets_for(target)):
-                    elems = [int(np.prod(shapes[i])) for i in idx]
-                    rows.append({"bucket": k, "leaves": len(idx),
-                                 "elems": sum(elems),
-                                 "payload_bytes": sum(
-                                     e * dtypes[i].itemsize
-                                     for e, i in zip(elems, idx))})
-            self.__dict__["_obs_plan"] = rows
-        return self._obs_plan
+    def _span_device(self):
+        """The device of the phase spans' twins: the parameters' (None
+        with tracing off)."""
+        if not observability.enabled():
+            return None
+        return next(self.actual_optimizer.target.parameters()).device
 
     def _exchange_tags(self):
         """The ``train/grad_exchange`` span's tags: the planned payload
-        bytes and bucket count (``None`` with tracing off: built only when
-        they are recorded)."""
+        bytes (in the gradient's own dtype) and bucket count, cached until
+        ``setup`` (``None`` with tracing off: built only when they are
+        recorded, and without a bucket plan)."""
         if not observability.enabled():
             return None
-        rows = self._exchange_plan_rows()
-        return {"payload_bytes": sum(r["payload_bytes"] for r in rows),
-                "buckets": len(rows)} if rows else None
-
-    def _emit_exchange_telemetry(self):
-        """One ``train/grad_exchange/bucket{k}`` instant per planned
-        bucket, and its payload added to the per-bucket byte counter."""
-        exchange = str(getattr(self.communicator, "exchange", None)
-                       or self.exchange)
-        counter = observability.registry().counter(
-            "chainermn_tpu_grad_exchange_payload_bytes_total",
-            help="planned per-bucket gradient wire payload (gradient "
-                 "dtype; the census prices the per-hop wire dtypes)")
-        for row in self._exchange_plan_rows():
-            observability.instant(
-                f"train/grad_exchange/bucket{row['bucket']}",
-                tags=dict(row, exchange=exchange))
-            counter.inc(row["payload_bytes"], bucket=str(row["bucket"]),
-                        exchange=exchange)
+        if self._obs_plan is None:
+            comm = self.communicator
+            target = self.actual_optimizer.target
+            tags = {}
+            if hasattr(comm, "grad_buckets_for"):
+                shapes, dtypes = comm.grad_leaf_specs(target)
+                buckets = comm.grad_buckets_for(target)
+                if buckets:
+                    tags = {"payload_bytes": sum(
+                        int(np.prod(shapes[i])) * dtypes[i].itemsize
+                        for idx in buckets for i in idx),
+                        "buckets": len(buckets)}
+            self.__dict__["_obs_plan"] = tags
+        return self._obs_plan or None
 
     def _sorted_params(self):
         """``(paths, parameters)`` in sorted path order: the order of the

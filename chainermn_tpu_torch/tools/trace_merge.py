@@ -16,11 +16,21 @@ one Chrome trace event per line, ``pid`` = rank).  This tool joins them:
   closed) and validated against the schema; an invalid merge is refused
   with a non-zero exit and nothing written;
 * the output is Chrome trace "JSON array" format (``[...]``), which
-  Perfetto and ``chrome://tracing`` load directly.
+  Perfetto and ``chrome://tracing`` load directly;
+* with ``--profile <trace.json>`` (a ``torch.profiler`` Chrome capture,
+  ``utils.profiling.trace``), the merge is written into that capture on
+  the profiler's clock: each shard's ``ts`` is mapped through its
+  ``clock_sync`` pairs onto ``CLOCK_REALTIME`` and the capture's
+  ``baseTimeNanoseconds``, and each rank's lane moves to pid
+  ``RANK_PID_BASE + rank`` (the capture's own pids are the host
+  process's and the cards'), so host spans, device twins and kernels
+  share one timeline.
 
 Usage::
 
     python -m chainermn_tpu_torch.tools.trace_merge -o merged.json result/trace-rank*.jsonl
+    python -m chainermn_tpu_torch.tools.trace_merge --profile result/trace/trace.json \
+        -o merged.json result/trace-rank*.jsonl
 """
 
 from __future__ import annotations
@@ -32,7 +42,12 @@ import sys
 from ..observability.tracing import (read_jsonl, repair_balance,
                                      validate_events)
 
-__all__ = ["merge_events", "merge_files", "main"]
+__all__ = ["merge_events", "merge_files", "profiler_clock",
+           "merge_with_profile", "main", "RANK_PID_BASE"]
+
+#: a rank's lane in a merge with a profiler capture: above every process
+#: id of the host (at most 2**22 on Linux) and every card's index
+RANK_PID_BASE = 1 << 24
 
 
 def _dedupe_key(ev):
@@ -78,6 +93,45 @@ def merge_files(paths, out_path=None):
     return merged
 
 
+def profiler_clock(clock, base_ns=0):
+    """``ts -> profiler ts`` for one shard: its ``clock_sync`` metadata
+    (the monotonic origin of ``ts`` and the ``[monotonic_ns, time_ns]``
+    pairs taken at the tracer's creation and at the export), a line
+    through the two pairs; the result in microseconds since
+    ``base_ns`` of ``CLOCK_REALTIME``."""
+    (m0, r0), (m1, r1) = clock["created"], clock["exported"]
+    slope = (r1 - r0) / (m1 - m0) if m1 != m0 else 1.0
+    origin = clock["t0_monotonic_ns"]
+
+    def convert(ts):
+        return (r0 - base_ns + (origin + ts * 1000 - m0) * slope) / 1000
+    return convert
+
+
+def merge_with_profile(shard_events, profile):
+    """The merged shards (:func:`merge_events`' output) inside the
+    ``torch.profiler`` Chrome capture ``profile`` (its JSON object), on
+    the capture's clock: a new capture object.  A shard without
+    ``clock_sync`` metadata cannot be placed and raises
+    ``ValueError``."""
+    base = profile.get("baseTimeNanoseconds", 0)
+    clocks = {e["pid"]: profiler_clock(e["args"], base)
+              for e in shard_events
+              if e.get("ph") == "M" and e["name"] == "clock_sync"}
+    placed = []
+    for e in shard_events:
+        if e["pid"] not in clocks:
+            raise ValueError(f"rank {e['pid']}'s shard has no clock_sync "
+                             f"metadata: it cannot be placed on the "
+                             f"profiler's clock")
+        e = dict(e, pid=RANK_PID_BASE + e["pid"])
+        if e["ph"] != "M":
+            e["ts"] = clocks[e["pid"] - RANK_PID_BASE](e["ts"])
+        placed.append(e)
+    return dict(profile, traceEvents=list(profile.get("traceEvents", ()))
+                + placed)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Merge rank-tagged Chrome-trace JSONL shards into one "
@@ -86,9 +140,19 @@ def main(argv=None):
                     help="rank-tagged JSONL trace shards")
     ap.add_argument("-o", "--out", required=True,
                     help="merged Perfetto-loadable JSON array")
+    ap.add_argument("--profile",
+                    help="a torch.profiler Chrome capture to merge the "
+                         "shards into, on its clock")
     args = ap.parse_args(argv)
     try:
-        merged = merge_files(args.shards, args.out)
+        if args.profile is None:
+            merged = merge_files(args.shards, args.out)
+        else:
+            merged = merge_files(args.shards)
+            with open(args.profile) as f:
+                out = merge_with_profile(merged, json.load(f))
+            with open(args.out, "w") as f:
+                json.dump(out, f)
     except ValueError as e:
         print(f"trace_merge: REFUSED (schema-invalid merge): {e}",
               file=sys.stderr)

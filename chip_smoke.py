@@ -201,8 +201,9 @@ Phases, each printing one JSON line:
 28. train_resnet_traced: ``train_resnet`` on that striped communicator
     untraced and with ``CHAINERMN_TPU_TRACE=events`` in turns: images/s
     of each, the trainer's shard valid with one ``train/optimizer_update``,
-    ``train/grad_exchange`` and ``train/input_stall`` per iteration, the
-    payload counter steps x the planned payload; then one step under
+    ``train/input_stall``, step phase span and its device twin per
+    iteration, the exchange span tagged with the planned payload; then
+    one step under
     ``full`` in the profiler: the device work inside the
     ``train.grad_exchange.bucket*`` ranges (some, or the phase fails);
 29. striped_parity: the small fp32 ResNet of phase 12, TF32 off: (1) at a
@@ -4342,8 +4343,10 @@ def profiled_events(fn, name):
 def streams_under_full(updater, name):
     """One step of ``updater`` traced under ``CHAINERMN_TPU_TRACE=full``:
     :func:`striped_paths` of it, and the streams of the step's own work
-    (the ops whose innermost span range is ``train.optimizer_update``:
-    the forward, the backward, the rule)."""
+    (the ops in the ``train.forward``, ``train.backward`` and
+    ``train.rule`` ranges, but for those inside a
+    ``train.grad_exchange.bucket*`` range: the sharded update's gather
+    runs in the rule on the paths' streams)."""
     from chainermn_tpu_torch import observability
     from chainermn_tpu_torch.utils import device_ops_in_ranges
     prev = observability.set_mode("full")
@@ -4354,9 +4357,13 @@ def streams_under_full(updater, name):
         observability.reset_tracer()
         observability.reset_registry()
     paths = striped_paths(events)
+    joined = device_ops_in_ranges(events, "train.")
+    on_paths = {id(op) for name, op in joined
+                if name.startswith("train.grad_exchange.bucket")}
     paths["caller_streams"] = sorted(
-        {op["args"]["stream"] for name, op in device_ops_in_ranges(
-            events, "train.") if name == "train.optimizer_update"}, key=str)
+        {op["args"]["stream"] for name, op in joined
+         if name in ("train.forward", "train.backward", "train.rule")
+         and id(op) not in on_paths}, key=str)
     return paths
 
 
@@ -4465,13 +4472,19 @@ def phase_train_resnet_striped(phase, plain_row):
     return row
 
 
+#: the multi-node optimizer's step phases, each a span with a device twin
+PHASES = ("forward", "backward", "grad_exchange", "rule", "persistent_mean",
+          "global_means")
+
+
 def phase_train_resnet_traced(plain_row):
     """``train_resnet`` on the striped communicator with tracing on
     (``CHAINERMN_TPU_TRACE=events``, set in-process) beside the same run
     untraced: the trainer's shard is valid, holds one
-    ``train/optimizer_update``, ``train/grad_exchange`` and
-    ``train/input_stall`` per iteration, and the payload counter is steps
-    x the planned payload.  Then one step under ``full`` in the profiler:
+    ``train/optimizer_update``, ``train/input_stall``, each step phase's
+    span and its device twin per iteration, and the exchange span's
+    payload tag is the planned payload.  Then one step under ``full`` in
+    the profiler:
     the device time inside the ``train.grad_exchange.bucket*`` ranges."""
     import torch.distributed as dist
     from chainermn_tpu_torch import (create_communicator,
@@ -4507,20 +4520,20 @@ def phase_train_resnet_traced(plain_row):
             if mode == "events":
                 events = observability.read_jsonl(shard_path)
                 observability.validate_events(events)
-                counter = observability.registry().get(
-                    "chainermn_tpu_grad_exchange_payload_bytes_total")
-                rows = opt._exchange_plan_rows()
+                phases = [f"train/{p}" for p in PHASES]
                 run.update(
                     events=len(events),
                     spans={name: sum(e["name"] == name and e["ph"] == "B"
                                      for e in events)
-                           for name in ("train/optimizer_update",
-                                        "train/grad_exchange",
-                                        "train/input_stall")},
-                    payload_bytes_total=counter.value(
-                        bucket="0", exchange=comm.exchange),
-                    planned_payload_bytes=sum(r["payload_bytes"]
-                                              for r in rows))
+                           for name in ["train/optimizer_update",
+                                        "train/input_stall", *phases,
+                                        *(f"{p}/device" for p in phases)]},
+                    payload_bytes=sorted({
+                        e["args"]["payload_bytes"] for e in events
+                        if e["ph"] == "B"
+                        and e["name"] == "train/grad_exchange"}),
+                    planned_payload_bytes=opt._exchange_tags()[
+                        "payload_bytes"])
             else:
                 run["shard_written"] = os.path.exists(shard_path)
             runs[f"{mode}_{len(runs)}"] = run
@@ -4560,11 +4573,10 @@ def phase_train_resnet_traced(plain_row):
             fail("train_resnet_traced: an untraced run wrote a shard")
     for r in traced:
         if r["spans"] != {k: RESNET_STEPS for k in r["spans"]} \
-                or r["payload_bytes_total"] \
-                != RESNET_STEPS * r["planned_payload_bytes"] \
+                or r["payload_bytes"] != [r["planned_payload_bytes"]] \
                 or not r["planned_payload_bytes"]:
-            fail(f"train_resnet_traced: the shard or the payload counter "
-                 f"is off: {r}")
+            fail(f"train_resnet_traced: the shard or the payload tag is "
+                 f"off: {r}")
     if not full["bucket_ops"]:
         fail("train_resnet_traced: no kernel or copy inside a "
              "train.grad_exchange.bucket range under full")

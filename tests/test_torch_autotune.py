@@ -261,6 +261,108 @@ def test_measurements_from_trace_payload_spans():
     assert m == _jat().measurements_from_trace(_trace_events())
 
 
+def test_measurements_from_trace_take_the_device_twins_duration():
+    """On the card the host span times only the exchange's enqueue: a 5 µs
+    span whose device twin read 10 ms gives payload / 10 ms, and the twin
+    (``train/grad_exchange/device``) is not a second sample; a span
+    without a twin still counts its own duration."""
+    mb = 1 << 20
+    events = [
+        {"name": "train/grad_exchange", "ph": "B", "ts": 100, "pid": 0,
+         "tid": 1, "args": {"payload_bytes": 8 * mb, "span_id": 4}},
+        {"name": "train/grad_exchange", "ph": "E", "ts": 105, "pid": 0,
+         "tid": 1},
+        {"name": "train/grad_exchange/device", "ph": "B", "ts": 300,
+         "pid": 0, "tid": 1 << 50,
+         "args": {"device_ms": 10.0, "span_id": 4}},
+        {"name": "train/grad_exchange/device", "ph": "E", "ts": 10300,
+         "pid": 0, "tid": 1 << 50},
+    ]
+    hop = measurements_from_trace(events)["hops"]["world"]
+    assert hop["samples"] == 1
+    np.testing.assert_allclose(hop["gbps"], 8 * mb / 10e-3 / 1e9, rtol=1e-9)
+    # rank 1's span of the same id has no twin of its own: its duration
+    events += [
+        {"name": "train/grad_exchange", "ph": "B", "ts": 0, "pid": 1,
+         "tid": 1, "args": {"payload_bytes": 8 * mb, "span_id": 4}},
+        {"name": "train/grad_exchange", "ph": "E", "ts": 30000, "pid": 1,
+         "tid": 1}]
+    hop = measurements_from_trace(events)["hops"]["world"]
+    assert hop["samples"] == 2
+    np.testing.assert_allclose(hop["gbps"], 16 * mb / 40e-3 / 1e9,
+                               rtol=1e-9)
+
+
+def _twinned_exchanges(rank, device_ms, payload=8 << 20):
+    """One rank's exchange spans, 5 µs each on the host, with device twins
+    of ``device_ms`` (one a step)."""
+    events = []
+    for step, ms in enumerate(device_ms):
+        t = 1000 * step
+        events += [
+            {"name": "train/grad_exchange", "ph": "B", "ts": t, "pid": rank,
+             "tid": 1, "args": {"payload_bytes": payload, "span_id": step}},
+            {"name": "train/grad_exchange", "ph": "E", "ts": t + 5,
+             "pid": rank, "tid": 1},
+            {"name": "train/grad_exchange/device", "ph": "B", "ts": t + 10,
+             "pid": rank, "tid": 1 << 50,
+             "args": {"device_ms": ms, "span_id": step}},
+            {"name": "train/grad_exchange/device", "ph": "E",
+             "ts": t + 10 + int(ms * 1e3), "pid": rank, "tid": 1 << 50}]
+    return events
+
+
+class _GatherComm:
+    """``allgather_obj`` over ranks whose objects are given up front: the
+    caller's own object stands in for rank ``rank``'s."""
+
+    def __init__(self, others, rank=0):
+        self.others, self.rank = others, rank
+
+    def allgather_obj(self, obj):
+        out = list(self.others)
+        out.insert(self.rank, obj)
+        return out
+
+
+def test_online_measurement_takes_each_steps_fastest_rank():
+    """Each rank's twin holds its wait for the slowest rank: every step
+    takes the minimum over the ranks, over the last steps all of them
+    hold (rank 2's ring kept one step more), and every rank brings the
+    same measurement; ranks whose twins differ in their hops, or a rank
+    without twins, fall back to the rank's own spans."""
+    from chainermn_tpu_torch.communicators._autotune import (
+        exchange_twin_samples, online_measurement)
+    mb = 8 << 20
+    twins = [[24.0, 3.0, 50.0], [2.0, 40.0, 4.0], [99.0, 30.0, 2.0, 5.0]]
+    samples = [exchange_twin_samples(_twinned_exchanges(r, ms))
+               for r, ms in enumerate(twins)]
+    assert samples[0] == {"world": [[mb, 24e-3], [mb, 3e-3], [mb, 50e-3]]}
+    got = []
+    for rank in range(3):
+        comm = _GatherComm(samples[:rank] + samples[rank + 1:], rank)
+        got.append(online_measurement(
+            comm, _twinned_exchanges(rank, twins[rank])))
+    assert got[0] == got[1] == got[2]
+    hop = got[0]["hops"]["world"]
+    assert hop["samples"] == 3 and hop["lat_us"] is None
+    # steps aligned from the end: min(24, 2, 30), min(3, 40, 2),
+    # min(50, 4, 5)
+    np.testing.assert_allclose(hop["gbps"], 3 * mb / 8e-3 / 1e9, rtol=1e-9)
+    # the median of the ranks' own readings, as the agreement took them
+    own = sorted(measurements_from_trace(_twinned_exchanges(r, ms))[
+        "hops"]["world"]["gbps"] for r, ms in enumerate(twins))
+    assert hop["gbps"] > 5 * own[1]
+    # a rank without twins: every rank keeps its own measurement
+    events = _twinned_exchanges(0, twins[0])
+    comm = _GatherComm([samples[1], {}])
+    assert online_measurement(comm, events) \
+        == measurements_from_trace(events)
+    comm = _GatherComm([samples[1], {"dcn": samples[2]["world"]}])
+    assert online_measurement(comm, events) \
+        == measurements_from_trace(events)
+
+
 # -- the committed plan artifact (tests/test_autotune_plan.py's twins) ---------
 
 def _artifact():

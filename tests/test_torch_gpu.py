@@ -1711,3 +1711,60 @@ def test_last_surface_functions_and_links_on_the_card_match_the_cpu(
     t = from_numpy(batch, device=cuda_device)
     assert t.device.type == "cuda"
     np.testing.assert_array_equal(to_numpy(t), batch)
+
+
+@pytest.mark.gpu
+def test_span_clock_and_device_twins_agree_with_the_profiler(cuda_device,
+                                                             tmp_path):
+    """Under ``full`` in a ``torch.profiler`` capture on the card: each
+    span, its ``ts`` mapped through the shard's ``clock_sync`` pairs,
+    starts within 200 µs of its ``record_function`` twin (50 µs at the
+    median), and each device twin, placed from its anchor, holds the
+    kernel launched inside it and ends within 200 µs of the kernel's end
+    (its start waits for the host's launch: no bound)."""
+    import statistics
+    from torch.profiler import ProfilerActivity, profile
+    from chainermn_tpu_torch import observability as obs
+    from chainermn_tpu_torch.tools import trace_merge
+    prev = obs.set_mode("full")
+    obs.reset_tracer()
+    try:
+        x = torch.randn(2048, 2048, device=cuda_device)
+        with obs.span("warm", device=cuda_device):
+            x @ x
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                with obs.span("train/forward", device=cuda_device):
+                    x @ x
+            torch.cuda.synchronize()
+        path = tmp_path / "trace-rank0.jsonl"
+        obs.tracer().export(str(path))
+    finally:
+        obs.set_mode(prev)
+        obs.reset_tracer()
+    events = obs.read_jsonl(str(path))
+    obs.validate_events(events)
+    clock = trace_merge.profiler_clock(next(
+        e["args"] for e in events
+        if e["ph"] == "M" and e["name"] == "clock_sync"))
+    hosts = [clock(e["ts"]) for e in events
+             if e["name"] == "train/forward" and e["ph"] == "B"]
+    twins = [e for e in events if e["name"] == "train/forward/device"]
+    raw = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges = sorted(e.start_ns() / 1e3 for e in raw
+                    if e.is_user_annotation() and e.device_type() != cuda
+                    and e.name() == "train.forward")
+    kernels = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3) for e in raw
+                     if e.device_type() == cuda
+                     and not e.is_user_annotation())
+    assert len(hosts) == len(ranges) == len(kernels) == 20
+    gaps = [abs(h - r) for h, r in zip(hosts, ranges)]
+    assert statistics.median(gaps) <= 50 and max(gaps) <= 200, gaps
+    begins = [clock(e["ts"]) for e in twins if e["ph"] == "B"]
+    ends = [clock(e["ts"]) for e in twins if e["ph"] == "E"]
+    for b, e, (k0, k1) in zip(begins, ends, kernels):
+        assert b - 200 <= k0 and k1 <= e + 200 and e - k1 <= 200, \
+            (b, e, k0, k1)

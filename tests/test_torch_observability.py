@@ -616,6 +616,11 @@ def _train(out, iterator, n_iter=3, with_checkpoint=True, updater_cls=None,
         comm.finalize()
 
 
+#: the multi-node optimizer's step phases, in their order
+PHASES = ("train/forward", "train/backward", "train/grad_exchange",
+          "train/rule", "train/persistent_mean", "train/global_means")
+
+
 def _span_names(events):
     return {e["name"] for e in events if e["ph"] in ("B", "i")}
 
@@ -623,10 +628,11 @@ def _span_names(events):
 def test_trainer_run_produces_schema_valid_trace(events_mode, tmp_path):
     """A traced run leaves ``trace-rank0.jsonl`` in ``out``, valid under
     the port's validator and the JAX package's, with the trainer's span
-    taxonomy: one ``train/optimizer_update``, ``train/grad_exchange`` and
-    ``train/input_stall`` per iteration, the per-bucket instants, the
-    checkpointer's ``train/checkpoint_serialize``, and the payload
-    counter."""
+    taxonomy: one ``train/optimizer_update``, ``train/input_stall`` and
+    each step phase's span per iteration, the phases inside the update,
+    the exchange's tags, the checkpointer's
+    ``train/checkpoint_serialize``; on the CPU no device twin, and no
+    per-bucket instant or payload counter."""
     import chainermn_tpu.observability as jax_obs
     from chainermn_tpu_torch.dataset import SerialIterator, TupleDataset
     x, t = _data()
@@ -639,19 +645,26 @@ def test_trainer_run_produces_schema_valid_trace(events_mode, tmp_path):
     jax_obs.validate_events(events)
     names = _span_names(events)
     assert {"train/input_stall", "train/optimizer_update",
-            "train/grad_exchange", "train/grad_exchange/bucket0",
-            "train/checkpoint_serialize"} <= names
-    for name in ("train/input_stall", "train/optimizer_update",
-                 "train/grad_exchange"):
+            "train/checkpoint_serialize", *PHASES} <= names
+    for name in ("train/input_stall", "train/optimizer_update", *PHASES):
         assert sum(e["name"] == name and e["ph"] == "B"
                    for e in events) == 3, name
     assert {e["pid"] for e in events} == {0}
+    update = [e["ts"] for e in events
+              if e["name"] == "train/optimizer_update"]
+    phases = [e for e in events if e["name"] in PHASES]
+    assert [e["name"] for e in phases if e["ph"] == "B"] == 3 * list(PHASES)
+    assert all(update[0] <= e["ts"] <= update[-1] for e in phases)
     exchange = next(e for e in events if e["name"] == "train/grad_exchange"
                     and e["ph"] == "B")
     assert exchange["args"]["buckets"] == 1
-    c = obs.registry().get("chainermn_tpu_grad_exchange_payload_bytes_total")
-    assert c.value(bucket="0", exchange="flat") \
-        == 3 * exchange["args"]["payload_bytes"] > 0
+    assert exchange["args"]["payload_bytes"] > 0
+    assert "span_id" not in exchange["args"]
+    assert not any(e["name"].endswith("/device")
+                   or e["name"].startswith("train/grad_exchange/bucket")
+                   for e in events)
+    assert obs.registry().get(
+        "chainermn_tpu_grad_exchange_payload_bytes_total") is None
 
 
 def test_trainer_run_off_emits_nothing(tmp_path):
@@ -865,10 +878,10 @@ def test_jax_tools_accept_and_merge_the_ports_rank_shards(tmp_path):
 
 def test_device_ops_in_ranges_joins_launches_to_their_ranges():
     """``utils.device_ops_in_ranges`` on a synthetic ``torch.profiler``
-    trace: a kernel or copy belongs to the innermost matching range
-    around its launch on the launching thread, joined by correlation;
-    work launched outside, on another thread, or under another name is
-    left out."""
+    trace: a kernel or copy belongs to every matching range around its
+    launch on the launching thread, nested ones each, joined by
+    correlation; work launched outside, on another thread, or under
+    another name is left out."""
     from chainermn_tpu_torch.utils import device_ops_in_ranges
 
     def rng_(name, ts, dur, tid=1):
@@ -893,6 +906,7 @@ def test_device_ops_in_ranges_joins_launches_to_their_ranges():
     got = [(name, o["name"], o["args"]["stream"]) for name, o in
            device_ops_in_ranges(events, "train.")]
     assert got == [("train.grad_exchange.bucket0.a", "op1", 7),
+                   ("train.grad_exchange.bucket0.a", "op2", 21),
                    ("train.grad_exchange.bucket0.a.inner", "op2", 21)]
 
 
@@ -963,3 +977,487 @@ def test_serving_disagg_transfer_span(events_mode):
     assert obs.registry().get(
         "chainermn_tpu_serving_transferred_page_bytes_total").value() \
         == eng.transferred_page_bytes == 5 * page
+
+
+# -- device twins, with a fake event source -----------------------------------------
+
+class _FakeDevice:
+    """A device whose events complete when the test says so: ``now`` is
+    the device clock (ms) an event recorded now reads, ``done`` the time
+    up to which its work has run; it counts the synchronizes asked of
+    it."""
+
+    def __init__(self):
+        self.now = 0.0
+        self.done = 0.0
+        self.stream = 7
+        self.syncs = 0
+        self.event_syncs = 0
+
+    def accepts(self, device):
+        return True
+
+    def synchronize(self, device):
+        self.syncs += 1
+        self.done = self.now
+
+    def record(self, device):
+        return _FakeEvent(self, self.now), (0, self.stream)
+
+
+class _FakeEvent:
+    def __init__(self, dev, t):
+        self.dev, self.t = dev, t
+
+    def query(self):
+        return self.t <= self.dev.done
+
+    def synchronize(self):
+        self.dev.event_syncs += 1
+        self.dev.done = max(self.dev.done, self.t)
+
+    def elapsed_time(self, later):
+        return later.t - self.t
+
+
+def _twin_tracer():
+    dev = _FakeDevice()
+    return tracing.SpanTracer(rank=1, device_events=dev), dev
+
+
+def _device_span(tr, dev, name, start_ms, end_ms, tags=None):
+    dev.now = start_ms
+    span = tr.span(name, tags=tags, device="fake")
+    dev.now = end_ms
+    span.close()
+
+
+def _twins(events):
+    return [e for e in events if e["name"].endswith("/device")]
+
+
+def test_device_twins_resolve_lazily_without_synchronize():
+    """A finished pair is resolved by ``query()`` when a later device span
+    opens; one still running stays pending; nothing synchronizes but the
+    anchor until ``events()``, which resolves the rest and re-anchors."""
+    tr, dev = _twin_tracer()
+    dev.now = 5.0
+    _device_span(tr, dev, "train/forward", 5.0, 9.0)
+    assert dev.syncs == 1 and len(tr._pending) == 1
+    dev.done = 9.0
+    _device_span(tr, dev, "train/backward", 9.0, 20.0)
+    assert len(tr._pending) == 1     # the forward's resolved, not this one
+    assert [e["name"] for e in tr._events] == [
+        "train/forward", "train/forward", "train/forward/device",
+        "train/forward/device", "train/backward", "train/backward"]
+    assert dev.syncs == 1 and dev.event_syncs == 0
+    twins = _twins(tr.events())
+    assert [(e["name"], e["ph"]) for e in twins] == [
+        ("train/forward/device", "B"), ("train/forward/device", "E"),
+        ("train/backward/device", "B"), ("train/backward/device", "E")]
+    assert twins[0]["args"]["device_ms"] == 4.0
+    assert twins[2]["args"]["device_ms"] == 11.0
+    assert dev.event_syncs == 1 and dev.syncs == 2   # the new anchor
+    assert not tr._pending
+
+
+def test_device_twins_placed_from_the_anchor_with_the_span_id():
+    """A twin's B sits at the anchor's host time plus the device time
+    from the anchor, its E ``device_ms`` later, and it shares the host
+    span's ``span_id``; its tags are its own."""
+    tr, dev = _twin_tracer()
+    _device_span(tr, dev, "train/forward", 100.0, 101.0)   # the anchor
+    _device_span(tr, dev, "train/grad_exchange", 102.5, 103.25,
+                  tags={"payload_bytes": 64})
+    (_, anchor_us), = tr._anchors.values()
+    events = tr.events()
+    host = next(e for e in events if e["name"] == "train/grad_exchange"
+                and e["ph"] == "B")
+    b, e = _twins(events)[2:]
+    assert b["ts"] == anchor_us + 2500 and e["ts"] == anchor_us + 3250
+    assert b["args"] == {"device_ms": 0.75, "span_id": 2}
+    assert host["args"] == {"payload_bytes": 64, "span_id": 2}
+    assert b["tid"] == tracing.DEVICE_TID_BASE
+
+
+def test_device_twins_one_track_per_stream_and_a_valid_shard(tmp_path):
+    """Each stream is a device track of its own, named in the shard's
+    metadata; the exported shard passes the port's and the JAX package's
+    validators; ``clear()`` drops pending pairs and twins and keeps the
+    anchor."""
+    import chainermn_tpu.observability as jax_obs
+    tr, dev = _twin_tracer()
+    for k, stream in enumerate((7, 9, 7)):
+        dev.stream = stream
+        _device_span(tr, dev, f"s{k}", 2.0 * k, 2.0 * k + 1)
+    path = tmp_path / "t.jsonl"
+    tr.export(str(path))
+    events = obs.read_jsonl(str(path))
+    obs.validate_events(events)
+    jax_obs.validate_events(events)
+    tids = [e["tid"] for e in _twins(events) if e["ph"] == "B"]
+    base = tracing.DEVICE_TID_BASE
+    assert tids == [base, base + 1, base]
+    names = {e["tid"]: e["args"]["name"] for e in events
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    assert names == {base: "cuda:0 stream 7", base + 1: "cuda:0 stream 9"}
+    anchors = dict(tr._anchors)
+    _device_span(tr, dev, "left", 9.0, 10.0)
+    tr.clear()
+    assert not tr._pending and tr._anchors == anchors
+    assert tr.events() == []
+
+
+def test_span_twins_only_on_a_device_the_source_accepts(events_mode):
+    """The real source (``CudaEvents``) takes CUDA devices alone: a span
+    given the CPU is a plain host span, with no event and no anchor."""
+    tr = obs.tracer()
+    assert isinstance(tr.device_events, tracing.CudaEvents)
+    with obs.span("train/forward", device=torch.device("cpu")):
+        pass
+    assert [e["ph"] for e in tr.events()] == ["B", "E"]
+    assert "args" not in tr.events()[0]
+    assert not tr._anchors and not tr._pending
+
+
+def test_step_phases_have_twins_with_fake_events(events_mode, tmp_path):
+    """The trainer's step on the CPU with a fake event source in place of
+    CUDA's: each phase span has its twin, matched by ``span_id``, and the
+    update holds the six phases in order."""
+    from chainermn_tpu_torch.dataset import SerialIterator, TupleDataset
+    dev = _FakeDevice()
+    obs.tracer().device_events = dev
+    x, t = _data()
+    _train(tmp_path / "out", SerialIterator(TupleDataset(x, t), 8,
+                                            shuffle=False),
+           with_checkpoint=False)
+    events = obs.tracer().events()
+    hosts = {e["args"]["span_id"]: e["name"] for e in events
+             if e["ph"] == "B" and "span_id" in (e.get("args") or {})
+             and not e["name"].endswith("/device")}
+    twins = {e["args"]["span_id"]: e["name"] for e in _twins(events)
+             if e["ph"] == "B"}
+    assert twins == {k: f"{n}/device" for k, n in hosts.items()}
+    assert sorted(hosts.values()) == sorted(3 * PHASES)
+    # the first span's anchor, then a new one at the trainer's export
+    # and at this events(): none a step
+    assert dev.syncs == 3
+
+
+# -- scope --------------------------------------------------------------------------
+
+def test_scope_off_returns_singleton_no_alloc():
+    assert obs.mode() == "off"
+    assert obs.scope("model/bn_act") is tracing._NOOP
+    import gc
+    gc.collect()
+    before = sys.getallocatedblocks()
+    for _ in range(10_000):
+        with obs.scope("model/bn_act"):
+            pass
+    gc.collect()
+    assert sys.getallocatedblocks() - before < 100
+
+
+def test_scope_full_opens_record_function_and_records_nothing(
+        events_mode, monkeypatch):
+    opened = []
+
+    class _Range:
+        def __init__(self, name):
+            opened.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+    import torch.profiler
+    monkeypatch.setattr(torch.profiler, "record_function", _Range)
+    assert obs.scope("model/bn_act") is tracing._NOOP   # events: none
+    obs.set_mode("full")
+    with obs.scope("model/bn_act"):
+        pass
+    assert opened == ["model.bn_act"] and obs.tracer().events() == []
+
+
+def test_conv_bn_bitwise_the_same_off_and_full(tmp_path):
+    """``ConvBN`` forward and backward (its batch norm and ReLU inside
+    ``model/bn_act``) and a residual block read bitwise the same with
+    tracing off and under ``full`` in a profiler capture."""
+    from torch.profiler import ProfilerActivity, profile
+    from chainermn_tpu_torch.models.resnet import BottleneckBlock, ConvBN
+
+    def run():
+        torch.manual_seed(0)
+        x = torch.randn(2, 8, 6, 6, requires_grad=True)
+        out = {}
+        for name, link in (("convbn", ConvBN(8, 8, 3, pad=1, seed=1,
+                                             device="cpu")),
+                           ("block", BottleneckBlock(8, 4, 8, seed=2,
+                                                     device="cpu"))):
+            y = link(x)
+            y.square().sum().backward()
+            out[name] = [y.detach()] + [x.grad.clone()] + [
+                p.grad.clone() for _, p in link.namedparams()]
+            x.grad = None
+        return out
+
+    assert obs.mode() == "off"
+    want = run()
+    prev = obs.set_mode("full")
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            got = run()
+    finally:
+        obs.set_mode(prev)
+        obs.reset_tracer()
+    for name in want:
+        assert all(torch.equal(a, b) for a, b in zip(want[name], got[name]))
+    ranges = {e.name() for e in prof.profiler.kineto_results.events()
+              if e.is_user_annotation()}
+    assert {"model.bn_act", "model.residual_act"} <= ranges
+
+
+# -- the joiner's backward pass -----------------------------------------------------
+
+class _Kineto:
+    """A raw profiler event (``kineto_results.events()``'s methods)."""
+
+    def __init__(self, name, thread, start, end, device=False,
+                 annotation=False, seq=-1, fwd=0, corr=0, linked=0):
+        self._v = dict(name=name, thread=thread, start=start, end=end,
+                       device=device, annotation=annotation, seq=seq,
+                       fwd=fwd, corr=corr, linked=linked)
+
+    def name(self):
+        return self._v["name"]
+
+    def device_type(self):
+        return (torch.autograd.DeviceType.CUDA if self._v["device"]
+                else torch.autograd.DeviceType.CPU)
+
+    def is_user_annotation(self):
+        return self._v["annotation"]
+
+    def start_thread_id(self):
+        return self._v["thread"]
+
+    def start_ns(self):
+        return self._v["start"]
+
+    def end_ns(self):
+        return self._v["end"]
+
+    def sequence_nr(self):
+        return self._v["seq"]
+
+    def fwd_thread_id(self):
+        return self._v["fwd"]
+
+    def correlation_id(self):
+        return self._v["corr"]
+
+    def linked_correlation_id(self):
+        return self._v["linked"]
+
+
+def _step_trace():
+    """A step's host and device events as ``(kind, fields)`` rows: the
+    main thread (1) runs the forward, with batch norm in ``model.bn_act``
+    and a custom ``autograd.Function`` (the flash path) in
+    ``model.attention``, and waits in ``train.backward``; autograd's
+    thread (2) runs their nodes; one kernel is launched outside every
+    range."""
+    rows = []
+    ext = iter(range(1, 100))
+    corr = iter(range(1001, 1100))
+
+    def annotate(name, a, b, thread=1):
+        e = next(ext)
+        rows.append(("range", dict(name=name, thread=thread, start=a,
+                                   end=b, ext=e)))
+        return e
+
+    def op(name, a, b, thread=1, seq=-1, fwd=0, node=False):
+        e = next(ext)
+        rows.append(("node" if node else "op",
+                     dict(name=name, thread=thread, start=a, end=b,
+                          seq=seq, fwd=fwd, ext=e)))
+        return e
+
+    def kernel(name, at, linked, thread=1):
+        c = next(corr)
+        rows.append(("launch", dict(thread=thread, start=at, end=at + 1,
+                                    corr=c, linked=linked)))
+        rows.append(("kernel", dict(name=name, start=at + 100,
+                                    end=at + 110, corr=c, linked=linked)))
+
+    annotate("train.forward", 0, 100)
+    annotate("model.bn_act", 10, 50)
+    kernel("bn_fwd", 15, op("aten::native_batch_norm", 12, 30, seq=5))
+    kernel("relu_fwd", 35, op("aten::relu", 33, 40, seq=6))
+    annotate("model.attention", 55, 70)
+    flash = op("FlashAttention", 56, 68, seq=7)
+    kernel("flash_fwd", 60, op("aten::empty", 59, 61) and flash)
+    kernel("conv_fwd", 80, op("aten::convolution", 78, 90, seq=8))
+    annotate("train.backward", 110, 200)
+    for name, seq, a in (("ReluBackward0", 6, 120), ("FlashBackward", 7, 135),
+                         ("NativeBatchNormBackward0", 5, 150),
+                         ("ConvolutionBackward0", 8, 165)):
+        node = op(f"autograd::engine::evaluate_function: {name}", a, a + 10,
+                  thread=2, seq=seq, fwd=1, node=True)
+        kernel(f"{name}_kernel", a + 5, node, thread=2)
+    kernel("outside", 300, op("aten::add", 299, 305))
+    return rows
+
+
+def _as_kineto(rows):
+    out = []
+    for kind, f in rows:
+        if kind == "range":
+            out.append(_Kineto(f["name"], f["thread"], f["start"], f["end"],
+                               annotation=True, corr=f["ext"]))
+        elif kind in ("op", "node"):
+            out.append(_Kineto(f["name"], f["thread"], f["start"], f["end"],
+                               seq=f["seq"], fwd=f["fwd"], corr=f["ext"]))
+        elif kind == "launch":
+            out.append(_Kineto("cudaLaunchKernel", f["thread"], f["start"],
+                               f["end"], corr=f["corr"], linked=f["linked"]))
+        else:
+            out.append(_Kineto(f["name"], 0, f["start"], f["end"],
+                               device=True, corr=f["corr"],
+                               linked=f["linked"]))
+    return out
+
+
+def _as_chrome(rows):
+    """The same trace as ``export_chrome_trace`` writes it: threads by
+    their system ids (1 -> 501, 2 -> 502), a node's ``Fwd thread id`` the
+    profiler's own."""
+    out = []
+    for kind, f in rows:
+        base = {"ts": f["start"], "dur": f["end"] - f["start"]}
+        if kind in ("range", "op", "node"):
+            args = {"External id": f["ext"]}
+            if kind != "range" and f["seq"] >= 0:
+                args.update({"Sequence number": f["seq"],
+                             "Fwd thread id": f["fwd"]})
+            out.append(dict(base, name=f["name"], pid=9, tid=500 + f["thread"],
+                            cat="user_annotation" if kind == "range"
+                            else "cpu_op", args=args))
+        elif kind == "launch":
+            out.append(dict(base, name="cudaLaunchKernel", cat="cuda_runtime",
+                            pid=9, tid=500 + f["thread"],
+                            args={"correlation": f["corr"]}))
+        else:
+            out.append(dict(base, name=f["name"], cat="kernel", pid=0, tid=7,
+                            args={"correlation": f["corr"], "stream": 7}))
+    return out
+
+
+@pytest.mark.parametrize("form", ["kineto", "chrome"])
+def test_device_ops_in_ranges_gives_backward_kernels_their_forward_range(
+        form):
+    """Backward kernels, launched on autograd's thread, count in the
+    ``train.backward`` range open on the thread that called backward and
+    in the layer range of the forward op whose node ran them: batch
+    norm's in ``model.bn_act``, the custom Function's in
+    ``model.attention``; a kernel launched outside every range counts
+    nowhere.  Both forms of a capture give the same join."""
+    from chainermn_tpu_torch.utils import device_ops_in_ranges
+    rows = _step_trace()
+    events = _as_kineto(rows) if form == "kineto" else _as_chrome(rows)
+    got = {}
+    for name, op in device_ops_in_ranges(events, ("train.", "model.")):
+        kernel = op.name() if form == "kineto" else op["name"]
+        got.setdefault(kernel, []).append(name)
+    assert got == {
+        "bn_fwd": ["train.forward", "model.bn_act"],
+        "relu_fwd": ["train.forward", "model.bn_act"],
+        "flash_fwd": ["train.forward", "model.attention"],
+        "conv_fwd": ["train.forward"],
+        "ReluBackward0_kernel": ["model.bn_act", "train.backward"],
+        "FlashBackward_kernel": ["model.attention", "train.backward"],
+        "NativeBatchNormBackward0_kernel": ["model.bn_act",
+                                            "train.backward"],
+        "ConvolutionBackward0_kernel": ["train.backward"]}
+    assert [n for n, _ in device_ops_in_ranges(events, "model.bn_act")] \
+        == ["model.bn_act"] * 4
+
+
+# -- one clock ----------------------------------------------------------------------
+
+def test_export_writes_the_clock_pair(events_mode, tmp_path):
+    """The shard's ``clock_sync`` metadata: the monotonic origin of
+    ``ts`` and ``[monotonic_ns, time_ns]`` pairs from the tracer's
+    creation and the export, which map a span's ``ts`` onto
+    ``time.time_ns()``."""
+    import time
+    from chainermn_tpu_torch.tools import trace_merge
+    tr = obs.tracer()
+    before = time.time_ns()
+    with tr.span("x"):
+        pass
+    after = time.time_ns()
+    path = tmp_path / "t.jsonl"
+    tr.export(str(path))
+    events = obs.read_jsonl(str(path))
+    clock = next(e["args"] for e in events
+                 if e["ph"] == "M" and e["name"] == "clock_sync")
+    assert set(clock) == {"t0_monotonic_ns", "created", "exported"}
+    assert clock["created"][0] <= clock["exported"][0]
+    assert clock["created"][0] >= clock["t0_monotonic_ns"]
+    to_real = trace_merge.profiler_clock(clock)
+    b = next(e for e in events if e["name"] == "x" and e["ph"] == "B")
+    assert before - 2e6 <= to_real(b["ts"]) * 1000 <= after + 2e6
+
+
+def test_trace_merge_profile_places_shards_on_the_profilers_clock(
+        tmp_path):
+    """``trace_merge --profile``: the shards' events join the capture's,
+    each rank on its own pid, each ``ts`` mapped through its shard's
+    clock pairs onto the capture's base; a shard without the pairs is
+    refused."""
+    from chainermn_tpu_torch.tools import trace_merge
+    base = 1_700_000_000_000_000_000
+    shards = []
+    for rank in (0, 1):
+        clock = {"t0_monotonic_ns": 5_000_000,
+                 "created": [5_000_000, base + 1_000_000 + rank * 1000],
+                 "exported": [9_000_000, base + 5_000_000 + rank * 1000]}
+        shard = [_ev("process_name", "M", pid=rank, tid=0,
+                     args={"name": f"rank{rank}"}),
+                 _ev("clock_sync", "M", pid=rank, tid=0, args=clock),
+                 _ev("train/forward", "B", 100, pid=rank),
+                 _ev("train/forward", "E", 350, pid=rank)]
+        p = tmp_path / f"trace-rank{rank}.jsonl"
+        p.write_text("\n".join(json.dumps(e) for e in shard) + "\n")
+        shards.append(str(p))
+    kernel = {"ph": "X", "cat": "kernel", "name": "k", "pid": 0, "tid": 7,
+              "ts": 12.5, "dur": 3.0}
+    profile = tmp_path / "trace.json"
+    profile.write_text(json.dumps({"baseTimeNanoseconds": base,
+                                   "traceEvents": [kernel]}))
+    out = tmp_path / "merged.json"
+    assert trace_merge.main(["--profile", str(profile), "-o", str(out),
+                             *shards]) == 0
+    merged = json.loads(out.read_text())
+    assert merged["baseTimeNanoseconds"] == base
+    assert merged["traceEvents"][0] == kernel
+    spans = [(e["pid"], e["ph"], e["ts"]) for e in merged["traceEvents"]
+             if e["name"] == "train/forward"]
+    r = trace_merge.RANK_PID_BASE
+    # 1 ms after the origin, plus 0.1 ms (0.35 ms), plus 1 µs on rank 1
+    assert spans == [(r, "B", 1100.0), (r + 1, "B", 1101.0),
+                     (r, "E", 1350.0), (r + 1, "E", 1351.0)]
+    names = {e["pid"]: e["args"]["name"] for e in merged["traceEvents"]
+             if e["name"] == "process_name"}
+    assert names == {r: "rank0", r + 1: "rank1"}
+    bare = tmp_path / "bare.jsonl"
+    bare.write_text(json.dumps(_ev("s", "B", 1)) + "\n"
+                    + json.dumps(_ev("s", "E", 2)) + "\n")
+    assert trace_merge.main(["--profile", str(profile), "-o",
+                             str(tmp_path / "x.json"), str(bare)]) == 1
+    assert not (tmp_path / "x.json").exists()
