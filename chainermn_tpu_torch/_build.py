@@ -118,6 +118,14 @@ def _argtypes():
     # the delta pass: g, out, g_lse, delta, dq_zero; dtype, B, H, Tq, D;
     # the strides of g and out; stream
     table["flash_attention_bwd_delta"] = [p] * 5 + [i] * 5 + [ll] * 6 + [p]
+    # batch norm with its activation: 10 tensors (forward: x, residual, y,
+    # gamma, beta, avg_mean, avg_var, stats, partials, counters; backward:
+    # dy, x, residual, dx, ds, stats, beta, grads, partials, counters);
+    # dtype, act, R, C, tx, rows a split, splits; the forward's eps, decay,
+    # 1 - decay and m / (m - 1); stream
+    geometry = [i, i, ll, i, i, ll, i]
+    table["bn_act_fwd"] = [p] * 10 + geometry + [f] * 4 + [p]
+    table["bn_act_bwd"] = [p] * 10 + geometry + [p]
     return table
 
 

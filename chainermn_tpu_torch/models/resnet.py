@@ -81,9 +81,11 @@ def normalize_input(x, consts, layout, compute_dtype):
 
 
 class ConvBN(Chain):
-    """Convolution (no bias) -> batch norm -> optional ReLU, in the input's
-    dtype: the fp32 kernel is cast to it per call, the BN statistics are
-    fp32 inside."""
+    """Convolution (no bias) -> batch norm -> optional ReLU, or with a
+    ``residual`` added before the ReLU, in the input's dtype: the fp32
+    kernel is cast to it per call, the BN statistics are fp32 inside.  In
+    training on the card, NHWC batch norm runs the fused kernels
+    (``ops.batch_norm``), the residual add and the ReLU inside them."""
 
     def __init__(self, in_ch, out_ch, ksize, stride=1, pad=0, seed=None,
                  layout="NCHW", device=None):
@@ -94,13 +96,10 @@ class ConvBN(Chain):
                                     layout=layout, device=device)
         self.bn = L.BatchNormalization(out_ch, axis=bn_axis, device=device)
 
-    def forward(self, x, activate=True):
+    def forward(self, x, activate=True, residual=None):
         h = self.conv(x)
         with observability.scope("model/bn_act"):
-            h = self.bn(h)
-            if activate:
-                h = F.relu(h)
-            return h.to(x.dtype)
+            return self.bn(h, relu=activate, residual=residual).to(x.dtype)
 
 
 class BottleneckBlock(Chain):
@@ -121,10 +120,9 @@ class BottleneckBlock(Chain):
                                    seed=seed + 3, **kw)
 
     def forward(self, x):
-        h = self.c(self.b(self.a(x)), activate=False)
+        h = self.b(self.a(x))
         s = self.shortcut(x, activate=False) if self.project else x
-        with observability.scope("model/residual_act"):
-            return F.relu(h + s)
+        return self.c(h, residual=s)
 
 
 class BasicBlock(Chain):
@@ -143,10 +141,9 @@ class BasicBlock(Chain):
                                    seed=seed + 2, **kw)
 
     def forward(self, x):
-        h = self.b(self.a(x), activate=False)
+        h = self.a(x)
         s = self.shortcut(x, activate=False) if self.project else x
-        with observability.scope("model/residual_act"):
-            return F.relu(h + s)
+        return self.b(h, residual=s)
 
 
 class _Stage(ChainList):

@@ -20,6 +20,7 @@ from torch.nn.parameter import UninitializedParameter, is_lazy
 from .._device import resolve_device
 from ..core.config import config
 from ..core.link import Link, _copy_array
+from ..ops import batch_norm as _bn
 from . import functions as F
 from . import initializers as I
 
@@ -255,25 +256,49 @@ class BatchNormalization(Link):
         """The number of elements each moment reduces over."""
         return int(np.prod([x.shape[a] for a in axis]))
 
-    def forward(self, x, finetune=False):
+    def _takes_kernel(self, x, axis):
+        """The fused kernels (``ops.batch_norm.batch_norm_act``) take a
+        training call on a CUDA tensor whose reduced axes are every axis
+        but the last, unless a subclass hooks the moments (the multi-node
+        subclass's allreduce).  There they launch or raise: a call they
+        take never falls back to the plain arithmetic."""
+        return (x.is_cuda and axis == tuple(range(x.dim() - 1))
+                and type(self)._sync_moments
+                is BatchNormalization._sync_moments)
+
+    def forward(self, x, finetune=False, relu=False, residual=None):
+        """Normalize ``x``, then ``relu(y)`` with ``relu``, or
+        ``relu(y + residual)`` with a ``residual`` (which needs ``relu``).
+        In training a call the fused kernels take runs them
+        (``ops.batch_norm``); any other takes the plain arithmetic."""
         axis = F._default_axis(x, self.axis)
         gamma, beta = self._gamma_beta()
+        _bn._check_act(relu, residual)
         if not config.train:
-            return F._apply_bn(x, gamma, beta, self.avg_mean, self.avg_var,
-                               self.eps, axis)
-        mean, var = self._moments(x, axis)
-        y = F._apply_bn(x, gamma, beta, mean, var, self.eps, axis)
-        m = self._moment_count(x, axis)
-        with torch.no_grad():
-            if finetune:
+            return _bn.activate(
+                F._apply_bn(x, gamma, beta, self.avg_mean, self.avg_var,
+                            self.eps, axis), relu, residual)
+        if finetune:
+            with torch.no_grad():
                 self.N += 1
-                # in float64, as the JAX link's Python scalars
-                decay = 1.0 - 1.0 / self.N.double()
-            else:
-                decay = self.decay
-            self.avg_mean.mul_(decay).add_((1 - decay) * mean.detach())
-            self.avg_var.mul_(decay).add_(
-                (1 - decay) * (var.detach() * (m / max(m - 1, 1))))
+            # in float64, as the JAX link's Python scalars
+            decay = 1.0 - 1.0 / self.N.double()
+        else:
+            decay = self.decay
+        if self._takes_kernel(x, axis):
+            if not finetune:   # the kernels move the running statistics
+                return _bn.batch_norm_act(
+                    x, gamma, beta, self.avg_mean, self.avg_var,
+                    eps=self.eps, decay=decay, relu=relu,
+                    residual=residual)[0]
+            y, mean, var = _bn.batch_norm_act(x, gamma, beta, eps=self.eps,
+                                              relu=relu, residual=residual)
+        else:
+            mean, var = self._moments(x, axis)
+            y = _bn.activate(F._apply_bn(x, gamma, beta, mean, var,
+                                         self.eps, axis), relu, residual)
+        _bn.move_running(self.avg_mean, self.avg_var, mean, var, decay,
+                         self._moment_count(x, axis))
         return y
 
 

@@ -87,7 +87,9 @@ Phases, each printing one JSON line:
     which 2 warm up: images/s per card, MFU (bench.py's 12.3 GFLOP per
     image), losses (finite), peak memory, the gradient allreduces (one
     per step) and the bucket's bytes, and the cuDNN autotuner flag it ran
-    with (the package sets none); the flash kernels' counts stay 0; then
+    with (the package sets none); the flash kernels' counts stay 0, and
+    the batch-norm kernels' (``ops/batch_norm.py``) read 53 forward and
+    53 backward launches a step; then
     the same steps with ``cudnn.benchmark`` on (``train_resnet_cudnn_
     benchmark``), and 3 profiled steps (``train_resnet_profile``: device
     busy and idle share, the top device ops, their time by class --
@@ -424,10 +426,22 @@ cold one from seed 123):
     validates and keeps every event but the copies one shard repeats of
     the other's and the span ends its balance repair drops or adds.
     ``a14_phases`` prints the seconds of phases 53-56.
-    None of them launches a flash kernel.
+    None of them launches a flash kernel;
+57. kernel_check_bn (before phase 11): the fused batch-norm kernels
+    (``ops/batch_norm.py``: ``bn_fw_stats``, ``bn_fw_apply``,
+    ``bn_bw_reduce``, ``bn_bw_dx``) in bf16 at ResNet-50's batch-256
+    shapes, conv1's (C 64, 112^2) and res5's (C 2048, 7^2), plain, with
+    ReLU and with the residual, against the plain version in fp32 on the
+    same inputs (``BN_CHECK_TOL``): y, the batch and running statistics,
+    dx, dgamma, dbeta and ds; then, with ReLU and with the residual, each
+    kernel's device time beside its byte bound, the forward and backward
+    calls' times, and those of the plain version and of
+    ``torch.nn.functional.batch_norm`` plus the ReLU (cuDNN; a yardstick,
+    the port never calls it).
 
 Then the kernels line (launches, error, times, the whole call's device
-time and bound of all five kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
+time and bound of all five flash kernels, and of the four batch-norm
+kernels at conv1's shape with ReLU, their launches from phase 11's run) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before the last line.  Needs one CUDA card; fails without
 one.
 """
@@ -502,6 +516,18 @@ RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS, RESNET_WARMUP = 64, 224, 12, 2
 RESNET_PARITY = dict(blocks=[1, 1, 1, 1], n_classes=10, batch=8, size=16,
                      lr=1e-3)
 RESNET_PARITY_TOL = {"loss_rel": 1e-4, "state_abs": 1e-3}
+# kernel_check_bn: ResNet-50's batch-256 batch norms with the most rows
+# (conv1's) and the widest (res5's), bf16 NHWC
+BN_SHAPES = (("conv1", (256, 112, 112, 64)), ("res5", (256, 7, 7, 2048)))
+BN_KERNELS = ("bn_fw_stats", "bn_fw_apply", "bn_bw_reduce", "bn_bw_dx")
+# the bf16 kernels against the fp32 plain version on the same bf16-valued
+# inputs, each relative to the largest |ref|: y, dx and ds are fp32
+# arithmetic rounded once to bf16 (2^-8); the fp32 batch and running
+# statistics differ by sum order, Welford against E[x^2] - mean^2 (2e-5);
+# dgamma and dbeta sum 12.5 k to 3.2 M terms in other orders (1e-4).  dy
+# is 0 where the float64 pre-activation is within 1e-3 of the ReLU's kink,
+# so that a last-bit difference of the statistics flips no mask
+BN_CHECK_TOL = {"rounded": 2.0 ** -8, "stats": 2e-5, "sums": 1e-4}
 # seq2seq (BASELINE configs #3 and #4): Chainer's examples/seq2seq width
 # (3 layers of 1024 units), the WMT'15 En-Fr vocabularies of 40,000 that
 # its preprocessing keeps, sentences of up to 50 tokens, batch 64 a rank;
@@ -2323,6 +2349,186 @@ def phase_train_dp_parity():
         fail("the process group outlived the DP parity phase")
 
 
+def bn_case(shape, act, seed):
+    """bf16 inputs of one batch norm on the card: x with channel means up
+    to 2 and stds 0.5-2, fp32 gamma, beta and running statistics, the
+    residual (act "residual") and dy, 0 near the ReLU's kink
+    (``BN_CHECK_TOL``)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C = shape[-1]
+
+    def rand(*size, lo=0.0, hi=1.0):
+        return torch.rand(size, generator=g, device="cuda") * (hi - lo) + lo
+
+    x = (torch.randn(shape, generator=g, device="cuda") * rand(C, lo=0.5,
+                                                               hi=2.0)
+         + rand(C, lo=-2.0, hi=2.0)).bfloat16()
+    gamma, beta = rand(C, lo=0.5, hi=1.5), rand(C, lo=-1.0, hi=1.0)
+    avg_mean, avg_var = rand(C, lo=-1.0, hi=1.0), rand(C, lo=1.0, hi=2.0)
+    s = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+         if act == "residual" else None)
+    dy = torch.randn(shape, generator=g, device="cuda")
+    if act != "none":
+        x64 = x.double()
+        axes = tuple(range(len(shape) - 1))
+        var, mean = torch.var_mean(x64, dim=axes, correction=0)
+        pre = (x64 - mean) * (gamma.double() / torch.sqrt(var + 2e-5)) \
+            + beta.double()
+        if s is not None:
+            pre += s.double()
+        dy[pre.abs() < 1e-3] = 0.0
+        del x64, pre
+    return x, gamma, beta, avg_mean, avg_var, s, dy.bfloat16()
+
+
+def bn_run(fn, x, gamma, beta, avg_mean, avg_var, s, dy, act):
+    """``fn`` (the kernels' entry or the plain version) forward and
+    backward on fresh leaves and copies of the running statistics: y,
+    mean, var, both running statistics, dx, dgamma, dbeta, ds (or
+    None)."""
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, gamma, beta) + ((s,) if s is not None else ())]
+    am, av = avg_mean.clone(), avg_var.clone()
+    y, mean, var = fn(leaves[0], leaves[1], leaves[2], am, av, eps=2e-5,
+                      decay=0.9, relu=act != "none",
+                      residual=leaves[3] if s is not None else None)
+    y.backward(dy.to(y.dtype))
+    return [y.detach(), mean, var, am, av] + [t.grad for t in leaves] + (
+        [] if s is not None else [None])
+
+
+def bn_errs(got, want):
+    """Each output's largest |got - want| over its largest |want|, named,
+    beside its tolerance."""
+    names = ("y", "mean", "var", "avg_mean", "avg_var", "dx", "dgamma",
+             "dbeta", "ds")
+    kind = {"y": "rounded", "dx": "rounded", "ds": "rounded",
+            "dgamma": "sums", "dbeta": "sums"}
+    out = {}
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            continue
+        err = ((g.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp_min(1e-30)).item()
+        out[name] = [err, BN_CHECK_TOL[kind.get(name, "stats")]]
+    return out
+
+
+def bn_kernel_times(shape, act, seed):
+    """Device and call times of the four kernels on one (shape, act), the
+    plain version's and the library's (``F.batch_norm``, then the add and
+    the ReLU) forward and backward, and the bounds: one row."""
+    from chainermn_tpu_torch.ops import batch_norm as bn
+    x, gamma, beta, am, av, s, dy = bn_case(shape, act, seed)
+    R, C = x.numel() // shape[-1], shape[-1]
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, gamma, beta) + ((s,) if s is not None else ())]
+    res = leaves[3] if s is not None else None
+
+    def entry():
+        return bn.batch_norm_act(leaves[0], leaves[1], leaves[2], am, av,
+                                 relu=True, residual=res)[0]
+
+    def plain():
+        return bn.batch_norm_act_plain(leaves[0], leaves[1], leaves[2], am,
+                                       av, relu=True, residual=res)[0]
+
+    def library():
+        h = torch.nn.functional.batch_norm(
+            leaves[0].permute(0, 3, 1, 2), None, None, leaves[1], leaves[2],
+            training=True, eps=2e-5).permute(0, 2, 3, 1)
+        return torch.relu(h if res is None else h + res)
+
+    def backward(fwd):
+        y = fwd()
+        return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+    ops = {}
+    for direction, fn in (("fwd", entry), ("bwd", backward(entry))):
+        ops[direction] = device_ops_us(fn)
+    kernel_ms = {k: sum(us for n, us in ops["fwd"] + ops["bwd"] if k in n)
+                 * 1e-3 for k in BN_KERNELS}
+    nbytes = bn.batch_norm_act_bytes(R, C, 2, residual=s is not None)
+    times = {"call_ms": {}, "call_device_ms": {}, "plain_ms": {},
+             "library_ms": {}, "library_device_ms": {}}
+    for direction, wrap in (("fwd", lambda f: f), ("bwd", backward)):
+        times["call_ms"][direction] = time_ms(wrap(entry))
+        times["call_device_ms"][direction] = sum(
+            us for _, us in ops[direction]) * 1e-3
+        times["plain_ms"][direction] = time_ms(wrap(plain), iters=5)
+        times["library_ms"][direction] = time_ms(wrap(library))
+        times["library_device_ms"][direction] = library_device_ms(
+            wrap(library))
+    return {"shape": list(shape), "act": act, "R": R, "C": C,
+            "dtype": "bfloat16", "device_ms": kernel_ms,
+            "bound_ms": {k: nbytes[k] / HBM_BYTES_PER_S * 1e3
+                         for k in BN_KERNELS},
+            "share_of_bound": {k: nbytes[k] / HBM_BYTES_PER_S * 1e3 / v
+                               for k, v in kernel_ms.items() if v},
+            "host_us": host_us(entry), **times,
+            "ops_us": {d: ops[d][:6] for d in ops}}
+
+
+def bn_kernel_rows(checks, times, launches):
+    """The kernels line's rows of the four batch-norm kernels, at conv1's
+    shape with ReLU: the kernel's device ms beside its bound, and its
+    direction's call (``ms``, ``call_device_ms``), plain version and
+    library times; ``launches`` are phase 11's run's."""
+    t = next(r for r in times if r["name"] == "conv1" and r["act"] == "relu")
+    worst = max(e / tol for c in checks for e, tol in c["errs"].values())
+    rows = []
+    for k in BN_KERNELS:
+        d = "fwd" if k.startswith("bn_fw") else "bwd"
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": "chainermn_tpu_torch/csrc/batch_norm_act_sm90.cu",
+            "replaces": None, "launches": launches[d],
+            "max_err_over_tol": worst, "ms": t["call_ms"][d],
+            "plain_ms": t["plain_ms"][d], "bound_ms": t["bound_ms"][k],
+            "bound_by": "bytes", "library_ms": t["library_ms"][d],
+            "device_ms": t["device_ms"][k],
+            "library_device_ms": t["library_device_ms"][d],
+            "call_device_ms": t["call_device_ms"][d],
+            "host_us": t["host_us"] if d == "fwd" else None})
+    return rows
+
+
+def phase_kernel_bn():
+    """kernel_check_bn: the batch-norm kernels against their plain version
+    at ResNet-50's batch-256 shapes, then their times (phase 57)."""
+    from chainermn_tpu_torch.ops import batch_norm as bn
+    checks = []
+    for i, (name, shape) in enumerate(BN_SHAPES):
+        for act in ("none", "relu", "residual"):
+            case = bn_case(shape, act, seed=100 + 3 * i + len(act))
+            f0, b0 = (bn.batch_norm_act_fwd.launches,
+                      bn.batch_norm_act_bwd.launches)
+            got = bn_run(bn.batch_norm_act, *case, act)
+            launches = [bn.batch_norm_act_fwd.launches - f0,
+                        bn.batch_norm_act_bwd.launches - b0]
+            as32 = [None if t is None else t.float() for t in case]
+            want = bn_run(bn.batch_norm_act_plain, *as32, act)
+            errs = bn_errs(got, want)
+            checks.append({
+                "shape": name, "act": act, "errs": errs,
+                "launches": launches,
+                "ok": launches == [1, 1] and got[0].dtype == torch.bfloat16
+                and all(e <= tol for e, tol in errs.values())
+                and all(bool(torch.isfinite(t.float()).all())
+                        for t in got if t is not None)})
+            del case, got, want, as32
+            torch.cuda.empty_cache()
+    times = [{"name": name, **bn_kernel_times(shape, act, seed=200 + i)}
+             for i, (name, shape) in enumerate(BN_SHAPES)
+             for act in ("relu", "residual")]
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_check_bn", "checks": checks, "times": times})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        fail(f"batch-norm kernels disagree with their plain version: {bad}")
+    return checks, times
+
+
 def resnet50_train_flops_per_image(image_size):
     """bench.py's analytic model: forward ~4.1 GFLOP at 224^2 (scaling
     with the area), train = 3x forward."""
@@ -2376,6 +2582,7 @@ def phase_train_resnet():
                                      scatter_dataset)
     from chainermn_tpu_torch.core.optimizer import MomentumSGD
     from chainermn_tpu_torch.models import Classifier, ResNet50
+    from chainermn_tpu_torch.ops import batch_norm as bn
     comm = create_communicator("pure_nccl", allreduce_grad_dtype="bfloat16")
     benchmark = torch.backends.cudnn.benchmark
     try:
@@ -2388,8 +2595,11 @@ def phase_train_resnet():
         buckets = comm.grad_buckets_for(model)
         n_params = sum(p.numel() for p in model.parameters())
         comm.calls.clear()
+        bn.batch_norm_act_fwd.launches = bn.batch_norm_act_bwd.launches = 0
         updater, step_ms, losses, peak, launches = timed_trainer_run(
             opt, shard, RESNET_BATCH, RESNET_STEPS, "chip_smoke_resnet")
+        bn_launches = {"fwd": bn.batch_norm_act_fwd.launches,
+                       "bwd": bn.batch_norm_act_bwd.launches}
         median_ms = float(np.median(step_ms[RESNET_WARMUP:]))
         images_per_s = RESNET_BATCH / (median_ms * 1e-3)
         flops = resnet50_train_flops_per_image(RESNET_IMAGE)
@@ -2401,7 +2611,7 @@ def phase_train_resnet():
             "images_per_s": images_per_s, "flops_per_image": flops,
             "mfu": flops * images_per_s / PEAK_FLOPS[torch.bfloat16],
             "losses": losses, "peak_bytes": peak, "launches": launches,
-            "cudnn_benchmark": benchmark,
+            "bn_launches": bn_launches, "cudnn_benchmark": benchmark,
             "communicator": comm.name, "world": comm.size,
             "backend": dist.get_backend(),
             "wire_dtype": str(comm.allreduce_grad_dtype),
@@ -2441,6 +2651,10 @@ def phase_train_resnet():
         fail(f"ResNet-50 losses {losses}, {bench_losses}")
     if launches != expected_launches():
         fail(f"the ResNet-50 step launched flash kernels: {launches}")
+    if bn_launches != {"fwd": 53 * RESNET_STEPS, "bwd": 53 * RESNET_STEPS}:
+        fail(f"the ResNet-50 step's 53 batch norms did not each launch the "
+             f"fused kernels once a step each way: {bn_launches} over "
+             f"{RESNET_STEPS} steps")
     if len(buckets) != 1 or row["grad_allreduces"] != RESNET_STEPS \
             or comm.allreduce_grad_dtype != torch.bfloat16:
         fail(f"expected one flat bf16 gradient allreduce per step: "
@@ -6397,6 +6611,7 @@ def main():
     phase_train_parity()
     phase_train_dp_parity()
     torch.cuda.empty_cache()
+    bn_checks, bn_times = phase_kernel_bn()
     resnet_row = phase_train_resnet()
     for i, phase in enumerate(RESNET_EXCHANGE_ORDER):
         torch.cuda.empty_cache()
@@ -6503,7 +6718,8 @@ def main():
         ("dq", "chainermn_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
          "chainermn_tpu/ops/flash_attention.py:146"),
         ("dkv", "chainermn_tpu_torch/csrc/flash_bwd_sm90.cu",
-         "chainermn_tpu/ops/flash_attention.py:187")]]})
+         "chainermn_tpu/ops/flash_attention.py:187")]] + bn_kernel_rows(
+             bn_checks, bn_times, resnet_row["bn_launches"])})
     emit({"phase": "total", "seconds": time.perf_counter() - T_START,
           "profile_missed_launches": dict(PROFILE_MISSED)})
     print(smi, flush=True)

@@ -22,7 +22,8 @@ killed and joined on the card against the same fleet on the CPU, each
 fleet's joiner on the other device; and some of the last ``F`` and ``L``
 surface (padding, clipping, unpooling, resizing, the five links in and
 out of a ``Sequential``) and the numpy bridge on the card against the
-CPU.
+CPU; the fused batch-norm kernels (``ops/batch_norm.py``) against their
+plain version, and a ResNet-50 bf16 step through them.
 
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -34,6 +35,7 @@ Without a card every test skips (the kernels have no CPU mode).
 import importlib
 import json
 import os
+import statistics
 
 import numpy as np
 import pytest
@@ -1722,7 +1724,6 @@ def test_span_clock_and_device_twins_agree_with_the_profiler(cuda_device,
     median), and each device twin, placed from its anchor, holds the
     kernel launched inside it and ends within 200 µs of the kernel's end
     (its start waits for the host's launch: no bound)."""
-    import statistics
     from torch.profiler import ProfilerActivity, profile
     from chainermn_tpu_torch import observability as obs
     from chainermn_tpu_torch.tools import trace_merge
@@ -1768,3 +1769,263 @@ def test_span_clock_and_device_twins_agree_with_the_profiler(cuda_device,
     for b, e, (k0, k1) in zip(begins, ends, kernels):
         assert b - 200 <= k0 and k1 <= e + 200 and e - k1 <= 200, \
             (b, e, k0, k1)
+
+
+# -- batch norm with its activation (ops/batch_norm.py) -----------------------
+
+bn = importlib.import_module("chainermn_tpu_torch.ops.batch_norm")
+
+# (shape, name): conv1's (C 64, 112^2, batch 4); res5's (C 2048, 7^2, batch
+# 16); a row count that is no multiple of a block's 32 rows nor of a split,
+# and C 136, whose last channel tile holds one live group of 8; the 2-D
+# (N, C) case
+BN_SHAPES = [((4, 112, 112, 64), "conv1"), ((16, 7, 7, 2048), "res5"),
+             ((3, 13, 11, 136), "ragged"), ((50, 520), "2d")]
+BN_ACTS = ["none", "relu", "residual"]
+# fp32 against the plain version on the card: the kernels take Welford
+# moments and sum in another order (the plain version: E[x^2] - mean^2 and
+# torch's tree sums), so y and dx differ by fp32 rounding of the
+# statistics (|x^| <= ~5 here): 2e-5 of the largest |ref| for y, mean and
+# var, the running statistics and dx; the parameters' gradients sum
+# 6e3-2e5 terms in other orders: 1e-4 of their largest |ref|.
+BN_TOL, BN_SUM_TOL = 2e-5, 1e-4
+
+
+def _bn_case(shape, act, dtype, device, seed, plant=False):
+    """Inputs from numpy: x with channel means up to 2 and stds 0.5-2,
+    gamma, beta, the running statistics, the residual (act "residual")
+    and dy.  Where the float64 pre-activation lies within 1e-3 of the ReLU's
+    kink, dy is 0, so a last-bit difference of the two sides' statistics
+    cannot flip a mask.  ``plant``: channel 0 is constant 0.5 with beta 0
+    (and residual 0), so its pre-activation is exactly 0 on both sides."""
+    rng = np.random.RandomState(seed)
+    C = shape[-1]
+    x = (rng.normal(0, 1, shape) * rng.uniform(0.5, 2, C)
+         + rng.uniform(-2, 2, C))
+    gamma = rng.uniform(0.5, 1.5, C)
+    beta = rng.normal(0, 0.5, C)
+    s = rng.normal(0, 1, shape) if act == "residual" else None
+    if plant:
+        x[..., 0] = 0.5
+        beta[0] = 0.0
+        if s is not None:
+            s[..., 0] = 0.0
+    dt = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    x = torch.from_numpy(x.astype(np.float32)).to(dt)
+    if s is not None:
+        s = torch.from_numpy(s.astype(np.float32)).to(dt)
+    x64 = x.double().numpy()
+    axes = tuple(range(len(shape) - 1))
+    mean, var = x64.mean(axes), x64.var(axes)
+    pre = (x64 - mean) / np.sqrt(var + 2e-5) * gamma + beta
+    if s is not None:
+        pre = pre + s.double().numpy()
+    dy = rng.normal(0, 1, shape)
+    if act != "none":
+        near = np.abs(pre) < 1e-3
+        if plant:
+            near[..., 0] = False
+        dy[near] = 0.0
+    dy = torch.from_numpy(dy.astype(np.float32)).to(dt)
+
+    def dev(a):
+        return None if a is None else a.to(device)
+
+    vec = [torch.from_numpy(a.astype(np.float32)).to(device)
+           for a in (gamma, beta, rng.normal(0, 1, C), rng.uniform(1, 2, C))]
+    return dev(x), vec[0], vec[1], vec[2], vec[3], dev(s), dev(dy)
+
+
+def _bn_run(fn, x, gamma, beta, avg_mean, avg_var, s, dy, act):
+    """``fn`` (batch_norm_act or its plain version) forward and backward
+    on fresh leaves and copies of the running statistics: y, mean, var,
+    both running statistics, dx, dgamma, dbeta and ds (or None)."""
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, gamma, beta) + ((s,) if s is not None else ())]
+    am, av = avg_mean.clone(), avg_var.clone()
+    y, mean, var = fn(leaves[0], leaves[1], leaves[2], am, av, eps=2e-5,
+                      decay=0.9, relu=act != "none",
+                      residual=leaves[3] if s is not None else None)
+    y.backward(dy)
+    return [y.detach(), mean, var, am, av] + [l.grad for l in leaves] + (
+        [] if s is not None else [None])
+
+
+def _rel(got, want):
+    """Largest |got - want| over the largest |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", BN_ACTS)
+@pytest.mark.parametrize("shape,name", BN_SHAPES)
+def test_batch_norm_kernels_match_plain(cuda_device, shape, name, act):
+    """fp32: the fused kernels (forward, running statistics, backward)
+    against the plain version on the card, each output within its
+    tolerance (``BN_TOL``, ``BN_SUM_TOL``)."""
+    case = _bn_case(shape, act, torch.float32, cuda_device, seed=len(name))
+    got = _bn_run(bn.batch_norm_act, *case, act)
+    want = _bn_run(bn.batch_norm_act_plain, *case, act)
+    names = ["y", "mean", "var", "avg_mean", "avg_var", "dx", "dgamma",
+             "dbeta", "ds"]
+    for what, g, w in zip(names, got, want):
+        if w is None:
+            assert g is None, what
+            continue
+        tol = BN_SUM_TOL if what in ("dgamma", "dbeta") else BN_TOL
+        assert _rel(g, w) <= tol, (what, _rel(g, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["relu", "residual"])
+def test_batch_norm_kernel_relu_gradient_is_half_at_zero(cuda_device, act):
+    """A channel whose pre-activation is exactly 0 (constant input, beta
+    0, residual 0) passes half of dy, as ``F.relu``: its y is 0, ds is
+    dy / 2 bitwise, dbeta half the sum of dy, and dx as the plain version's
+    on the CPU (on the card the plain mean, a sum times 1/m, misses the
+    constant by an ulp, so there the kink is not hit)."""
+    case = _bn_case((6, 9, 9, 64), act, torch.float32, cuda_device, seed=3,
+                    plant=True)
+    got = [None if t is None else t.cpu()
+           for t in _bn_run(bn.batch_norm_act, *case, act)]
+    want = _bn_run(bn.batch_norm_act_plain,
+                   *[None if t is None else t.cpu() for t in case], act)
+    dy = case[-1][..., 0].cpu()
+    assert torch.equal(got[0][..., 0], torch.zeros_like(got[0][..., 0]))
+    scale = dy.abs().sum().item()
+    assert abs(got[7][0].item() - 0.5 * dy.sum().item()) <= 1e-5 * scale
+    assert abs(got[7][0].item() - want[7][0].item()) <= 1e-5 * scale
+    if act == "residual":
+        assert torch.equal(got[8][..., 0], 0.5 * dy)
+        assert torch.equal(got[8][..., 0], want[8][..., 0])
+    assert _rel(got[5][..., 0], want[5][..., 0]) <= BN_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(4, 112, 112, 64), (16, 7, 7, 2048)])
+def test_batch_norm_kernels_are_deterministic_and_counted(cuda_device,
+                                                          shape, dtype):
+    """Two identical calls give bitwise the same outputs and gradients
+    (the partials merge in a fixed order, no float atomics), and each
+    forward and each backward counts one launch."""
+    case = _bn_case(shape, "residual", dtype, cuda_device, seed=7)
+    f0, b0 = bn.batch_norm_act_fwd.launches, bn.batch_norm_act_bwd.launches
+    runs = [_bn_run(bn.batch_norm_act, *case, "residual") for _ in range(2)]
+    assert bn.batch_norm_act_fwd.launches == f0 + 2
+    assert bn.batch_norm_act_bwd.launches == b0 + 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_batch_norm_kernels_take_strided_inputs_by_copy(cuda_device):
+    """A channel slice of a wider NHWC tensor (not contiguous) and a view
+    4 bytes off alignment run the kernels on a contiguous copy: outputs,
+    statistics and gradients bitwise those of the call on x itself, the
+    gradient flowing back through the view."""
+    x, gamma, beta, am, av, s, dy = _bn_case((4, 14, 14, 64), "residual",
+                                             torch.float32, cuda_device,
+                                             seed=5)
+    views = [lambda t: torch.cat([t, t], dim=-1)[..., :64],
+             lambda t: torch.cat([t.new_zeros(1), t.reshape(-1)])[1:]
+             .view(t.shape)]
+    for view in views:
+        runs = []
+        for strided in (True, False):
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in (x, gamma, beta, s)]
+            xin = view(leaves[0]) if strided else leaves[0]
+            assert strided != (xin.is_contiguous()
+                               and xin.data_ptr() % 16 == 0)
+            y, mean, var = bn.batch_norm_act(
+                xin, leaves[1], leaves[2], am.clone(), av.clone(),
+                relu=True, residual=leaves[3])
+            y.backward(dy)
+            runs.append([y, mean, var] + [t.grad for t in leaves])
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_batch_norm_bf16_kernels_track_the_fp32_plain_version(cuda_device):
+    """bf16 in and out: y and dx round once from fp32 arithmetic, so
+    against the fp32 plain version on the same (bf16-valued) inputs they
+    sit within a bf16 rounding (2 ** -8 of the largest |ref|); the fp32
+    statistics and parameters' gradients within the fp32 tolerances."""
+    case = _bn_case((8, 28, 28, 256), "residual", torch.bfloat16,
+                    cuda_device, seed=11)
+    got = _bn_run(bn.batch_norm_act, *case, "residual")
+    as32 = [None if t is None else t.float() if t.dtype == torch.bfloat16
+            else t for t in case]
+    want = _bn_run(bn.batch_norm_act_plain, *as32, "residual")
+    assert got[0].dtype == torch.bfloat16 and got[5].dtype == torch.bfloat16
+    for i in (0, 5, 8):
+        assert _rel(got[i], want[i]) <= 2.0 ** -8, i
+    for i in (1, 2, 3, 4):
+        assert _rel(got[i], want[i]) <= BN_TOL, i
+    for i in (6, 7):
+        assert _rel(got[i], want[i]) <= BN_SUM_TOL, i
+
+
+@pytest.mark.gpu
+def test_resnet50_bf16_step_through_the_kernels(cuda_device, monkeypatch):
+    """One ResNet-50 NHWC bf16 training step (batch 8, 64^2 images) through
+    the fused kernels and through the plain batch norm, each against the
+    same step in fp32 on the plain path (TF32 off).  Every batch norm runs
+    the kernels (53 forward and 53 backward launches).  Both bf16 steps
+    stray from fp32 (a 50-layer chain of bf16 roundings); the kernels'
+    no further than the plain batch norm's, with 1.25 x of room: the
+    loss (or within 1e-2 relative of fp32), and the gradients leaf by
+    leaf as |g - g32| / |g32|, the median leaf and the worst (fp32 sums
+    in place of bf16 ones)."""
+    from chainermn_tpu_torch.models import Classifier, ResNet50
+    from chainermn_tpu_torch.nn import links as L
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randint(0, 256, (8, 64, 64, 3)).astype(
+        np.uint8)).to(cuda_device)
+    t = torch.from_numpy(rng.randint(0, 1000, 8)).to(cuda_device)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def step(dtype, fused):
+        model = Classifier(ResNet50(compute_dtype=dtype, layout="NHWC",
+                                    input_norm="imagenet",
+                                    device=cuda_device))
+        with monkeypatch.context() as m:
+            if not fused:
+                m.setattr(L.BatchNormalization, "_takes_kernel",
+                          lambda *a: False)
+            f0 = bn.batch_norm_act_fwd.launches
+            b0 = bn.batch_norm_act_bwd.launches
+            loss = model(x, t)
+            loss.backward()
+            torch.cuda.synchronize()
+            n = (bn.batch_norm_act_fwd.launches - f0,
+                 bn.batch_norm_act_bwd.launches - b0)
+        grads = {p: v.grad.float() for p, v in model.namedparams()}
+        return loss.item(), grads, n
+
+    try:
+        loss32, g32, _ = step(None, False)
+        loss_k, g_k, n_k = step(torch.bfloat16, True)
+        loss_p, g_p, n_p = step(torch.bfloat16, False)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    assert n_k == (53, 53) and n_p == (0, 0)
+    assert abs(loss_k - loss32) <= max(1.25 * abs(loss_p - loss32),
+                                       1e-2 * abs(loss32)), (
+        loss_k, loss_p, loss32)
+
+    def errs(g):
+        return sorted(((g[p] - g32[p]).norm() / g32[p].norm().clamp_min(
+            1e-30)).item() for p in g32)
+
+    e_k, e_p = errs(g_k), errs(g_p)
+    assert statistics.median(e_k) <= 1.25 * statistics.median(e_p), (
+        statistics.median(e_k), statistics.median(e_p))
+    assert e_k[-1] <= 1.25 * e_p[-1], (e_k[-1], e_p[-1])

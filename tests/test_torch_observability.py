@@ -1184,8 +1184,9 @@ def test_scope_full_opens_record_function_and_records_nothing(
 
 def test_conv_bn_bitwise_the_same_off_and_full(tmp_path):
     """``ConvBN`` forward and backward (its batch norm and ReLU inside
-    ``model/bn_act``) and a residual block read bitwise the same with
-    tracing off and under ``full`` in a profiler capture."""
+    ``model/bn_act``) and a residual block (whose residual add and ReLU
+    run in its last ``ConvBN``'s ``model/bn_act``) read bitwise the same
+    with tracing off and under ``full`` in a profiler capture."""
     from torch.profiler import ProfilerActivity, profile
     from chainermn_tpu_torch.models.resnet import BottleneckBlock, ConvBN
 
@@ -1217,7 +1218,7 @@ def test_conv_bn_bitwise_the_same_off_and_full(tmp_path):
         assert all(torch.equal(a, b) for a, b in zip(want[name], got[name]))
     ranges = {e.name() for e in prof.profiler.kineto_results.events()
               if e.is_user_annotation()}
-    assert {"model.bn_act", "model.residual_act"} <= ranges
+    assert "model.bn_act" in ranges and "model.residual_act" not in ranges
 
 
 # -- the joiner's backward pass -----------------------------------------------------
